@@ -1,0 +1,104 @@
+"""CubeNET, eval form (port of hyperpri_tpu/models/cubenet.py:39-179).
+
+The reference's Conv3d(1, first_depth, (hsi_depth, 3, 3), padding (0, 1, 1))
+over the whole spectral depth is one 3x3 2D conv with `hsi_depth` input
+channels, followed by inc2 (conv + BN + ReLU) and a U-Net at C=128:
+31,178,881 parameters at hsi_depth=238, first_depth=64, bilinear=False.
+
+Input (N, H, W, hsi_depth) NHWC; output (N, H, W, n_classes) float32 logits.
+With `fused_bn` the model takes the state dict of ops/fold_bn.py and every 3x3
+conv is a ServingConv3x3; `use_kernels` (JAX's `use_pallas`) lets those convs
+take the conv3x3_packed kernel where `packed_serving_route` allows.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hyperpri_tpu_torch.models.parts import (
+    Conv3x3,
+    ConvTransposeUp,
+    DoubleConv,
+    Down,
+    OutConv,
+    ServingConv3x3,
+    TorchBatchNorm,
+    Up,
+    _Conv,
+    pad_to_match,
+    upsample2x_align_corners,
+)
+
+
+class CubeNET(nn.Module):
+    def __init__(self, hsi_depth: int = 238, n_classes: int = 1, first_depth: int = 64,
+                 bilinear: bool = False, fused_bn: bool = False,
+                 use_kernels: bool = False, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hsi_depth = hsi_depth
+        self.bilinear = bilinear
+        self.fused_bn = fused_bn
+        self.dtype = dtype
+        fd, c = first_depth, 128
+        factor = 2 if bilinear else 1
+        kw = dict(fused_bn=fused_bn, use_kernels=use_kernels, dtype=dtype)
+
+        if fused_bn:
+            self.first_conv = ServingConv3x3(hsi_depth, fd, use_kernels, dtype)
+            self.inc2_conv = ServingConv3x3(fd, fd, use_kernels, dtype)
+        else:
+            self.first_conv = Conv3x3(hsi_depth, fd, dtype)
+            self.first_bn = TorchBatchNorm(fd)
+            self.inc2_conv = Conv3x3(fd, fd, dtype)
+            self.inc2_bn = TorchBatchNorm(fd)
+        self.down1 = Down(fd, c, **kw)
+        self.down2 = Down(c, c * 2, **kw)
+        self.down3 = Down(c * 2, c * 4, **kw)
+        self.down4 = Down(c * 4, c * 8 // factor, **kw)
+        self.up1 = Up(c * 8, c * 4, bilinear, **kw)
+        self.up2 = Up(c * 4, c * 2, bilinear, **kw)
+        self.up3 = Up(c * 2, c, bilinear, **kw)
+        if fd == 64:
+            self.up4 = Up(c, 64 * factor, bilinear, **kw)
+        else:
+            # Alternate head for first_depth != 64 (cubenet.py:162-172):
+            # upsample, center-pad, concat [x1, y], DoubleConv -> 64.
+            self.up4 = None
+            if not bilinear:
+                self.upsample4 = ConvTransposeUp(c, 64, dtype)
+            self.upconv4 = DoubleConv(fd + 64, 64, 64, **kw)
+        self.outc = OutConv(64, n_classes, dtype)
+        if generator is not None:
+            for m in self.modules():
+                if isinstance(m, _Conv):
+                    m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.hsi_depth:
+            raise ValueError(f"CubeNET expects {self.hsi_depth} bands (NHWC), "
+                             f"got shape {tuple(x.shape)}")
+        x = x.to(self.dtype)
+        if self.fused_bn:
+            x1 = self.inc2_conv(self.first_conv(x))
+        else:
+            x1 = F.relu(self.first_bn(self.first_conv(x))).to(self.dtype)
+            x1 = F.relu(self.inc2_bn(self.inc2_conv(x1))).to(self.dtype)
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        x5 = self.down4(x4)
+        y = self.up1(x5, x4)
+        y = self.up2(y, x3)
+        y = self.up3(y, x2)
+        if self.up4 is not None:
+            y = self.up4(y, x1)
+        else:
+            y = upsample2x_align_corners(y) if self.bilinear else self.upsample4(y)
+            y = pad_to_match(y, x1.shape[1], x1.shape[2])
+            y = self.upconv4(torch.cat([x1, y], dim=-1))
+        return self.outc(y).float()

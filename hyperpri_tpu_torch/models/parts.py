@@ -1,0 +1,238 @@
+"""U-Net building blocks, eval forms (port of hyperpri_tpu/models/parts.py).
+
+Modules take and return NHWC tensors, as the JAX package's do. Inside,
+`x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor is the zero-copy
+channels_last NCHW view that F.conv2d, F.max_pool2d and F.conv_transpose2d
+take, and the buffer layout the CUDA kernel reads. Parameters are float32 in
+torch layouts; each module computes in its `dtype` (bf16 when serving), and
+BatchNorm statistics stay float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import conv3x3_packed
+from hyperpri_tpu_torch.ops.pool import max_pool_2x2
+
+BN_EPS = 1e-5
+
+# Serving route gates of hyperpri_tpu/models/parts.py:558-568: full-resolution
+# maps with wide inputs and narrow outputs take the conv3x3_packed kernel.
+SERVING_MIN_PIXELS = 140_000
+SERVING_MIN_CHANNELS = 33
+SERVING_MAX_OUT = 64
+
+
+def packed_serving_route(h: int, w: int, c: int, o: int) -> bool:
+    """True iff ServingConv3x3 sends this layer to conv3x3_packed
+    (`_packed_serving_route`, parts.py:561; the kernel wrapper dispatches by
+    device, so there is no backend clause)."""
+    return h * w >= SERVING_MIN_PIXELS and c >= SERVING_MIN_CHANNELS and o <= SERVING_MAX_OUT
+
+
+def _conv2d(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
+    """F.conv2d on NHWC in and out, through the channels_last view."""
+    return F.conv2d(x.permute(0, 3, 1, 2), weight, **kwargs).permute(0, 2, 3, 1)
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's lecun_normal: a normal truncated at two deviations, scaled so
+    that its variance is 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
+class _Conv(nn.Module):
+    """Weight and bias of a conv layer, with flax's init."""
+
+    def __init__(self, weight_shape, out_channels: int, fan_in: int, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(weight_shape))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.fan_in = fan_in
+        self.dtype = dtype
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            lecun_normal_(self.weight, self.fan_in, generator)
+            self.bias.zero_()
+
+
+class Conv3x3(_Conv):
+    """3x3 SAME conv + bias, the eval route of parts.py:250 Conv3x3
+    (:436-443): the bias is added in the compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32):
+        super().__init__((out_channels, in_channels, 3, 3), out_channels,
+                         9 * in_channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _conv2d(x.to(self.dtype), self.weight.to(self.dtype), padding=1)
+        return y + self.bias.to(self.dtype)
+
+
+class ServingConv3x3(_Conv):
+    """relu(conv3x3_SAME(x) + b) of the folded serving model: port of
+    parts.py:593 PallasConv3x3 (:648-668). Layers that pass
+    `packed_serving_route` go to the conv3x3_packed kernel, which adds the
+    bias in float32 before rounding; the rest go to F.conv2d with the bias
+    added in the compute dtype, as the JAX route does."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_kernels: bool = True,
+                 dtype=torch.float32):
+        super().__init__((out_channels, in_channels, 3, 3), out_channels,
+                         9 * in_channels, dtype)
+        self.use_kernels = use_kernels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, h, w, c = x.shape
+        o = self.weight.shape[0]
+        x = x.to(self.dtype)
+        if self.use_kernels and packed_serving_route(h, w, c, o):
+            return conv3x3_packed(x.contiguous(),
+                                  self.weight.permute(2, 3, 1, 0).to(self.dtype),
+                                  self.bias.float(), relu=True)
+        y = _conv2d(x, self.weight.to(self.dtype), padding=1) + self.bias.to(self.dtype)
+        return F.relu(y)
+
+
+class Conv1x1(_Conv):
+    """1x1 conv + bias (flax nn.Conv (1, 1)), in the compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32):
+        super().__init__((out_channels, in_channels, 1, 1), out_channels,
+                         in_channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv2d(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+
+
+class ConvTransposeUp(_Conv):
+    """ConvTranspose 2x2, stride 2 (parts.py:489-506). The weight is in torch's
+    (C, O, 2, 2) layout: flax's (2, 2, C, O) kernel, flipped on both spatial
+    axes (weights.py does the conversion)."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32):
+        super().__init__((in_channels, out_channels, 2, 2), out_channels,
+                         4 * in_channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                               self.weight.to(self.dtype), stride=2)
+        return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)
+
+
+class TorchBatchNorm(nn.Module):
+    """BatchNorm eval form (parts.py:125-194): running statistics, eps 1e-5,
+    float32 arithmetic; returns float32."""
+
+    def __init__(self, features: int, eps: float = BN_EPS):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps)
+        return (x.float() - self.running_mean) * inv * self.weight + self.bias
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsampling, align_corners=True, NHWC (parts.py:197-226)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
+                      align_corners=True)
+    return y.permute(0, 2, 3, 1)
+
+
+def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
+    """Center-pad NHWC x to (target_h, target_w): top/left get floor(diff/2)
+    (parts.py:229-247)."""
+    dy = target_h - x.shape[1]
+    dx = target_w - x.shape[2]
+    if dy == 0 and dx == 0:
+        return x
+    return F.pad(x, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 -> BN -> ReLU) * 2 (parts.py:671-759). Folded (`fused_bn`), each
+    half is one ServingConv3x3."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 mid_channels: Optional[int] = None, fused_bn: bool = False,
+                 use_kernels: bool = False, dtype=torch.float32):
+        super().__init__()
+        mid = mid_channels if mid_channels is not None else out_channels
+        self.fused_bn = fused_bn
+        self.dtype = dtype
+        if fused_bn:
+            self.conv1 = ServingConv3x3(in_channels, mid, use_kernels, dtype)
+            self.conv2 = ServingConv3x3(mid, out_channels, use_kernels, dtype)
+        else:
+            self.conv1 = Conv3x3(in_channels, mid, dtype)
+            self.bn1 = TorchBatchNorm(mid)
+            self.conv2 = Conv3x3(mid, out_channels, dtype)
+            self.bn2 = TorchBatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_bn:
+            return self.conv2(self.conv1(x))
+        x = F.relu(self.bn1(self.conv1(x))).to(self.dtype)
+        return F.relu(self.bn2(self.conv2(x))).to(self.dtype)
+
+
+class Down(nn.Module):
+    """2x2 max pool -> DoubleConv (parts.py:762-789)."""
+
+    def __init__(self, in_channels: int, out_channels: int, fused_bn: bool = False,
+                 use_kernels: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.conv = DoubleConv(in_channels, out_channels, fused_bn=fused_bn,
+                               use_kernels=use_kernels, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(max_pool_2x2(x))
+
+
+class Up(nn.Module):
+    """Upsample -> center-pad -> concat [skip, x] -> DoubleConv (parts.py:792-845).
+    `in_channels` is the channel count after the concat, which is also the
+    deeper input's count on the ConvTranspose path."""
+
+    def __init__(self, in_channels: int, out_channels: int, bilinear: bool = False,
+                 fused_bn: bool = False, use_kernels: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.bilinear = bilinear
+        if bilinear:
+            self.conv = DoubleConv(in_channels, out_channels // 2, in_channels // 2,
+                                   fused_bn, use_kernels, dtype)
+        else:
+            self.up = ConvTransposeUp(in_channels, in_channels // 2, dtype)
+            self.conv = DoubleConv(in_channels, out_channels, None, fused_bn,
+                                   use_kernels, dtype)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        x1 = upsample2x_align_corners(x1) if self.bilinear else self.up(x1)
+        x1 = pad_to_match(x1, x2.shape[1], x2.shape[2])
+        return self.conv(torch.cat([x2, x1], dim=-1))
+
+
+class OutConv(nn.Module):
+    """1x1 conv head, eval form (parts.py:883-893)."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv1x1(in_channels, out_channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)

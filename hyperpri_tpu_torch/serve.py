@@ -1,0 +1,103 @@
+"""CubeNET-64 serving: the folded bf16 model answering request batches.
+
+Ports the eval pieces of hyperpri_tpu/train/trainer.py: `masked_bce` and
+`_batch_stats_metrics` (:118-146), `make_eval_step` (:229-246) and the
+logits `predict` hands back (:652-664).
+
+A request batch is a dict of tensors on the model's device: `image`
+(N, H, W, 238), `mask` (N, H, W, 1) of 0/1 targets and `valid` (N,), which is
+0 for padding entries of a fixed-size batch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from hyperpri_tpu_torch._device import resolve_device
+from hyperpri_tpu_torch.models.cubenet import CubeNET
+from hyperpri_tpu_torch.models.parts import TorchBatchNorm
+from hyperpri_tpu_torch.ops.fold_bn import fold_batch_norm
+from hyperpri_tpu_torch.ops.losses import bce_with_logits
+from hyperpri_tpu_torch.ops.metrics import StatScores
+
+HSI_DEPTH = 238
+FIRST_DEPTH = 64
+THRESHOLD = 0.5
+
+
+def _squeeze_last(*tensors):
+    """Drop a trailing size-1 channel axis (trainer.py:118-128)."""
+    return tuple(t[..., 0] if t.dim() >= 3 and t.shape[-1] == 1 else t for t in tensors)
+
+
+def masked_bce(logits: torch.Tensor, targets: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """Mean BCE over the valid samples only (trainer.py:131-139)."""
+    logits, targets = _squeeze_last(logits, targets)
+    per = bce_with_logits(logits, targets, reduction="none")
+    w = valid.reshape((-1,) + (1,) * (per.dim() - 1)).float()
+    denom = torch.clamp_min(w.sum() * math.prod(per.shape[1:]), 1.0)
+    return (per * w).sum() / denom
+
+
+def batch_stats_metrics(logits: torch.Tensor, mask: torch.Tensor, valid: torch.Tensor,
+                        threshold: float) -> StatScores:
+    """Confusion counts of sigmoid(logits) > threshold over valid samples
+    (trainer.py:142-146)."""
+    logits, mask = _squeeze_last(logits, mask)
+    v = valid.reshape((-1,) + (1,) * (mask.dim() - 1)) > 0
+    return StatScores.zeros(logits.device).update(torch.sigmoid(logits), mask,
+                                                  threshold, valid=v)
+
+
+def random_cubenet(seed: int, dtype=torch.bfloat16) -> CubeNET:
+    """Unfolded CubeNET on the CPU with weights drawn from `seed`: flax's
+    init for the convs, then seeded BatchNorm affines and running statistics,
+    so that folding them is not close to the identity."""
+    g = torch.Generator().manual_seed(seed)
+    model = CubeNET(HSI_DEPTH, 1, FIRST_DEPTH, dtype=dtype, generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, TorchBatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(torch.empty(n).uniform_(0.8, 1.2, generator=g))
+                m.bias.copy_(torch.empty(n).normal_(0.0, 0.1, generator=g))
+                m.running_mean.copy_(torch.empty(n).normal_(0.0, 0.2, generator=g))
+                m.running_var.copy_(torch.empty(n).uniform_(0.5, 2.0, generator=g))
+    return model
+
+
+class CubeNetServer:
+    """Answers request batches with one model (`make_eval_step` semantics:
+    the counts threshold sigmoid(logits) at 0.5, as validation does)."""
+
+    def __init__(self, model: CubeNET):
+        self.model = model.eval()
+
+    @torch.inference_mode()
+    def serve(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        """-> {"logits": (N, H, W, 1) f32, "loss_sum", "n", "stats": StatScores}."""
+        logits = self.model(batch["image"])
+        loss = masked_bce(logits, batch["mask"], batch["valid"])
+        stats = batch_stats_metrics(logits, batch["mask"], batch["valid"], THRESHOLD)
+        n = batch["valid"].sum()
+        return {"logits": logits, "loss_sum": loss * n, "n": n, "stats": stats}
+
+
+def build_cubenet_server(seed: int = 0, device=None, folded: bool = True,
+                         use_kernels: bool = True, dtype=torch.bfloat16) -> CubeNetServer:
+    """CubeNET-64 with random weights from `seed`, on `device` (None: the CUDA
+    card, raising without one). `folded` serves the BatchNorm-folded model,
+    whose full-resolution narrow convs take the conv3x3_packed kernel when
+    `use_kernels`; unfolded, it is the plain eval model."""
+    device = resolve_device(device)
+    model = random_cubenet(seed, dtype)
+    if folded:
+        state = fold_batch_norm(model.state_dict())
+        model = CubeNET(HSI_DEPTH, 1, FIRST_DEPTH, fused_bn=True,
+                        use_kernels=use_kernels, dtype=dtype)
+        model.load_state_dict(state, strict=True)
+    return CubeNetServer(model.to(device))

@@ -1,0 +1,81 @@
+"""Carry the JAX package's flax variables into the port's modules.
+
+The flax trees arrive as nested dicts of numpy arrays keyed exactly like the
+flax tree (`first_conv/kernel`, `down1/conv/conv1/kernel`, `up1/up/kernel`,
+`outc/conv/kernel`, ...). A port module's dotted name is its flax path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from hyperpri_tpu_torch.models.parts import ConvTransposeUp, TorchBatchNorm, _Conv
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat: Dict[str, np.ndarray] = {}
+    for name, child in tree.items():
+        path = f"{prefix}/{name}" if prefix else name
+        if isinstance(child, dict):
+            flat.update(_flatten(child, path))
+        else:
+            flat[path] = np.asarray(child)
+    return flat
+
+
+def _torch_leaves(module: nn.Module):
+    """(torch leaf, collection, flax leaf, layout transform) for one module."""
+    if isinstance(module, TorchBatchNorm):
+        return [("weight", "params", "scale", None), ("bias", "params", "bias", None),
+                ("running_mean", "batch_stats", "mean", None),
+                ("running_var", "batch_stats", "var", None)]
+    if isinstance(module, ConvTransposeUp):
+        # flax (2, 2, C, O) under lax.conv_transpose is unflipped; torch's
+        # ConvTranspose2d weight is (C, O, 2, 2) of the spatially flipped kernel.
+        def convt(k):
+            return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+        return [("weight", "params", "kernel", convt), ("bias", "params", "bias", None)]
+    if isinstance(module, _Conv):
+        def conv(k):
+            return np.transpose(k, (3, 2, 0, 1))  # HWIO -> OIHW
+        return [("weight", "params", "kernel", conv), ("bias", "params", "bias", None)]
+    return []
+
+
+def load_jax_variables(model: nn.Module, params: dict,
+                       batch_stats: Optional[dict] = None) -> nn.Module:
+    """Fill `model` from flax `params` (and `batch_stats` for an unfolded
+    model). Raises if a flax leaf goes unused, a port parameter or buffer is
+    left unfilled, or a shape disagrees."""
+    trees = {"params": _flatten(params), "batch_stats": _flatten(batch_stats or {})}
+    used = {"params": set(), "batch_stats": set()}
+    state: Dict[str, torch.Tensor] = {}
+    for name, module in model.named_modules():
+        for leaf, collection, flax_leaf, transform in _torch_leaves(module):
+            path = "/".join(name.split(".") + [flax_leaf]) if name else flax_leaf
+            key = f"{name}.{leaf}" if name else leaf
+            if path not in trees[collection]:
+                raise KeyError(f"{collection} has no {path} for {key}")
+            value = trees[collection][path]
+            if transform is not None:
+                value = transform(value)
+            state[key] = torch.tensor(np.ascontiguousarray(value, dtype=np.float32))
+            used[collection].add(path)
+    for collection, flat in trees.items():
+        unused = sorted(set(flat) - used[collection])
+        if unused:
+            raise ValueError(f"unused {collection} leaves: {unused}")
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(state))
+    if missing:
+        raise ValueError(f"port entries not filled: {missing}")
+    for key, value in state.items():
+        if tuple(value.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{key}: flax shape {tuple(value.shape)} != port shape "
+                             f"{tuple(expected[key].shape)}")
+    model.load_state_dict(state, strict=True)
+    return model
