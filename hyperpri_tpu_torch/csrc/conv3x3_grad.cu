@@ -1,0 +1,163 @@
+// Weight gradient of a 3x3 SAME convolution for NHWC bf16 activations.
+//
+// Replaces the TPU kernel hyperpri_tpu/ops/pallas/conv3x3_grad.py:conv3x3_wgrad:
+//
+//     dW[dh,dw,c,o] = sum_{n,h,w} z[n,h+dh-1,w+dw-1,c] * g[n,h,w,o]      (f32)
+//
+// with z = x, or z = relu(pa*x + pb) recomputed from the raw x while it is
+// staged (rounded to bf16, in-image pixels only; outside the image z is zero).
+//
+// Bound. 2*N*H*W*9*C*O FLOP against x and g read once (bf16) and dW written
+// (f32): with ~1.18 M pixels at full resolution that is 9*C*O/(C+O) FLOP per
+// byte again (454 at 238x64), above the ~295 FLOP/byte ridge of an H100:
+// bound by operations.
+//
+// Design. For each tap this is a GEMM with M = C, N = O and the pixels as the
+// reduction axis K, which here is the long one. The TPU kernel keeps all of dW
+// resident while a sequential grid walks the image; blocks on a GPU run in no
+// order, so the reduction is split:
+//   - blockIdx = (pixel split, C tile of 64, O tile of 64). A block walks the
+//     8x32 pixel tiles of its split; for each it stages the (8+2)x(32+2)x64
+//     halo of z and the 8x32x64 tile of g in shared memory (zero outside the
+//     image and past C or O, so the loops have no masks);
+//   - each of the 8 warps owns 16 input channels by 32 output channels for all
+//     nine taps (144 f32 accumulators a thread). Both operands are stored
+//     pixel-major, so ldmatrix.trans builds the fragments: A = z^T from the
+//     tap-shifted halo rows, B = g, shared by the nine taps;
+//   - the block writes its (9, 64, 64) partial to partial[split], and
+//     reduce_rows_kernel adds the splits in a fixed order: no float atomics,
+//     two runs give the same bits.
+// The wrapper picks the number of splits so that the grid is about two blocks
+// per SM. Not yet done: cp.async/TMA staging that overlaps the loads with the
+// products, wgmma, and sharing B fragments across the dw taps.
+
+#include "conv3x3_common.cuh"
+
+namespace {
+
+using namespace conv3x3;
+
+constexpr int CT = 64;       // input channels per block
+constexpr int OT = 64;       // output channels per block
+constexpr int WS = CT + 8;   // shared row stride in elements (144 bytes, no conflicts)
+constexpr int WG_SMEM = (HALO_PIX + TH * TW) * WS * static_cast<int>(sizeof(__nv_bfloat16));
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                     const float* __restrict__ pa, const float* __restrict__ pb,
+                     float* __restrict__ partial, int N, int H, int W, int C, int O,
+                     int tiles_h, int tiles_w, int tiles_per_split, int xvec, int gvec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* gs = hs + HALO_PIX * WS;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = warp & 3;   // 16-channel row tile of the block's 64 input channels
+  const int wn = warp >> 2;  // 32-channel half of the block's 64 output channels
+  const int c0 = blockIdx.y * CT;
+  const int o0 = blockIdx.z * OT;
+  const int n_tiles = N * tiles_h * tiles_w;
+  const int t_begin = blockIdx.x * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  float acc[9][4][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[t][nb][r] = 0.0f;
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int tx = tile % tiles_w;
+    const int ty = (tile / tiles_w) % tiles_h;
+    const int n = tile / (tiles_w * tiles_h);
+    const int h0 = ty * TH;
+    const int w0 = tx * TW;
+    __syncthreads();  // the previous tile's reads are done
+    stage_any<CT, WS, TH + 2, HALO_W>(xvec, hs, x, n, H, W, C, h0 - 1, w0 - 1, c0, pa, pb);
+    stage_any<OT, WS, TH, TW>(gvec, gs, g, n, H, W, O, h0, w0, o0, nullptr, nullptr);
+    __syncthreads();
+
+    for (int row = 0; row < TH; ++row) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {  // 16 pixels of the row per MMA step
+        // B[k = pixel][n = o]: stored pixel-major, transposed on load. One x4
+        // covers 16 pixels by two 8-wide output tiles.
+        uint32_t b[2][4];
+#pragma unroll
+        for (int nb2 = 0; nb2 < 2; ++nb2) {
+          const int px = row * TW + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4_trans(b[nb2], gs + px * WS + wn * 32 + nb2 * 16 + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const int dh = t / 3;
+          const int dw = t % 3;
+          // A[m = c][k = pixel] = z^T: halo rows of the tap-shifted pixels.
+          uint32_t a[4];
+          const int px = (row + dh) * HALO_W + kk * 16 + dw + (lane & 7) + ((lane >> 4) << 3);
+          ldmatrix_x4_trans(a, hs + px * WS + wm * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int nb2 = 0; nb2 < 2; ++nb2) {
+            mma_bf16_16816(acc[t][2 * nb2], a, b[nb2][0], b[nb2][1]);
+            mma_bf16_16816(acc[t][2 * nb2 + 1], a, b[nb2][2], b[nb2][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // Accumulator element r of (tap, nb) is input channel c0 + wm*16 + lane/4 +
+  // 8*(r/2), output channel o0 + wn*32 + nb*8 + 2*(lane%4) + r%2.
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 9 * C * O;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = c0 + wm * 16 + (lane >> 2) + 8 * (r >> 1);
+        const int o = o0 + wn * 32 + nb * 8 + 2 * (lane & 3) + (r & 1);
+        if (c < C && o < O) out[(static_cast<size_t>(t) * C + c) * O + o] = acc[t][nb][r];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// x: (N, H, W, C) bf16; g: (N, H, W, O) bf16; pa, pb: null or the (C,) f32
+// prologue affine; partial: (splits, 9, C, O) f32 scratch; dw: (9, C, O) f32,
+// tap = 3*dh + dw. Returns the cudaError_t of the launches.
+extern "C" int conv3x3_wgrad_bf16(const void* x, const void* g, const void* pa,
+                                  const void* pb, void* partial, void* dw, int N, int H,
+                                  int W, int C, int O, int splits, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 ||
+      (pa == nullptr) != (pb == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_w = (W + TW - 1) / TW;
+  const long long n_tiles = static_cast<long long>(N) * tiles_h * tiles_w;
+  const int c_tiles = (C + CT - 1) / CT;
+  const int o_tiles = (O + OT - 1) / OT;
+  if (n_tiles > 0x7fffffffLL || c_tiles > 65535 || o_tiles > 65535 ||
+      static_cast<long long>(9) * C * O > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_per_split = static_cast<int>((n_tiles + splits - 1) / splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(splits, c_tiles, o_tiles);
+  conv3x3_wgrad_kernel<<<grid, THREADS, WG_SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(pa), static_cast<const float*>(pb),
+      static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w, tiles_per_split,
+      load_width(x, C), load_width(g, O));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_rows(static_cast<const float*>(partial),
+                                      static_cast<float*>(dw), splits, 9 * C * O, s));
+}

@@ -1,4 +1,4 @@
-"""CubeNET, eval form (port of hyperpri_tpu/models/cubenet.py:39-179).
+"""CubeNET, eval and training forms (port of hyperpri_tpu/models/cubenet.py:39-179).
 
 The reference's Conv3d(1, first_depth, (hsi_depth, 3, 3), padding (0, 1, 1))
 over the whole spectral depth is one 3x3 2D conv with `hsi_depth` input
@@ -8,7 +8,10 @@ channels, followed by inc2 (conv + BN + ReLU) and a U-Net at C=128:
 Input (N, H, W, hsi_depth) NHWC; output (N, H, W, n_classes) float32 logits.
 With `fused_bn` the model takes the state dict of ops/fold_bn.py and every 3x3
 conv is a ServingConv3x3; `use_kernels` (JAX's `use_pallas`) lets those convs
-take the conv3x3_packed kernel where `packed_serving_route` allows.
+take the conv3x3_packed kernel where `packed_serving_route` allows. Unfolded,
+`forward(x, train=True)` is the training form and `use_kernels` (JAX's
+`pallas_train`) sends the 3x3 convs that pass Conv3x3's gates through the
+trainable kernel convs; `conv_kwargs` reaches every Conv3x3 (the gates).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from hyperpri_tpu_torch.models.parts import (
     TorchBatchNorm,
     Up,
     _Conv,
+    conv_bn_relu_pair,
     pad_to_match,
     upsample2x_align_corners,
 )
@@ -38,7 +42,7 @@ class CubeNET(nn.Module):
     def __init__(self, hsi_depth: int = 238, n_classes: int = 1, first_depth: int = 64,
                  bilinear: bool = False, fused_bn: bool = False,
                  use_kernels: bool = False, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, **conv_kwargs):
         super().__init__()
         self.hsi_depth = hsi_depth
         self.bilinear = bilinear
@@ -46,15 +50,15 @@ class CubeNET(nn.Module):
         self.dtype = dtype
         fd, c = first_depth, 128
         factor = 2 if bilinear else 1
-        kw = dict(fused_bn=fused_bn, use_kernels=use_kernels, dtype=dtype)
+        kw = dict(fused_bn=fused_bn, use_kernels=use_kernels, dtype=dtype, **conv_kwargs)
 
         if fused_bn:
             self.first_conv = ServingConv3x3(hsi_depth, fd, use_kernels, dtype)
             self.inc2_conv = ServingConv3x3(fd, fd, use_kernels, dtype)
         else:
-            self.first_conv = Conv3x3(hsi_depth, fd, dtype)
+            self.first_conv = Conv3x3(hsi_depth, fd, dtype, use_kernels, **conv_kwargs)
             self.first_bn = TorchBatchNorm(fd)
-            self.inc2_conv = Conv3x3(fd, fd, dtype)
+            self.inc2_conv = Conv3x3(fd, fd, dtype, use_kernels, **conv_kwargs)
             self.inc2_bn = TorchBatchNorm(fd)
         self.down1 = Down(fd, c, **kw)
         self.down2 = Down(c, c * 2, **kw)
@@ -78,27 +82,32 @@ class CubeNET(nn.Module):
                 if isinstance(m, _Conv):
                     m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.fused_bn and train:
+            raise ValueError("a BatchNorm-folded model serves; it does not train")
         if x.shape[-1] != self.hsi_depth:
             raise ValueError(f"CubeNET expects {self.hsi_depth} bands (NHWC), "
                              f"got shape {tuple(x.shape)}")
         x = x.to(self.dtype)
         if self.fused_bn:
             x1 = self.inc2_conv(self.first_conv(x))
+        elif train:
+            x1 = conv_bn_relu_pair(self.first_conv, self.first_bn, self.inc2_conv,
+                                   self.inc2_bn, x, self.dtype)
         else:
             x1 = F.relu(self.first_bn(self.first_conv(x))).to(self.dtype)
             x1 = F.relu(self.inc2_bn(self.inc2_conv(x1))).to(self.dtype)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        y = self.up1(x5, x4)
-        y = self.up2(y, x3)
-        y = self.up3(y, x2)
+        x2 = self.down1(x1, train)
+        x3 = self.down2(x2, train)
+        x4 = self.down3(x3, train)
+        x5 = self.down4(x4, train)
+        y = self.up1(x5, x4, train)
+        y = self.up2(y, x3, train)
+        y = self.up3(y, x2, train)
         if self.up4 is not None:
-            y = self.up4(y, x1)
+            y = self.up4(y, x1, train)
         else:
             y = upsample2x_align_corners(y) if self.bilinear else self.upsample4(y)
             y = pad_to_match(y, x1.shape[1], x1.shape[2])
-            y = self.upconv4(torch.cat([x1, y], dim=-1))
+            y = self.upconv4(torch.cat([x1, y], dim=-1), train)
         return self.outc(y).float()

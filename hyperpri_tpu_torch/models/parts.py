@@ -1,11 +1,19 @@
-"""U-Net building blocks, eval forms (port of hyperpri_tpu/models/parts.py).
+"""U-Net building blocks, eval and training forms (port of
+hyperpri_tpu/models/parts.py).
 
 Modules take and return NHWC tensors, as the JAX package's do. Inside,
 `x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor is the zero-copy
 channels_last NCHW view that F.conv2d, F.max_pool2d and F.conv_transpose2d
 take, and the buffer layout the CUDA kernel reads. Parameters are float32 in
-torch layouts; each module computes in its `dtype` (bf16 when serving), and
-BatchNorm statistics stay float32.
+torch layouts; each module computes in its `dtype` (bf16 when serving and
+training), and BatchNorm statistics stay float32.
+
+Training (`train=True`) mirrors the reference's rounding points: a conv hands
+its BatchNorm the batch statistics (from its kernel's epilogue where it takes
+the kernel route), the first BatchNorm of a pair returns only its folded
+affine (pa, pb), and the second conv applies relu(pa*x + pb) to its input
+itself, in its kernel's prologue or, off the kernel route, in float32 tensor
+ops rounded to the compute dtype.
 """
 
 from __future__ import annotations
@@ -17,9 +25,23 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import conv3x3_packed
+from hyperpri_tpu_torch.ops.kernels.conv_train import (
+    BNACT_PACKED_MAX_BC,
+    conv3x3_bias_stats_train,
+    conv3x3_bias_train,
+    conv3x3_bnact_stats_train,
+)
 from hyperpri_tpu_torch.ops.pool import max_pool_2x2
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # decay of the running average: new = 0.9*old + 0.1*batch
+
+# Training route gates of hyperpri_tpu/models/parts.py:42-49 (tuned on a TPU,
+# kept as they are): maps of at least 30,000 pixels with 32 <= C and
+# max(C, O) <= 256 take the trainable kernel convs.
+TRAIN_MIN_PIXELS = 30_000
+TRAIN_MIN_CHANNELS = 32
+TRAIN_MAX_CHANNELS = 256
 
 # Serving route gates of hyperpri_tpu/models/parts.py:558-568: full-resolution
 # maps with wide inputs and narrow outputs take the conv3x3_packed kernel.
@@ -67,16 +89,66 @@ class _Conv(nn.Module):
 
 
 class Conv3x3(_Conv):
-    """3x3 SAME conv + bias, the eval route of parts.py:250 Conv3x3
-    (:436-443): the bias is added in the compute dtype."""
+    """3x3 SAME conv + bias (parts.py:250 Conv3x3). Called as `conv(x)` it is
+    the eval route (:436-443): the bias is added in the compute dtype.
+    `train_forward` is the training route, which sends layers that pass the
+    gates through the trainable kernel convs of ops/kernels/conv_train.py.
+    The gates are constructor arguments so that tests can lower them."""
 
-    def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32):
+    def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32,
+                 use_kernels: bool = False, min_pixels: int = TRAIN_MIN_PIXELS,
+                 min_channels: int = TRAIN_MIN_CHANNELS,
+                 max_channels: int = TRAIN_MAX_CHANNELS,
+                 bnact_packed_max_bc: int = BNACT_PACKED_MAX_BC):
         super().__init__((out_channels, in_channels, 3, 3), out_channels,
                          9 * in_channels, dtype)
+        self.use_kernels = use_kernels
+        self.min_pixels = min_pixels
+        self.min_channels = min_channels
+        self.max_channels = max_channels
+        self.bnact_packed_max_bc = bnact_packed_max_bc
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _conv2d(x.to(self.dtype), self.weight.to(self.dtype), padding=1)
         return y + self.bias.to(self.dtype)
+
+    def kernel_route(self, h: int, w: int) -> bool:
+        """True iff `train_forward` sends an (N, h, w, C) input through the
+        kernel convs (the `use_pallas` gate of parts.py:322-333; the wrappers
+        dispatch by device, so there is no backend clause)."""
+        o, c = self.weight.shape[:2]
+        return (self.use_kernels and h * w >= self.min_pixels
+                and self.min_channels <= c and max(c, o) <= self.max_channels)
+
+    def train_forward(self, x: torch.Tensor, collect_stats: bool = False, prologue=None):
+        """-> (y, stats). stats is the (sum, sumsq) float32 pair of y's batch
+        statistics when `collect_stats` and the kernel route is taken, else
+        None (the BatchNorm then reduces them itself). prologue: optional
+        per-input-channel float32 (pa, pb); the conv then reads
+        relu(pa*x + pb), in the kernel's prologue on the kernel route with
+        `collect_stats`, else applied here first in float32 and rounded to
+        the compute dtype (parts.py:377-443)."""
+        _, h, w, _ = x.shape
+        x = x.to(self.dtype)
+        use_kernels = self.kernel_route(h, w)
+        fuse_prologue = prologue is not None and use_kernels and collect_stats
+        if prologue is not None and not fuse_prologue:
+            pa, pb = prologue
+            x = F.relu(x.float() * pa + pb).to(self.dtype)
+        if use_kernels:
+            kernel = self.weight.permute(2, 3, 1, 0).to(self.dtype)  # OIHW -> HWIO
+            bias = self.bias.float()
+            x = x.contiguous()
+            if fuse_prologue:
+                y, s, ss = conv3x3_bnact_stats_train(x, prologue[0], prologue[1], kernel,
+                                                     bias, self.bnact_packed_max_bc)
+                return y, (s, ss)
+            if collect_stats:
+                y, s, ss = conv3x3_bias_stats_train(x, kernel, bias)
+                return y, (s, ss)
+            return conv3x3_bias_train(x, kernel, bias), None
+        y = _conv2d(x, self.weight.to(self.dtype), padding=1)
+        return y + self.bias.to(self.dtype), None
 
 
 class ServingConv3x3(_Conv):
@@ -131,20 +203,49 @@ class ConvTransposeUp(_Conv):
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm eval form (parts.py:125-194): running statistics, eps 1e-5,
-    float32 arithmetic; returns float32."""
+    """BatchNorm with torch semantics in float32 (parts.py:125-194), eps 1e-5;
+    returns float32. Eval uses the running statistics. Training uses the
+    batch's: var = E[x^2] - mean^2 from per-channel sums, the running
+    statistics take the unbiased variance with momentum 0.1, and the gradient
+    reaches the producer through the sums."""
 
-    def __init__(self, features: int, eps: float = BN_EPS):
+    def __init__(self, features: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.eps = eps
+        self.momentum = momentum
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x.float() - self.running_mean) * inv * self.weight + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False, precomputed=None,
+                affine_only: bool = False):
+        """precomputed: optional (sum, sumsq) float32 pair over N, H, W from
+        the producing conv's epilogue, instead of reducing x here.
+        affine_only: update the running statistics but return the folded
+        per-channel float32 pair (pa, pb) with y = pa*x + pb instead of
+        applying it; the consumer fuses the apply (+ ReLU) into its load."""
+        x32 = x.float()
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            count = float(x.numel() // x.shape[-1])
+            if precomputed is not None:
+                psum, psumsq = precomputed
+                mean = psum / count
+                var = psumsq / count - mean * mean
+            else:
+                mean = x32.mean(dim=axes)
+                var = (x32 * x32).mean(dim=axes) - mean * mean
+            with torch.no_grad():
+                unbiased = var * (count / max(count - 1.0, 1.0))
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * unbiased)
+        if affine_only:
+            a = self.weight * torch.rsqrt(var + self.eps)
+            return a, self.bias - mean * a
+        return (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
@@ -164,13 +265,27 @@ def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     return F.pad(x, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
 
 
+def conv_bn_relu_pair(conv1, bn1, conv2, bn2, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Training form of conv1 -> bn1 -> ReLU -> conv2 -> bn2 -> ReLU
+    (parts.py:720-759, and cubenet.py:115-141 across first_conv and inc2):
+    bn1 only folds its affine, conv2 applies it with the ReLU on its input,
+    and each BatchNorm takes its statistics from its conv where the conv has
+    them."""
+    x, st = conv1.train_forward(x, collect_stats=True)
+    prologue = bn1(x, train=True, precomputed=st, affine_only=True)
+    x, st = conv2.train_forward(x, collect_stats=True, prologue=prologue)
+    return F.relu(bn2(x, train=True, precomputed=st)).to(dtype)
+
+
 class DoubleConv(nn.Module):
     """(conv3x3 -> BN -> ReLU) * 2 (parts.py:671-759). Folded (`fused_bn`), each
-    half is one ServingConv3x3."""
+    half is one ServingConv3x3 (serving only). Unfolded, `use_kernels` sends
+    the training convs that pass Conv3x3's gates through the kernels;
+    `conv_kwargs` reaches both Conv3x3s (the gates)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[int] = None, fused_bn: bool = False,
-                 use_kernels: bool = False, dtype=torch.float32):
+                 use_kernels: bool = False, dtype=torch.float32, **conv_kwargs):
         super().__init__()
         mid = mid_channels if mid_channels is not None else out_channels
         self.fused_bn = fused_bn
@@ -179,14 +294,18 @@ class DoubleConv(nn.Module):
             self.conv1 = ServingConv3x3(in_channels, mid, use_kernels, dtype)
             self.conv2 = ServingConv3x3(mid, out_channels, use_kernels, dtype)
         else:
-            self.conv1 = Conv3x3(in_channels, mid, dtype)
+            self.conv1 = Conv3x3(in_channels, mid, dtype, use_kernels, **conv_kwargs)
             self.bn1 = TorchBatchNorm(mid)
-            self.conv2 = Conv3x3(mid, out_channels, dtype)
+            self.conv2 = Conv3x3(mid, out_channels, dtype, use_kernels, **conv_kwargs)
             self.bn2 = TorchBatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.fused_bn:
+            if train:
+                raise ValueError("a BatchNorm-folded model serves; it does not train")
             return self.conv2(self.conv1(x))
+        if train:
+            return conv_bn_relu_pair(self.conv1, self.bn1, self.conv2, self.bn2, x, self.dtype)
         x = F.relu(self.bn1(self.conv1(x))).to(self.dtype)
         return F.relu(self.bn2(self.conv2(x))).to(self.dtype)
 
@@ -195,13 +314,15 @@ class Down(nn.Module):
     """2x2 max pool -> DoubleConv (parts.py:762-789)."""
 
     def __init__(self, in_channels: int, out_channels: int, fused_bn: bool = False,
-                 use_kernels: bool = False, dtype=torch.float32):
+                 use_kernels: bool = False, dtype=torch.float32, **conv_kwargs):
         super().__init__()
+        self.use_kernels = use_kernels
         self.conv = DoubleConv(in_channels, out_channels, fused_bn=fused_bn,
-                               use_kernels=use_kernels, dtype=dtype)
+                               use_kernels=use_kernels, dtype=dtype, **conv_kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(max_pool_2x2(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        # with kernels off the pool is stock too: autograd's own backward
+        return self.conv(max_pool_2x2(x, first_max_backward=self.use_kernels), train)
 
 
 class Up(nn.Module):
@@ -210,25 +331,28 @@ class Up(nn.Module):
     deeper input's count on the ConvTranspose path."""
 
     def __init__(self, in_channels: int, out_channels: int, bilinear: bool = False,
-                 fused_bn: bool = False, use_kernels: bool = False, dtype=torch.float32):
+                 fused_bn: bool = False, use_kernels: bool = False, dtype=torch.float32,
+                 **conv_kwargs):
         super().__init__()
         self.bilinear = bilinear
         if bilinear:
             self.conv = DoubleConv(in_channels, out_channels // 2, in_channels // 2,
-                                   fused_bn, use_kernels, dtype)
+                                   fused_bn, use_kernels, dtype, **conv_kwargs)
         else:
             self.up = ConvTransposeUp(in_channels, in_channels // 2, dtype)
             self.conv = DoubleConv(in_channels, out_channels, None, fused_bn,
-                                   use_kernels, dtype)
+                                   use_kernels, dtype, **conv_kwargs)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = False) -> torch.Tensor:
         x1 = upsample2x_align_corners(x1) if self.bilinear else self.up(x1)
         x1 = pad_to_match(x1, x2.shape[1], x2.shape[2])
-        return self.conv(torch.cat([x2, x1], dim=-1))
+        return self.conv(torch.cat([x2, x1], dim=-1), train)
 
 
 class OutConv(nn.Module):
-    """1x1 conv head, eval form (parts.py:883-893)."""
+    """1x1 conv head (parts.py:883-893). The reference's training head
+    (_FlatHead, :848-880) is a layout workaround for the TPU with the math of
+    this 1x1 conv in the compute dtype, so one module serves both."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype=torch.float32):
         super().__init__()

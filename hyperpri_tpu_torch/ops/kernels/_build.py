@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
 `nvcc` for sm_90a into `<repo>/build/kernels/lib<name>.so`, then loaded with
-ctypes. A library is built at first use and rebuilt when its source is newer.
+ctypes. The sources share headers (`csrc/*.cuh`), so a library is built at
+first use and rebuilt when any file under csrc/ is newer than it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -21,6 +23,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Every kernel library of the port: csrc/<name>.cu for each name.
+LIBRARIES = ("conv3x3_packed", "conv3x3", "conv3x3_grad", "pool_bwd")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -44,7 +48,8 @@ def build(name: str, force: bool = False) -> tuple:
     includes ptxas's register, shared-memory and spill counts."""
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
-    if not force and out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(f.stat().st_mtime for f in CSRC.iterdir() if f.is_file())
+    if not force and out.exists() and out.stat().st_mtime >= newest:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build beside the target and rename: concurrent processes never load a
@@ -53,7 +58,7 @@ def build(name: str, force: bool = False) -> tuple:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode != 0:
@@ -63,6 +68,14 @@ def build(name: str, force: bool = False) -> tuple:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def build_all(names=LIBRARIES, force: bool = False) -> dict:
+    """Build several libraries at once, one nvcc process each, all started
+    together. Returns {name: (path, nvcc output)}."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name, force) for name in names}
+        return {name: future.result() for name, future in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

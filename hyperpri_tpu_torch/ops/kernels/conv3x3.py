@@ -1,0 +1,100 @@
+"""3x3 SAME conv for any output width: the port of the TPU kernel
+hyperpri_tpu/ops/pallas/conv3x3.py:conv3x3_bias_act, as the hand-written CUDA
+kernel in csrc/conv3x3.cu.
+
+Contract: y = act(conv3x3_SAME(act_in(x), w) + b) with x (N, H, W, C) NHWC, w
+HWIO (3, 3, C, O) for any O, b (O,) float32, float32 accumulation and the bias
+added in float32 before the optional ReLU; y has x's dtype (bf16 on the card).
+  - prologue `pa, pb` (float32 (C,)): act_in(x) = relu(pa*x + pb) computed in
+    float32 and rounded to x's dtype before the products; the SAME border is
+    exact zero.
+  - `with_stats` (needs relu=False): returns (y, (sum y, sum y*y)), float32
+    (O,) vectors over N, H, W taken from the float32 value before y is rounded,
+    deterministic on the card (fixed-order sums, no float atomics).
+It is the route of forward convs wider than 64 outputs and of adjoint convs
+wider than conv3x3_packed takes. The source note in the .cu file gives the
+kernel's bound and design.
+
+`conv3x3_bias_act` runs the plain version, `conv3x3_bias_act_reference`, only
+for tensors on the CPU. For CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from hyperpri_tpu_torch.ops.kernels import _build, _plain
+
+_KC = 32  # input-channel chunk of the kernel; packed weights pad C to it
+_TH, _TW = 8, 32  # the kernel's pixel tile: one row of partial sums per tile
+
+
+def conv3x3_bias_act_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                               pa: Optional[torch.Tensor] = None,
+                               pb: Optional[torch.Tensor] = None, *,
+                               relu: bool = True, with_stats: bool = False):
+    """Plain version: nine shifted float32 matrix products over the
+    zero-padded (optionally affine + ReLU transformed) input, plus the bias,
+    optional ReLU, one rounding to x's dtype; statistics from the float32
+    value. Not F.conv2d, so independent of cuDNN and its TF32 setting."""
+    return _plain.conv3x3_modes_reference(x, w, b, pa, pb, relu=relu, with_stats=with_stats)
+
+
+def _lib():
+    fn = _build.load("conv3x3").conv3x3_bias_act_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     pa: Optional[torch.Tensor] = None, pb: Optional[torch.Tensor] = None,
+                     *, relu: bool = True, with_stats: bool = False):
+    """y or (y, (sum, sumsq)); see the module docstring.
+
+    `conv3x3_bias_act.calls` counts every call; `conv3x3_bias_act.launches`
+    counts launches of the CUDA kernel only."""
+    _plain.check_conv_args("conv3x3_bias_act", x, w, b, pa, pb)
+    if with_stats and relu:
+        raise ValueError("with_stats needs relu=False")
+    c, o = x.shape[-1], w.shape[-1]
+    if pa is not None and (tuple(pa.shape) != (c,) or tuple(pb.shape) != (c,)):
+        raise ValueError(f"pa, pb must be ({c},), got {tuple(pa.shape)}, {tuple(pb.shape)}")
+    conv3x3_bias_act.calls += 1
+    if x.device.type == "cpu":
+        return conv3x3_bias_act_reference(x, w, b, pa, pb, relu=relu, with_stats=with_stats)
+    _plain.require_cuda_bf16("conv3x3_bias_act", x, w, b, pa, pb)
+    n, h, width, _ = x.shape
+    y = torch.empty((n, h, width, o), dtype=torch.bfloat16, device=x.device)
+    if y.numel() == 0:
+        raise ValueError("conv3x3_bias_act: empty input")
+    np_ = 64 if o <= 64 else 128
+    wp = _plain.pack_weights(w, np_, _KC)
+    op = wp.shape[1]
+    bf, paf, pbf = _plain.f32_vector(b), _plain.f32_vector(pa), _plain.f32_vector(pb)
+    rows = n * -(-h // _TH) * -(-width // _TW)
+    partial = sums = None
+    if with_stats:
+        partial = torch.empty((rows, 2, op), dtype=torch.float32, device=x.device)
+        sums = torch.empty((2, op), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib()(
+            x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
+            _plain.ptr(pbf), _plain.ptr(partial), _plain.ptr(sums),
+            n, h, width, c, wp.shape[2], o, op, np_, int(relu), int(with_stats), rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"conv3x3_bias_act kernel launch failed: cudaError_t {err}")
+    conv3x3_bias_act.launches += 1
+    if with_stats:
+        return y, (sums[0, :o], sums[1, :o])
+    return y
+
+
+conv3x3_bias_act.calls = 0
+conv3x3_bias_act.launches = 0

@@ -1,4 +1,5 @@
-"""Carry the JAX package's flax variables into the port's modules.
+"""Carry the JAX package's flax variables into the port's modules, and the
+port's parameters, gradients and optimizer state back out under flax paths.
 
 The flax trees arrive as nested dicts of numpy arrays keyed exactly like the
 flax tree (`first_conv/kernel`, `down1/conv/conv1/kernel`, `up1/up/kernel`,
@@ -28,7 +29,8 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _torch_leaves(module: nn.Module):
-    """(torch leaf, collection, flax leaf, layout transform) for one module."""
+    """(torch leaf, collection, flax leaf, layout transform) for one module.
+    Each transform is its own inverse's mirror: `_to_flax` undoes it."""
     if isinstance(module, TorchBatchNorm):
         return [("weight", "params", "scale", None), ("bias", "params", "bias", None),
                 ("running_mean", "batch_stats", "mean", None),
@@ -79,3 +81,55 @@ def load_jax_variables(model: nn.Module, params: dict,
                              f"{tuple(expected[key].shape)}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _to_flax(module: nn.Module, value: np.ndarray) -> np.ndarray:
+    """A conv weight (or anything of its layout: gradient, Adam moment) from
+    torch's layout back to flax's; other leaves are unchanged."""
+    if value.ndim != 4:
+        return value
+    if isinstance(module, ConvTransposeUp):
+        return np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]  # (C,O,2,2) -> unflipped HWIO
+    return np.transpose(value, (2, 3, 1, 0))  # OIHW -> HWIO
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return tree
+
+
+def export_flax_trees(model: nn.Module,
+                      optimizer: Optional[torch.optim.Optimizer] = None) -> Dict[str, dict]:
+    """The way back, for comparing leaf by leaf with the JAX package: nested
+    dicts of numpy arrays under flax paths and layouts (HWIO kernels, the
+    conv-transpose flip). Keys: "params", "batch_stats", "grads" (parameters
+    that hold a gradient) and, given a torch.optim.Adam, "mu" and "nu" (its
+    first and second moments, optax's names)."""
+    flat: Dict[str, Dict[str, np.ndarray]] = {
+        k: {} for k in ("params", "batch_stats", "grads", "mu", "nu")}
+
+    def put(kind, path, module, tensor):
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        # a copy: the arrays must not follow later in-place updates of the model
+        flat[kind][path] = np.array(_to_flax(module, value), order="C", copy=True)
+
+    for name, module in model.named_modules():
+        for leaf, collection, flax_leaf, _ in _torch_leaves(module):
+            path = "/".join(name.split(".") + [flax_leaf]) if name else flax_leaf
+            tensor = getattr(module, leaf)
+            put(collection, path, module, tensor)
+            if collection != "params":
+                continue
+            if tensor.grad is not None:
+                put("grads", path, module, tensor.grad)
+            state = optimizer.state.get(tensor, {}) if optimizer is not None else {}
+            if "exp_avg" in state:
+                put("mu", path, module, state["exp_avg"])
+                put("nu", path, module, state["exp_avg_sq"])
+    return {kind: _nest(leaves) for kind, leaves in flat.items()}

@@ -10,16 +10,36 @@ import numpy as np
 import pytest
 import torch
 
+from hyperpri_tpu_torch.ops.kernels.conv3x3 import (
+    conv3x3_bias_act,
+    conv3x3_bias_act_reference,
+)
+from hyperpri_tpu_torch.ops.kernels.conv3x3_grad import (
+    conv3x3_wgrad,
+    conv3x3_wgrad_reference,
+)
 from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import (
     conv3x3_packed,
     conv3x3_packed_reference,
 )
+from hyperpri_tpu_torch.ops.kernels.pool_bwd import (
+    max_pool_2x2_bwd,
+    max_pool_2x2_bwd_reference,
+)
+
+# Float32 per-channel sums (statistics, dpa, dpb, dW): the kernel and the plain
+# version add the same float32 terms in different orders. With K terms of
+# absolute sum A, each order's error is at most about K * 2**-24 * A, and far
+# less in practice (the partial sums grow like sqrt(K)); the shapes here have
+# K <= 8e3, so 1e-4 * A leaves room.
+SUM_REL = 1e-4
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -33,6 +53,35 @@ def _bf16_ulp_error(out, ref):
     return float(((o - r).abs() / ulp).max())
 
 
+def _assert_sums_close(out, ref, scale):
+    """|out - ref| <= SUM_REL * scale, elementwise; scale is the sum of the
+    absolute terms."""
+    err = (out.double() - ref.double()).abs()
+    assert bool((err <= SUM_REL * scale.double() + 1e-30).all()), float(
+        (err / scale.double().clamp_min(1e-30)).max())
+
+
+def _conv_inputs(device, shape, o, seed=0):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(3, 3, c, o)) / np.sqrt(9 * c)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.normal(size=(o,))).astype(np.float32))
+    return (x.to(device, torch.bfloat16), w.to(device, torch.bfloat16), b.to(device), rng)
+
+
+def _affine(rng, device, channels):
+    pa = torch.from_numpy(rng.uniform(0.5, 1.5, size=(channels,)).astype(np.float32))
+    pb = torch.from_numpy(rng.normal(0.0, 0.5, size=(channels,)).astype(np.float32))
+    return pa.to(device), pb.to(device)
+
+
+_CONV_KERNELS = {
+    "packed": (conv3x3_packed, conv3x3_packed_reference),
+    "halo": (conv3x3_bias_act, conv3x3_bias_act_reference),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,o,relu", [
     ((1, 37, 53, 238), 48, False),   # C=238: 4-byte loads, ragged H/W tiles
@@ -40,14 +89,7 @@ def _bf16_ulp_error(out, ref):
     ((1, 17, 33, 61), 128, True),    # odd C: element loads; O=128
 ])
 def test_conv3x3_packed_matches_plain(cuda_device, shape, o, relu):
-    rng = np.random.default_rng(0)
-    c = shape[-1]
-    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-    w = torch.from_numpy((rng.normal(size=(3, 3, c, o)) / np.sqrt(9 * c)).astype(np.float32))
-    b = torch.from_numpy((0.1 * rng.normal(size=(o,))).astype(np.float32))
-    x = x.to(cuda_device, torch.bfloat16)
-    w = w.to(cuda_device, torch.bfloat16)
-    b = b.to(cuda_device)
+    x, w, b, _ = _conv_inputs(cuda_device, shape, o)
     launches = conv3x3_packed.launches
     out = conv3x3_packed(x, w, b, relu=relu)
     assert conv3x3_packed.launches == launches + 1
@@ -63,3 +105,144 @@ def test_conv3x3_packed_rejects_non_bf16(cuda_device):
     with pytest.raises(TypeError, match="bf16"):
         conv3x3_packed(x, torch.zeros((3, 3, 8, 8), device=cuda_device),
                        torch.zeros(8, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,o,relu", [
+    ("halo", (1, 37, 53, 238), 48, False),
+    ("halo", (2, 29, 71, 64), 96, True),
+    ("halo", (1, 17, 33, 61), 256, True),
+    ("halo", (2, 20, 40, 128), 131, False),  # odd O: element stores, ragged O tile
+])
+def test_conv3x3_bias_act_matches_plain(cuda_device, kernel, shape, o, relu):
+    fn, ref_fn = _CONV_KERNELS[kernel]
+    x, w, b, _ = _conv_inputs(cuda_device, shape, o)
+    launches = fn.launches
+    out = fn(x, w, b, relu=relu)
+    assert fn.launches == launches + 1
+    ref = ref_fn(x, w, b, relu=relu)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert _bf16_ulp_error(out, ref) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("kernel,shape,o", [
+    ("packed", (2, 29, 71, 64), 64),
+    ("packed", (1, 37, 53, 238), 48),
+    ("packed", (1, 17, 33, 61), 128),
+    ("halo", (2, 29, 71, 64), 256),
+    ("halo", (1, 37, 53, 238), 96),
+    ("halo", (1, 17, 33, 61), 131),
+])
+def test_conv_stats_and_prologue_match_plain(cuda_device, kernel, shape, o, prologue):
+    """with_stats (and the pa/pb prologue): y within one bf16 ulp, the sums
+    within SUM_REL of their absolute sums, and the same bits on a second run."""
+    fn, ref_fn = _CONV_KERNELS[kernel]
+    x, w, b, rng = _conv_inputs(cuda_device, shape, o)
+    pa, pb = _affine(rng, cuda_device, shape[-1]) if prologue else (None, None)
+    y, (s, ss) = fn(x, w, b, pa, pb, relu=False, with_stats=True)
+    y2, (s2, ss2) = fn(x, w, b, pa, pb, relu=False, with_stats=True)
+    ry, (rs, rss) = ref_fn(x, w, b, pa, pb, relu=False, with_stats=True)
+    torch.cuda.synchronize()
+    assert s.shape == (o,) and s.dtype == torch.float32
+    assert _bf16_ulp_error(y, ry) <= 1.0
+    yf = ry.float()
+    _assert_sums_close(s, rs, yf.abs().sum(dim=(0, 1, 2)))
+    _assert_sums_close(ss, rss, (yf * yf).sum(dim=(0, 1, 2)))
+    assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(ss, ss2)
+
+
+@pytest.mark.cuda
+def test_prologue_border_is_zero(cuda_device):
+    """With x = 0 and pb > 0 every in-image z is relu(pb) and the border must
+    still be exact zero: the corner output sums 4 taps, the centre 9."""
+    c, o = 16, 8
+    x = torch.zeros((1, 8, 8, c), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.ones((3, 3, c, o), dtype=torch.bfloat16, device=cuda_device)
+    b = torch.zeros(o, device=cuda_device)
+    pa = torch.ones(c, device=cuda_device)
+    pb = torch.full((c,), 0.5, device=cuda_device)
+    for fn in (conv3x3_packed, conv3x3_bias_act):
+        y = fn(x, w, b, pa, pb, relu=False)
+        assert float(y[0, 0, 0, 0]) == 4 * c * 0.5
+        assert float(y[0, 4, 4, 0]) == 9 * c * 0.5
+        assert float(y[0, 0, 4, 0]) == 6 * c * 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o", [
+    ((2, 29, 71, 64), 64),     # cotangent 64 channels, boundary 64
+    ((1, 37, 53, 48), 33),     # odd boundary width: element loads and stores
+    ((1, 17, 33, 96), 128),
+])
+def test_conv3x3_packed_bwd_epilogue_matches_plain(cuda_device, shape, o):
+    g, wt, zero, rng = _conv_inputs(cuda_device, shape, o)
+    zero = torch.zeros_like(zero)
+    pa, pb = _affine(rng, cuda_device, o)
+    r = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    dx, (dpa, dpb) = conv3x3_packed(g, wt, zero, pa, pb, r, relu=False)
+    dx2, (dpa2, dpb2) = conv3x3_packed(g, wt, zero, pa, pb, r, relu=False)
+    rdx, (rdpa, rdpb) = conv3x3_packed_reference(g, wt, zero, pa, pb, r, relu=False)
+    torch.cuda.synchronize()
+    assert _bf16_ulp_error(dx, rdx) <= 1.0
+    mdz = rdx.float().abs() / pa   # |m*dz| up to the bf16 rounding of dx
+    _assert_sums_close(dpa, rdpa, (mdz * r.float().abs()).sum(dim=(0, 1, 2)) + 1e-3)
+    _assert_sums_close(dpb, rdpb, mdz.sum(dim=(0, 1, 2)) + 1e-3)
+    assert torch.equal(dx, dx2) and torch.equal(dpa, dpa2) and torch.equal(dpb, dpb2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("shape,o", [
+    ((2, 29, 71, 64), 64),
+    ((1, 37, 53, 238), 48),     # ragged C tile, 4-byte loads
+    ((1, 17, 33, 61), 131),     # element loads on both operands
+    ((2, 40, 64, 128), 256),
+])
+def test_conv3x3_wgrad_matches_plain(cuda_device, shape, o, prologue):
+    x, _, _, rng = _conv_inputs(cuda_device, shape, o)
+    g = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    pa, pb = _affine(rng, cuda_device, shape[-1]) if prologue else (None, None)
+    launches = conv3x3_wgrad.launches
+    dw = conv3x3_wgrad(x, g, pa, pb)
+    assert conv3x3_wgrad.launches == launches + 1
+    dw2 = conv3x3_wgrad(x, g, pa, pb)
+    ref = conv3x3_wgrad_reference(x, g, pa, pb)
+    scale = conv3x3_wgrad_reference(
+        x.abs() if pa is None else x, g.abs(), pa, pb)  # relu(..) >= 0 already
+    torch.cuda.synchronize()
+    assert dw.shape == (3, 3, shape[-1], o) and dw.dtype == torch.float32
+    _assert_sums_close(dw, ref, scale)
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64), (1, 10, 14, 238), (1, 6, 8, 7),
+                                   (1, 64, 64, 128)])
+@pytest.mark.parametrize("kind", ["random", "constant", "duplicates", "neg_inf"])
+def test_max_pool_2x2_bwd_matches_plain_exactly(cuda_device, shape, kind):
+    rng = np.random.default_rng(0)
+    if kind == "random":
+        x = rng.normal(size=shape)
+    elif kind == "constant":
+        x = np.full(shape, 1.5)
+    elif kind == "duplicates":
+        x = rng.integers(0, 2, size=shape).astype(np.float64)  # many tied maxima
+    else:
+        x = np.where(rng.random(size=shape) < 0.7, -np.inf, rng.normal(size=shape))
+    n, h, w, c = shape
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(n, h // 2, w // 2, c)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    launches = max_pool_2x2_bwd.launches
+    dx = max_pool_2x2_bwd(x, g)
+    assert max_pool_2x2_bwd.launches == launches + 1
+    ref = max_pool_2x2_bwd_reference(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, ref)
+    # every window routes its cotangent to exactly one element
+    assert torch.equal(dx.float().reshape(n, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4)), g.float())

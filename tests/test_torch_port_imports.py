@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from hyperpri_tpu_torch.serve import build_cubenet_server
+from hyperpri_tpu_torch.train.step import build_cubenet_trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -21,14 +22,23 @@ import chip_smoke
 import hyperpri_tpu_torch
 import hyperpri_tpu_torch.models.cubenet
 import hyperpri_tpu_torch.ops.fold_bn
+import hyperpri_tpu_torch.models.parts
 import hyperpri_tpu_torch.ops.kernels._build
+import hyperpri_tpu_torch.ops.kernels._plain
+import hyperpri_tpu_torch.ops.kernels.conv3x3
+import hyperpri_tpu_torch.ops.kernels.conv3x3_grad
 import hyperpri_tpu_torch.ops.kernels.conv3x3_packed
+import hyperpri_tpu_torch.ops.kernels.conv_train
+import hyperpri_tpu_torch.ops.kernels.pool_bwd
 import hyperpri_tpu_torch.ops.losses
 import hyperpri_tpu_torch.ops.metrics
+import hyperpri_tpu_torch.ops.pool
 import hyperpri_tpu_torch.serve
+import hyperpri_tpu_torch.train.step
 import hyperpri_tpu_torch.weights
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "hyperpri_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
+                                    "hyperpri_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -44,6 +54,43 @@ def test_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_cubenet_server(0)
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_cubenet_trainer(0)
+
+
+def test_every_csrc_file_rebuilds_every_library(tmp_path, monkeypatch):
+    """The kernels share headers, so a library is stale when ANY file under
+    csrc/ is newer than it (nvcc is replaced by a recorder here)."""
+    from hyperpri_tpu_torch.ops.kernels import _build
+
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "shared.cuh"):
+        (csrc / name).write_text("// source")
+    runs = []
+
+    def fake_run(cmd, **kwargs):
+        runs.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"lib")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    _build.build("a")
+    _build.build("a")
+    assert len(runs) == 1 and str(csrc / "a.cu") in runs[0]
+    newer = (out / "liba.so").stat().st_mtime + 10
+    os.utime(csrc / "shared.cuh", (newer, newer))
+    _build.build("a")
+    assert len(runs) == 2
+    built = _build.build_all(("a", "b"), force=True)
+    assert sorted(built) == ["a", "b"] and len(runs) == 4
 
 
 def test_chip_smoke_fails_without_cuda():
