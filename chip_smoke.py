@@ -6,13 +6,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (a) environment: card name and power limit, torch / CUDA / nvcc versions;
   (b) build every CUDA kernel from hyperpri_tpu_torch/csrc, one nvcc each, all
       started together; ptxas's register and spill report is printed;
-  (c) each kernel and each of its modes against its plain PyTorch version on
-      the card, at the shapes the two main paths give it and at ragged ones;
-      every reducing kernel twice, for identical bits;
+  (c) each kernel and each of its modes and framings against its plain
+      PyTorch version on the card, at the shapes the main paths give it and
+      at ragged ones; every reducing kernel twice, for identical bits;
   (d) serving: CubeNET-64 answering two full-resolution 608x968x238 bf16 cubes
       through the folded, kernel-routed model, with the launch count read
-      around that run and the logits held against the same folded model on
-      F.conv2d and against the unfolded model in float32;
+      around that run and the
+      logits held against the same folded model on F.conv2d and against the
+      unfolded model in float32;
   (e) training: three steps of CubeNET-64 at batch 2, 608x968x238, bf16
       compute, float32 parameters, masked BCE, Adam(1e-3), through the
       trainable kernel convs and the pool-backward kernel, with the launch
@@ -24,9 +25,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (f) times (CUDA events, median of repeated runs after warm-up): every kernel
       call of a training step and of a serving forward beside its bound, its
       plain version and one library call; the serving forward and the training
-      step with kernels on and off; peak memory of a step;
-  (g) a torch.profiler breakdown of one kernel-route training step.
-The line before the last is the kernel summary as JSON; the last line is
+      step with kernels on and off; peak memory of a step; the element probe
+      beside one PyTorch op;
+  (g) a torch.profiler breakdown of one kernel-route training step;
+  (h) the product loop: a synthetic experiment tree of 608x968 cubes with 299
+      stored bands, train_net in bf16 for three epochs of one batch-2 step
+      (the first conv reads the host pre-padded buffer; launches by framing
+      held against the routing), a resumed fourth epoch held bit-equal to an
+      uninterrupted run, validate_net and test_net, with seconds per epoch,
+      steps per second, the device idle share of a profiled epoch, the host
+      seconds per batch, and each framed kernel mode at the main path's
+      shapes timed against the same call unframed, in turns;
+  (i) the CLI's kfold_train --validate at the configuration's default fp32
+      precision, as a subprocess, with the route it took.
+In (c) the framed modes read buffers whose frames hold NaN. The line before
+the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -35,9 +48,12 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -61,6 +77,27 @@ TIMING_REPS = 10
 RAGGED_CONV = [((1, 37, 53, 238), 48), ((2, 29, 71, 238), 128), ((1, 17, 33, 61), 64),
                ((1, 37, 53, 238), 96), ((2, 29, 71, 64), 256), ((1, 17, 33, 61), 131)]
 RAGGED_POOL = [(1, 10, 14, 238), (1, 6, 8, 7), (2, 16, 24, 64)]
+# Framed modes at ragged shapes: the ingest buffer at C = 238 (16-byte loads
+# through the 256-channel pitch) and C = 61, arenas at O = 20 and 24 (pitch 24:
+# channels not a multiple of 8), as the JAX package's tests/test_arena.py and
+# test_ingest.py take them.
+RAGGED_FRAMED = [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 20), ((1, 17, 33, 24), 64),
+                 ((1, 13, 21, 61), 24)]
+FRAMED_MODES = [
+    ("conv3x3_packed", "stats", ("pre_padded",)),
+    ("conv3x3_packed", "stats", ("pre_padded", "arena_out")),
+    ("conv3x3_packed", "stats", ("arena_out",)),
+    ("conv3x3_packed", "relu", ("arena_out",)),
+    ("conv3x3_packed", "relu", ("arena_g",)),
+    ("conv3x3_packed", "stats+prologue", ("arena_in",)),
+    ("conv3x3_packed", "adjoint", ("arena_g",)),
+    ("conv3x3_packed", "bwd_x", ("arena_in", "arena_out")),
+    ("conv3x3_packed", "bwd_x", ("arena_in", "arena_out", "arena_g")),
+    ("conv3x3_wgrad", "plain", ("pre_padded",)),
+    ("conv3x3_wgrad", "plain", ("arena_g",)),
+    ("conv3x3_wgrad", "prologue", ("arena_in",)),
+    ("conv3x3_wgrad", "prologue", ("arena_in", "arena_g")),
+]
 # Kernel vs plain version, bf16 outputs: one bf16 ulp of max(|kernel|, |plain|,
 # 2**-6). The floor covers outputs that cancel to below the float32 round-off
 # of their 9*C-term sums, where the two summation orders may differ by more
@@ -175,18 +212,20 @@ def serving_calls():
         o = meta.get_submodule(name).weight.shape[0]
         if parts.packed_serving_route(h, w, c, o):
             calls.append(dict(kernel="conv3x3_packed", path="serving", layer=name, mode="relu",
-                              shape=(n, h, w, c), o=o))
+                              framing=(), shape=(n, h, w, c), o=o))
     return calls
 
 
-def training_calls():
+def training_calls(ingest: bool = False):
     """Every kernel call of one training step at batch 2, by the routing
     rules: Conv3x3's gates choose the layers; forward O <= 64 is packed, else
     halo; the adjoint of a statistics conv is packed up to 128 outputs, that
     of a BatchNorm-ReLU boundary takes the packed epilogue up to 64 channels
     and the halo kernel above; one weight gradient per layer; the first conv
     has no adjoint; pools with even maps and whole channel vectors take the
-    pool-backward kernel."""
+    pool-backward kernel. With `ingest` the first conv reads the host
+    pre-padded buffer, forward and in its weight gradient; every other call
+    is unframed."""
     from hyperpri_tpu_torch.models.cubenet import CubeNET
     from hyperpri_tpu_torch.ops.pool import pool_bwd_kernel_route
 
@@ -199,7 +238,8 @@ def training_calls():
             continue
         o = conv.weight.shape[0]
         bnact = name.endswith("conv2") or name == "inc2_conv"   # reads relu(pa*x + pb)
-        common = dict(path="training", layer=name)
+        framing = ("pre_padded",) if ingest and name == "first_conv" else ()
+        common = dict(path="training", layer=name, framing=framing)
         calls.append(dict(kernel="conv3x3_packed" if o <= 64 else "conv3x3_bias_act",
                           mode="stats+prologue" if bnact else "stats",
                           shape=(n, h, w, c), o=o, **common))
@@ -224,8 +264,19 @@ def training_calls():
         c = meta.get_submodule(feed).weight.shape[0]
         if pool_bwd_kernel_route(h, w, c):
             calls.append(dict(kernel="max_pool_2x2_bwd", path="training", layer=f"{name}.pool",
-                              mode="first-max", shape=(n, h, w, c), o=c))
+                              mode="first-max", framing=(), shape=(n, h, w, c), o=c))
     return calls
+
+
+def count_by_framing(calls):
+    """{kernel: {framing flag or "unframed": count}} as the wrappers count."""
+    counts = {}
+    for call in calls:
+        if call["kernel"] in ("conv3x3_packed", "conv3x3_wgrad"):
+            by = counts.setdefault(call["kernel"], {})
+            for name in call["framing"] or ("unframed",):
+                by[name] = by.get(name, 0) + 1
+    return counts
 
 
 def count_by_kernel(calls):
@@ -253,24 +304,48 @@ def affine_inputs(channels, gen):
     return pa, pb
 
 
+def framed_copy(t, offset, nan_frame=True):
+    """t (N, H, W, C) inside a buffer of the JAX package's framings: an arena
+    (offset 8) or the host pre-padded ingest buffer (offset 1, channel pitch
+    256 for C = 238). The frame is NaN, so a kernel that reads it fails the
+    check; the lanes past C of logical pixels are zero, as the framings
+    promise."""
+    from hyperpri_tpu_torch.ops.kernels import framing
+
+    n, h, w, c = t.shape
+    if offset == framing.ARENA_OFFSET:
+        shape = framing.arena_shape(n, h, w, c)
+    else:
+        (hp, wp, cp), _, _ = framing.ingest_spec(h, w, c)
+        shape = (n, hp, wp, cp)
+    buf = torch.full(shape, float("nan") if nan_frame else 0.0, dtype=t.dtype, device=t.device)
+    buf[:, offset:offset + h, offset:offset + w, :] = 0
+    buf[:, offset:offset + h, offset:offset + w, :c] = t
+    return buf
+
+
 class Case:
     """One kernel call on seeded inputs: `run()` launches the kernel, `plain()`
-    its plain version, `library()` one PyTorch call of the same function (a
-    yardstick only); `flops`, `nbytes` give the bound."""
+    its plain version, `library()` one PyTorch call of the same function on the
+    logical tensors (a yardstick only); `flops`, `nbytes` give the bound.
+    Framed operands (call["framing"]) are built with NaN frames."""
 
     def __init__(self, call, gen):
         from hyperpri_tpu_torch.ops.kernels import conv3x3, conv3x3_grad, conv3x3_packed, pool_bwd
 
         self.call = call
         kernel, mode, shape, o = call["kernel"], call["mode"], call["shape"], call["o"]
+        flags = call.get("framing", ())
         n, h, w, c = shape
         pixels = n * h * w
         self.peak = PEAK_BF16_FLOPS
+        self.kwargs = {}
+        self.out_view = lambda t: t
         if kernel == "max_pool_2x2_bwd":
             x = torch.randn(shape, generator=gen, device="cuda").relu().to(torch.bfloat16)
             g = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda").to(torch.bfloat16)
             self.fn, self.ref = pool_bwd.max_pool_2x2_bwd, pool_bwd.max_pool_2x2_bwd_reference
-            self.args, self.kwargs = (x, g), {}
+            self.args = (x, g)
             x_cl = x.permute(0, 3, 1, 2)
             pooled, idx = F.max_pool2d(x_cl, 2, 2, return_indices=True)
             g_cl = g.permute(0, 3, 1, 2)
@@ -281,13 +356,24 @@ class Case:
             self.peak = PEAK_F32_FLOPS
             return
         self.flops = 2.0 * pixels * 9 * c * o
+        if flags:
+            self.kwargs["logical_hw"] = (h, w)
         if kernel == "conv3x3_wgrad":
             x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
             g = torch.randn((n, h, w, o), generator=gen, device="cuda").to(torch.bfloat16)
             pa, pb = affine_inputs(c, gen) if mode == "prologue" else (None, None)
             self.fn, self.ref = conv3x3_grad.conv3x3_wgrad, conv3x3_grad.conv3x3_wgrad_reference
-            self.args, self.kwargs = (x, g, pa, pb), {}
             x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            if "pre_padded" in flags:
+                x = framed_copy(x, 1)
+                self.kwargs["pre_padded_c"] = c
+            if "arena_in" in flags:
+                x = framed_copy(x, 8)
+                self.kwargs["arena_in"] = True
+            if "arena_g" in flags:
+                g = framed_copy(g, 8)
+                self.kwargs["arena_g"] = True
+            self.args = (x, g, pa, pb)
             w_oihw = torch.empty((o, c, 3, 3), device="cuda", dtype=torch.bfloat16).contiguous(
                 memory_format=torch.channels_last)
             self.library = lambda: torch.ops.aten.convolution_backward(
@@ -313,11 +399,24 @@ class Case:
             self.nbytes += 2.0 * pixels * o + 8.0 * o
         if mode == "adjoint":
             b = torch.zeros_like(b)
-        self.kwargs = dict(relu=mode == "relu", with_stats=mode.startswith("stats"))
-        self.args = (x, wk, b, pa, pb) + ((r,) if packed else ())
         w_oihw = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         x_cl, b16 = x.permute(0, 3, 1, 2), b.to(torch.bfloat16)
         self.library = lambda: F.conv2d(x_cl, w_oihw, b16, padding=1)
+        self.logical_r = r
+        if "pre_padded" in flags:
+            x = framed_copy(x, 1)
+            self.kwargs["pre_padded"] = True
+        if "arena_g" in flags or ("arena_in" in flags and mode != "bwd_x"):
+            x = framed_copy(x, 8)
+            self.kwargs["arena_g" if "arena_g" in flags else "arena_in"] = True
+        if "arena_in" in flags and mode == "bwd_x":
+            r = framed_copy(r, 8)
+            self.kwargs["arena_in"] = True
+        if "arena_out" in flags:
+            self.kwargs["arena_out"] = True
+            self.out_view = lambda t: t[:, 8:8 + h, 8:8 + w, :o]
+        self.kwargs.update(relu=mode == "relu", with_stats=mode.startswith("stats"))
+        self.args = (x, wk, b, pa, pb) + ((r,) if packed else ())
 
     def run(self):
         return self.fn(*self.args, **self.kwargs)
@@ -328,7 +427,8 @@ class Case:
     def label(self) -> str:
         c = self.call
         n, h, w, ch = c["shape"]
-        return (f"{c['kernel']:17s} {c['mode']:15s} {c.get('layer', 'ragged'):15s} "
+        flags = "+".join(c.get("framing", ())) or "-"
+        return (f"{c['kernel']:17s} {c['mode']:15s} {flags:26s} {c.get('layer', 'ragged'):15s} "
                 f"{n}x{h}x{w} {ch:3d}->{c['o']:3d}")
 
     def verify(self):
@@ -342,7 +442,7 @@ class Case:
             return 0.0, 0.0
         if kernel == "conv3x3_wgrad":
             x, g, pa, pb = self.args
-            scale = self.ref(x.abs() if pa is None else x, g.abs(), pa, pb)
+            scale = self.ref(x.abs() if pa is None else x, g.abs(), pa, pb, **self.kwargs)
             again = self.run()
             check(torch.equal(out, again), f"{self.label()}: two runs differ")
             check(bool(torch.isfinite(out).all()), f"{self.label()}: non-finite dW")
@@ -359,9 +459,9 @@ class Case:
         check(ulps <= 1.0, f"{self.label()}: {ulps} bf16 ulp > 1")
         rel = 0.0
         if sums is not None:
-            rf = ref.float()
+            rf = self.out_view(ref).float()
             if mode == "bwd_x":
-                pa, r = self.args[3], self.args[5].float()
+                pa, r = self.args[3], self.logical_r.float()
                 mdz = rf.abs() / pa   # |m*dz| up to the rounding of dx
                 scales = ((mdz * r.abs()).sum(dim=(0, 1, 2)), mdz.sum(dim=(0, 1, 2)))
             else:
@@ -379,7 +479,8 @@ def distinct(calls):
     and the layers that make it."""
     groups = {}
     for call in calls:
-        key = (call["kernel"], call["mode"], call["shape"], call["o"], call["path"])
+        key = (call["kernel"], call["mode"], call.get("framing", ()), call["shape"], call["o"],
+               call["path"])
         group = groups.setdefault(key, dict(call, count=0, layers=[]))
         group["count"] += 1
         group["layers"].append(call["layer"])
@@ -434,6 +535,8 @@ def phase_kernel_check(calls):
             ragged.append(dict(kernel="conv3x3_wgrad", mode=mode, shape=shape, o=o))
     ragged += [dict(kernel="max_pool_2x2_bwd", mode="first-max", shape=s, o=s[-1])
                for s in RAGGED_POOL]
+    ragged += [dict(kernel=kernel, mode=mode, framing=flags, shape=shape, o=o)
+               for shape, o in RAGGED_FRAMED for kernel, mode, flags in FRAMED_MODES]
     errors = {}
     for call in distinct(calls) + [dict(c, path="ragged", layer="ragged") for c in ragged]:
         case = Case(call, gen)
@@ -443,10 +546,30 @@ def phase_kernel_check(calls):
         worst[0], worst[1] = max(worst[0], abs_err), max(worst[1], rel)
         del case
     check_pool_ties()
+    errors["probe_element_out"] = [check_element_out(), 0.0]
     torch.cuda.empty_cache()
     for kernel, (abs_err, rel) in errors.items():
         print(f"worst {kernel}: max abs {abs_err:.3e}, sums rel {rel:.2e} (limit {SUM_REL})")
     return errors
+
+
+ELEMENT_OUT_SHAPES = [(2, H, W, 64), (1, 13, 21, 5), (1, 16, 24, 128)]
+
+
+def check_element_out() -> float:
+    """The arena-output probe exactly against its plain version (y = 2x is
+    exact in float32), the frame included."""
+    from hyperpri_tpu_torch.ops.kernels.probe_element_out import (
+        element_out, element_out_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape in ELEMENT_OUT_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        y = element_out(x)
+        torch.cuda.synchronize()
+        check(torch.equal(y, element_out_reference(x)), f"element_out {shape}: differs")
+        print(f"probe_element_out  {shape} -> {tuple(y.shape)}: exact")
+    return 0.0
 
 
 def check_pool_ties():
@@ -497,10 +620,35 @@ def kernel_wrappers():
 def zero_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_framing"):
+            fn.launches_by_framing.clear()
 
 
 def read_launches():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def read_framings():
+    return {name: dict(fn.launches_by_framing) for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "launches_by_framing")}
+
+
+def check_launches(label, calls, times):
+    """The launches (and, for the framed kernels, the launches by framing)
+    since zero_launches() against `times` passes of the predicted calls."""
+    expected = count_by_kernel(calls)
+    launches = read_launches()
+    for name, count in launches.items():
+        check(count == times * expected.get(name, 0),
+              f"{label}: {count} {name} launches, predicted {expected.get(name, 0)} a pass")
+    framings = read_framings()
+    for name, by in count_by_framing(calls).items():
+        want = {k: times * v for k, v in by.items()}
+        check(framings.get(name, {}) == want,
+              f"{label}: {name} launches by framing {framings.get(name)}, predicted {want}")
+    print(f"{label}: launches {launches}, by framing {framings} = {times} x the routing's "
+          f"prediction")
+    return launches, framings
 
 
 def phase_serving(calls):
@@ -512,17 +660,11 @@ def phase_serving(calls):
     server = build_cubenet_server(0, folded=True, use_kernels=True)
     plain = build_cubenet_server(0, folded=True, use_kernels=False)
     reqs = make_requests(torch.Generator(device="cuda").manual_seed(2), N_REQUESTS, 1)
-    expected = count_by_kernel(calls)
 
     zero_launches()
     results = [server.serve(req) for req in reqs]
     torch.cuda.synchronize()
-    launches = read_launches()
-    print(f"launches during the {N_REQUESTS} requests: {launches}; "
-          f"the routing predicts {expected} a request")
-    for name, count in launches.items():
-        check(count == N_REQUESTS * expected.get(name, 0),
-              f"serving: {count} {name} launches, predicted {expected.get(name, 0)} a request")
+    launches, framings = check_launches(f"serving, {N_REQUESTS} requests", calls, N_REQUESTS)
 
     worst = {"plain": [0.0, 1.0], "unfolded": [0.0, 1.0]}  # max rel L2, min agreement
     for i, (req, out) in enumerate(zip(reqs, results)):
@@ -559,7 +701,7 @@ def phase_serving(calls):
               f"{1e3 / model_ms[label]:.3f} cubes/s")
     del unfolded, server, plain, results
     torch.cuda.empty_cache()
-    return launches, model_ms
+    return launches, framings, model_ms
 
 
 def step_errors(run, ref):
@@ -613,12 +755,8 @@ def phase_training(calls):
                      "grads": {n: p.grad.clone() for n, p in model.named_parameters()}}
         print(f"step {i + 1}: loss {loss:.6f}  n {float(logs['n']):.0f}  "
               f"stats {[int(v) for v in logs['stats']]}")
-    launches = read_launches()
+    launches, framings = check_launches(f"training, {TRAIN_STEPS} steps", calls, TRAIN_STEPS)
     peak_on = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"launches during the {TRAIN_STEPS} steps: {launches}")
-    for name, count in launches.items():
-        check(count == TRAIN_STEPS * expected.get(name, 0),
-              f"training: {count} {name} launches, predicted {expected.get(name, 0)} a step")
     check(losses[2] < losses[0], f"the loss did not fall on the repeated batch: {losses}")
     moved = [k for k, v in model.state_dict().items() if "running" in k
              and not torch.equal(v, before[k])]
@@ -671,7 +809,7 @@ def phase_training(calls):
               f"({TRAIN_BATCH * 1e3 / step_ms[label]:.2f} cubes/s), peak {peak[label]:.3f} GiB")
     del off_model, off_step
     torch.cuda.empty_cache()
-    return launches, step_ms, peak, step, order[0]
+    return launches, framings, step_ms, peak, step, order[0]
 
 
 def phase_times(calls, card):
@@ -686,6 +824,7 @@ def phase_times(calls, card):
         bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
         n, h, w, c = call["shape"]
         rows.append({"kernel": call["kernel"], "path": call["path"], "mode": call["mode"],
+                     "framing": list(call.get("framing", ())),
                      "layers": call["layers"], "count": call["count"], "shape": [n, h, w, c],
                      "o": call["o"], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "flops": case.flops,
@@ -696,8 +835,46 @@ def phase_times(calls, card):
               f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
               f"library {library_ms:.4f} ms")
         del case
+    rows.append(time_element_out())
     torch.cuda.empty_cache()
     return rows
+
+
+def time_element_out():
+    """The arena-output probe at a full-resolution 64-channel map, float32,
+    beside one PyTorch op of the same function (torch.mul into the logical
+    view of a zeroed arena). Bytes: x read once, the whole arena written
+    once."""
+    from hyperpri_tpu_torch.ops.kernels import framing
+    from hyperpri_tpu_torch.ops.kernels.probe_element_out import (
+        element_out, element_out_reference)
+
+    shape = ELEMENT_OUT_SHAPES[0]
+    n, h, w, c = shape
+    x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+
+    def library():
+        y = x.new_zeros(framing.arena_shape(n, h, w, c))
+        torch.mul(x, 2.0, out=y[:, 8:8 + h, 8:8 + w, :c])
+        return y
+
+    check(torch.equal(library(), element_out(x)), "element_out differs from its library op")
+    ms = cuda_ms(lambda: element_out(x))
+    plain_ms = cuda_ms(lambda: element_out_reference(x), reps=3, warmup=1)
+    library_ms = cuda_ms(library)
+    out_elems = 1
+    for d in framing.arena_shape(n, h, w, c):
+        out_elems *= d
+    nbytes = 4.0 * (x.numel() + out_elems)
+    bound_ms, bound_by = bound(x.numel(), nbytes, PEAK_F32_FLOPS)
+    print(f"probe_element_out  {shape}: kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s), "
+          f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, library "
+          f"(torch.mul into a zeroed arena) {library_ms:.4f} ms")
+    return {"kernel": "probe_element_out", "path": "probe", "mode": "2x", "framing": ["arena_out"],
+            "layers": [], "count": 1, "shape": list(shape), "o": shape[-1], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": float(x.numel()), "bytes": nbytes}
 
 
 def phase_profile(step, batch):
@@ -725,6 +902,191 @@ def phase_profile(step, batch):
               f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}%  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# (h) and (i): the product loop on a synthetic experiment tree.
+
+LOOP_EPOCHS = 3
+PARAMS_CUBENET64 = 31_178_881
+
+
+def du_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def write_tree():
+    """A synthetic experiment tree of 608x968 cubes with the real cubes' 299
+    stored bands (the default 25:263 window, 238 bands): two boxes of two
+    dates, so split 1 trains on 2 cubes (one batch-2 step an epoch) and
+    validates on 2."""
+    from hyperpri_tpu_torch.data.synthetic import make_experiment_tree
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    t0 = time.perf_counter()
+    make_experiment_tree(tmp, n_boxes=2, dates_per_box=2, size_hw=(H, W), bands=299, seed=0)
+    print(f"synthetic tree: {du_bytes(tmp) / 2 ** 30:.3f} GiB on disk, written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return tmp
+
+
+def mean(values):
+    return sum(values) / max(len(values), 1)
+
+
+# Each framed mode at the main path's shapes: (kernel, mode, framing, input
+# shape, O). The ingest conv (pre_padded, forward and weight gradient) runs in
+# the product loop; the arena modes are those of the JAX package's arena chain
+# (first_conv -> inc2 and up4 in training, first_conv -> inc2 in serving),
+# which the port's model does not wire (ops/kernels/conv_train.py says why).
+FRAMED_MAIN = [
+    ("conv3x3_packed", "stats", ("pre_padded",), (TRAIN_BATCH, H, W, D), 64),
+    ("conv3x3_wgrad", "plain", ("pre_padded",), (TRAIN_BATCH, H, W, D), 64),
+    ("conv3x3_packed", "stats", ("arena_out",), (TRAIN_BATCH, H, W, D), 64),
+    ("conv3x3_packed", "stats+prologue", ("arena_in",), (TRAIN_BATCH, H, W, 64), 64),
+    ("conv3x3_packed", "bwd_x", ("arena_in", "arena_out", "arena_g"), (TRAIN_BATCH, H, W, 64),
+     64),
+    ("conv3x3_wgrad", "prologue", ("arena_in", "arena_g"), (TRAIN_BATCH, H, W, 64), 64),
+    ("conv3x3_packed", "adjoint", ("arena_g",), (TRAIN_BATCH, H, W, 64), 128),
+    ("conv3x3_wgrad", "plain", ("arena_g",), (TRAIN_BATCH, H, W, 128), 64),
+    ("conv3x3_packed", "relu", ("arena_out",), (1, H, W, D), 64),
+    ("conv3x3_packed", "relu", ("arena_g",), (1, H, W, 64), 64),
+]
+
+
+def framing_times():
+    """Each FRAMED_MAIN call against the same call unframed, on the same
+    logical inputs, timed in turns in one run (framed, unframed, unframed,
+    framed): the mean of each side's two medians, with the bound."""
+    print("framed kernel modes at the main path's shapes against the same calls unframed:")
+    rows = []
+    for kernel, mode, flags, shape, o in FRAMED_MAIN:
+        cases = {label: Case(dict(kernel=kernel, mode=mode, framing=f, shape=shape, o=o,
+                                  layer="main"), torch.Generator(device="cuda").manual_seed(8))
+                 for label, f in (("framed", flags), ("unframed", ()))}
+        times = {"framed": [], "unframed": []}
+        for label in ("framed", "unframed", "unframed", "framed"):
+            times[label].append(cuda_ms(cases[label].run))
+        ms = {label: mean(v) for label, v in times.items()}
+        case = cases["framed"]
+        bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
+        rows.append({"label": case.label(), "framed_ms": ms["framed"],
+                     "unframed_ms": ms["unframed"], "framed_runs": times["framed"],
+                     "unframed_runs": times["unframed"], "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        print(f"{case.label()}: framed {ms['framed']:.4f} ms, unframed {ms['unframed']:.4f} ms "
+              f"({ms['framed'] / ms['unframed']:.3f}x), bound {bound_ms:.4f} ms ({bound_by})")
+        del cases, case
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_product_loop(tree, calls, card):
+    phase(f"(h) the product loop: train_net -> validate_net -> test_net, CubeNET-64, "
+          f"batch {TRAIN_BATCH}, {H}x{W}x{D} bf16, on {card}")
+    from hyperpri_tpu_torch.config import ExpHyperspectralPRI
+    from hyperpri_tpu_torch.models.registry import count_params
+    from hyperpri_tpu_torch.ops.metrics import best_threshold_from_pr
+    from hyperpri_tpu_torch.train.evaluate import test_net, validate_net
+    from hyperpri_tpu_torch.train.trainer import train_net
+
+    def config(**kw):
+        return ExpHyperspectralPRI(calling_path=tree, precision="bf16", device="cuda", **kw)
+
+    cfg = config(profile_dir=os.path.join(tree, "profile"))
+    saved = os.path.join(tree, "Saved_Models")
+    # Bit-equal resume needs every kernel deterministic: the port's are, and
+    # cuDNN (the convs off the kernel route) is asked to be.
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer = train_net(cfg, max_epochs=LOOP_EPOCHS)
+    fit_s = time.perf_counter() - t0
+    fit = trainer.fit_result
+    n_params = count_params(trainer.model)
+    check(n_params == PARAMS_CUBENET64, f"CubeNET-64 has {n_params} parameters")
+    steps = sum(h["steps"] for h in fit.history)
+    check(steps == LOOP_EPOCHS, f"{steps} steps in {LOOP_EPOCHS} epochs of one batch")
+    launches, framings = check_launches(f"product loop, {steps} steps", calls, steps)
+    check(framings["conv3x3_packed"].get("pre_padded") == steps,
+          f"the ingest conv launched {framings['conv3x3_packed'].get('pre_padded')} times in "
+          f"{steps} steps")
+    ckpts = sorted(os.listdir(os.path.join(cfg.save_path, "Checkpoints")))
+    check("last.ckpt" in ckpts and any(c.startswith("epoch=") for c in ckpts)
+          and os.listdir(os.path.join(cfg.save_path, "diceCheckpoints")),
+          f"checkpoints written: {ckpts}")
+    losses = [h["tr_loss"] for h in fit.history]
+    check(all(v == v and abs(v) != float("inf") for v in losses), f"train losses {losses}")
+    for h in fit.history:
+        print(f"epoch {h['epoch']}: {h['epoch_time']:.3f} s ({h['train_time']:.3f} s of it "
+              f"training, {h['steps'] / h['train_time']:.3f} steps/s), tr_loss "
+              f"{h['tr_loss']:.6f}, val_loss {h['val_loss']:.6f}, val_dice {h['val_dice']:.6f}")
+    print(f"fit: {fit_s:.2f} s for {LOOP_EPOCHS} epochs, {n_params} parameters, checkpoints "
+          f"{ckpts}")
+    prof = trainer.profile
+    if prof is not None and prof["idle_share"] is not None:
+        print(f"profiled epoch {prof['epoch']}: device busy {prof['busy_ms']:.2f} ms of "
+              f"{prof['wall_ms']:.2f} ms wall, idle share {prof['idle_share']:.4f} "
+              f"(profiler on)")
+        for key, count, ms in prof["top"][:8]:
+            print(f"  {ms:9.3f} ms  {count:4d} calls  {key[:90]}")
+    else:
+        print("the profiler recorded no device time for the profiled epoch")
+    host = {split: {k: mean(v) for k, v in loader.timings.items()}
+            for split, loader in trainer.loaders.items()}
+    for split, t in host.items():
+        print(f"host seconds per {split} batch: read {t['read']:.4f} (summed over samples), "
+              f"cast {t['cast']:.4f}, pad/collate {t['pad']:.4f}, h2d {t['h2d']:.4f}")
+    del trainer
+
+    # Resume the 4th epoch from last.ckpt, then the same 4 epochs uninterrupted.
+    resumed = train_net(config(), checkpoint=True, max_epochs=LOOP_EPOCHS + 1)
+    resumed_loss = resumed.fit_result.history[-1]["tr_loss"]
+    curve = validate_net(resumed.cfg.get_val_data(), resumed.cfg, trainer=resumed)
+    check(len(curve[2]) == 500 and all(bool((c == c).all()) for c in curve),
+          "validate_net: not a 500-threshold curve of numbers")
+    thr = float(best_threshold_from_pr(*(torch.from_numpy(c) for c in curve))[0])
+    results = test_net(resumed.cfg.get_test_data(), resumed.cfg, thr, trainer=resumed)
+    check(all(v == v for k, v in results.items() if k != "conf_mat"), f"test_net {results}")
+    del resumed
+    shutil.move(saved, saved + "_resumed")
+    fresh = train_net(config(), max_epochs=LOOP_EPOCHS + 1)
+    fresh_loss = fresh.fit_result.history[-1]["tr_loss"]
+    del fresh
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    print(f"epoch {LOOP_EPOCHS + 1} train loss: resumed {resumed_loss!r}, uninterrupted "
+          f"{fresh_loss!r} (held bit-equal)")
+    check(resumed_loss == fresh_loss, "the resumed epoch differs from the uninterrupted one")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_by_framing": framings, "fit_s": fit_s,
+            "history": fit.history, "profile": {k: v for k, v in (prof or {}).items()
+                                                if k != "top"},
+            "host_s_per_batch": host, "resume_loss": [resumed_loss, fresh_loss],
+            "test": {k: v for k, v in results.items() if k != "conf_mat"},
+            "framed_vs_unframed": framing_times()}
+
+
+def phase_cli(tree):
+    phase("(i) the CLI: kfold_train --validate at the configuration's default precision")
+    shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
+    shutil.rmtree(os.path.join(tree, "Saved_Models_resumed"), ignore_errors=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "hyperpri_tpu_torch.cli", "kfold_train", "--calling-path",
+           tree, "--dataset", "HSI", "--model", "CubeNET", "--num-splits", "1",
+           "--max-epochs", "1", "--validate"]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    route = [ln.strip() for ln in lines if "route:" in ln]
+    print(f"{' '.join(cmd[1:4])} ... exit {proc.returncode} in {seconds:.2f} s")
+    print("\n".join(route) or "no route line")
+    print("\n".join(ln for ln in lines if "epoch" in ln or "Threshold" in ln or "DICE" in ln))
+    check(proc.returncode == 0, f"the CLI failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check(any("Best Threshold" in ln for ln in lines), "the CLI did not validate")
+    return {"seconds": seconds, "route": route}
+
+
 REPLACES = {
     "conv3x3_packed": ("hyperpri_tpu_torch/csrc/conv3x3_packed.cu",
                        "hyperpri_tpu/ops/pallas/conv3x3_packed.py:308"),
@@ -734,31 +1096,39 @@ REPLACES = {
                       "hyperpri_tpu/ops/pallas/conv3x3_grad.py:184"),
     "max_pool_2x2_bwd": ("hyperpri_tpu_torch/csrc/pool_bwd.cu",
                          "hyperpri_tpu/ops/pallas/pool_bwd.py:82"),
+    "probe_element_out": ("hyperpri_tpu_torch/csrc/probe_element_out.cu",
+                          "scripts/probe_element_out.py:29"),
 }
 
 
-def kernel_summary(rows, errors, serving_launches, training_launches):
+def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     """One entry per kernel. ms, plain_ms, library_ms and bound_ms are sums over
-    the kernel's calls in one pass of each main path (one training step, and
-    for conv3x3_packed one serving forward); launches are those counted during
-    the paths' runs."""
+    the kernel's calls in one pass of each main path (one serving forward and
+    one product-loop training step); launches are those counted during the
+    paths' runs, by path and, for the framed kernels, by framing. The element
+    probe is no part of a path (its launches are 0); its numbers are one call
+    at 2x608x968x64."""
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["kernel"] == name]
         flops = sum(r["flops"] * r["count"] for r in mine)
         nbytes = sum(r["bytes"] * r["count"] for r in mine)
-        peak = PEAK_F32_FLOPS if name == "max_pool_2x2_bwd" else PEAK_BF16_FLOPS
+        peak = (PEAK_F32_FLOPS if name in ("max_pool_2x2_bwd", "probe_element_out")
+                else PEAK_BF16_FLOPS)
         bound_ms, bound_by = bound(flops, nbytes, peak)
-        by_path = {"serving": serving_launches.get(name, 0),
-                   "training": training_launches.get(name, 0)}
+        by_path = {path: counts.get(name, 0) for path, counts in launches_by_path.items()}
+        library = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_by_framing": {path: f[name] for path, f in framings_by_path.items()
+                                    if name in f},
             "max_abs_err": errors[name][0], "max_sum_rel_err": errors[name][1],
             "ms": sum(r["ms"] * r["count"] for r in mine),
             "plain_ms": sum(r["plain_ms"] * r["count"] for r in mine),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sum(r["library_ms"] * r["count"] for r in mine),
+            "library_ms": (None if None in library
+                           else sum(ms * r["count"] for ms, r in zip(library, mine))),
             "calls": mine,
         })
     return kernels
@@ -775,15 +1145,31 @@ def main():
     card = phase_env()
     phase_build()
     serve_calls, train_calls = serving_calls(), training_calls()
-    errors = phase_kernel_check(serve_calls + train_calls)
-    serving_launches, serving_ms = phase_serving(serve_calls)
-    training_launches, step_ms, peak, step, batch = phase_training(train_calls)
-    rows = phase_times(serve_calls + train_calls, card)
+    loop_calls = training_calls(ingest=True)
+    errors = phase_kernel_check(serve_calls + train_calls + loop_calls)
+    serving_launches, serving_framings, serving_ms = phase_serving(serve_calls)
+    training_launches, training_framings, step_ms, peak, step, batch = phase_training(
+        train_calls)
+    rows = phase_times(serve_calls + loop_calls, card)
     phase_profile(step, batch)
-    kernels = kernel_summary(rows, errors, serving_launches, training_launches)
+    del step, batch
+    torch.cuda.empty_cache()
+    tree = write_tree()
+    try:
+        loop = phase_product_loop(tree, loop_calls, card)
+        cli = phase_cli(tree)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+    kernels = kernel_summary(
+        rows, errors,
+        {"serving": serving_launches, "training_step": training_launches,
+         "product_loop": loop["launches"]},
+        {"serving": serving_framings, "training_step": training_framings,
+         "product_loop": loop["launches_by_framing"]})
     print(card)
     print(json.dumps({"kernels": kernels, "serving_ms_per_cube": serving_ms,
-                      "training_ms_per_step": step_ms, "training_peak_gib": peak}))
+                      "training_ms_per_step": step_ms, "training_peak_gib": peak,
+                      "product_loop": loop, "cli": cli}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,10 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card; without one that raises, so an entry point
-    never carries on quietly on the CPU. Pass `device="cpu"` to ask for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """`None` means the CUDA card. Asking for CUDA without a card raises, so an
+    entry point never carries on quietly on the CPU. Pass `device="cpu"` to
+    ask for it."""
+    resolved = torch.device("cuda" if device is None else device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return resolved

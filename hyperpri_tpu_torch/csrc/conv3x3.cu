@@ -51,7 +51,9 @@ extern "C" int conv3x3_bias_act_bf16(const void* x, const void* wp, const void* 
   p.pb = static_cast<const float*>(pb);
   p.r = nullptr;
   p.partial = static_cast<float*>(partial);
-  p.d = ConvDims{H, W, C, Cp, O, OP, OP / NP, relu, mode};
+  p.x_lanes_zero = false;
+  p.d = ConvDims{H, W, C, Cp, O, OP, OP / NP, relu, mode,
+                 unframed(H, W, C), unframed(H, W, O), unframed(H, W, O)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(sums);
   if (NP == 64) return static_cast<int>(launch_conv<64>(p, N, partial_rows, out, s));

@@ -7,6 +7,16 @@
 // affine + ReLU prologue z = relu(pa*x + pb) on the way, and feeds bf16
 // mma.sync m16n8k16 products with float32 accumulators from it.
 //
+// Every activation operand is a framed view (struct Frame): its logical
+// (H, W, C) tensor may sit at a row and column offset inside a larger buffer
+// with a wider channel pitch. That is how the JAX package's framings map
+// here: the host pre-padded ingest buffer (logical (0,0) at (1,1), channel
+// pitch 256), the arena buffers that hand a conv's output to the next kernel
+// without a slice or pad pass (logical (0,0) at (8,8)), and plain tensors
+// (offset 0, pitch C). Staging reads only the logical region and zero-fills
+// everything else by select, never by multiplying, so a frame holding NaN
+// never reaches a product.
+//
 // Per-channel sums (BatchNorm statistics, affine gradients, weight-gradient
 // partials) are never accumulated with float atomics: every block writes its
 // partial sums to a float32 buffer and reduce_rows_kernel adds the rows in a
@@ -76,6 +86,30 @@ __device__ __forceinline__ uint32_t affine_relu_pair(uint32_t packed, const floa
   return *reinterpret_cast<const uint32_t*>(&z);
 }
 
+// A framed NHWC view: element c of logical pixel (n, h, w) lives at
+// ((n*rows + r0 + h)*cols + c0 + w)*pitch + c of the buffer. An unframed
+// (N, H, W, C) tensor is {H, W, C, 0, 0}.
+struct Frame {
+  int rows, cols, pitch, r0, c0;
+};
+
+// Offset of image n's logical pixel (0, 0). Within an image the kernels index
+// in 32-bit ints, (h * cols + w) * pitch + c: a framed image must hold fewer
+// than 2^31 elements (frame_ok).
+__host__ __device__ __forceinline__ size_t image_offset(const Frame& f, int n) {
+  return ((static_cast<size_t>(n) * f.rows + f.r0) * f.cols + f.c0) *
+         static_cast<size_t>(f.pitch);
+}
+
+inline Frame unframed(int H, int W, int C) { return Frame{H, W, C, 0, 0}; }
+
+// A frame is usable for a logical (H, W, C) tensor when it covers it and an
+// image of it is indexable in 32 bits.
+inline bool frame_ok(const Frame& f, int H, int W, int C) {
+  return f.r0 >= 0 && f.c0 >= 0 && f.rows >= f.r0 + H && f.cols >= f.c0 + W && f.pitch >= C &&
+         static_cast<long long>(f.rows) * f.cols * f.pitch < (1LL << 31);
+}
+
 template <int VEC>
 struct Packed;
 template <>
@@ -92,18 +126,22 @@ __device__ __forceinline__ uint16_t affine_relu_one(uint16_t bits, const float* 
   return *reinterpret_cast<const uint16_t*>(&z);
 }
 
-// Stage src[n, h_start : h_start+ROWS, w_start : w_start+COLS, c0 : c0+NCH]
-// of an (N, H, W, C) tensor into dst[pixel][STRIDE], zero outside the image
-// and past C. VEC elements per load (C % VEC == 0 and c0 % VEC == 0). With
+// Stage src[h_start : h_start+ROWS, w_start : w_start+COLS, c0 : c0+NCH] of
+// one logical (H, W, C) image into dst[pixel][STRIDE], zero outside the image
+// and past C. src points at the image's logical pixel (0, 0); rows are
+// row_pitch elements apart and pixels pitch. VEC elements per load (f.pitch % VEC == 0,
+// c0 % VEC == 0, and either C % VEC == 0 or the buffer's lanes from C to the
+// next multiple of VEC are zero, see load_width). With
 // PRO, in-image elements become relu(pa[c]*x + pb[c]) rounded to bf16; the
 // zero border stays exact zero. The trip count is a compile-time constant and
 // the loads of a batch are all issued before the first of them is used, so a
 // thread keeps up to 16 loads in flight. blockDim.x == THREADS.
 template <int VEC, int NCH, int STRIDE, int ROWS, int COLS, bool PRO>
 __device__ __forceinline__ void stage_window(__nv_bfloat16* __restrict__ dst,
-                                             const __nv_bfloat16* __restrict__ src, int n,
-                                             int H, int W, int C, int h_start, int w_start,
-                                             int c0, const float* __restrict__ pa,
+                                             const __nv_bfloat16* __restrict__ src,
+                                             int row_pitch, int pitch, int H, int W, int C,
+                                             int h_start, int w_start, int c0,
+                                             const float* __restrict__ pa,
                                              const float* __restrict__ pb) {
   using P = typename Packed<VEC>::type;
   constexpr int GROUPS = NCH / VEC;
@@ -125,7 +163,7 @@ __device__ __forceinline__ void stage_window(__nv_bfloat16* __restrict__ dst,
       const int c = c0 + g * VEC;
       const bool inside = i < TOTAL && hh >= 0 && hh < H && ww >= 0 && ww < W && c < C;
       v[k] = P();
-      if (inside) v[k] = in[(((static_cast<size_t>(n) * H + hh) * W + ww) * C + c) / VEC];
+      if (inside) v[k] = in[(hh * row_pitch + ww * pitch + c) / VEC];
       if constexpr (PRO) {
         if (inside) {
           if constexpr (VEC == 8) {
@@ -156,35 +194,42 @@ __device__ __forceinline__ void stage_window(__nv_bfloat16* __restrict__ dst,
 // stage_window with the load width and the prologue chosen at run time
 // (uniform over the block, decided outside the unrolled loops).
 template <int NCH, int STRIDE, int ROWS, int COLS, int VEC>
-__device__ __forceinline__ void stage_pro(__nv_bfloat16* dst, const __nv_bfloat16* src, int n,
-                                          int H, int W, int C, int h_start, int w_start,
-                                          int c0, const float* pa, const float* pb) {
+__device__ __forceinline__ void stage_pro(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int row_pitch, int pitch, int H, int W, int C,
+                                          int h_start, int w_start, int c0, const float* pa,
+                                          const float* pb) {
   if (pa != nullptr)
-    stage_window<VEC, NCH, STRIDE, ROWS, COLS, true>(dst, src, n, H, W, C, h_start, w_start,
-                                                     c0, pa, pb);
+    stage_window<VEC, NCH, STRIDE, ROWS, COLS, true>(dst, src, row_pitch, pitch, H, W, C,
+                                                     h_start, w_start, c0, pa, pb);
   else
-    stage_window<VEC, NCH, STRIDE, ROWS, COLS, false>(dst, src, n, H, W, C, h_start, w_start,
-                                                      c0, pa, pb);
+    stage_window<VEC, NCH, STRIDE, ROWS, COLS, false>(dst, src, row_pitch, pitch, H, W, C,
+                                                      h_start, w_start, c0, pa, pb);
 }
 
 template <int NCH, int STRIDE, int ROWS, int COLS>
 __device__ __forceinline__ void stage_any(int vec, __nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int n, int H, int W,
-                                          int C, int h_start, int w_start, int c0,
-                                          const float* pa, const float* pb) {
+                                          const __nv_bfloat16* src, int row_pitch, int pitch,
+                                          int H, int W, int C, int h_start, int w_start,
+                                          int c0, const float* pa, const float* pb) {
   if (vec == 8)
-    stage_pro<NCH, STRIDE, ROWS, COLS, 8>(dst, src, n, H, W, C, h_start, w_start, c0, pa, pb);
+    stage_pro<NCH, STRIDE, ROWS, COLS, 8>(dst, src, row_pitch, pitch, H, W, C, h_start,
+                                          w_start, c0, pa, pb);
   else if (vec == 2)
-    stage_pro<NCH, STRIDE, ROWS, COLS, 2>(dst, src, n, H, W, C, h_start, w_start, c0, pa, pb);
+    stage_pro<NCH, STRIDE, ROWS, COLS, 2>(dst, src, row_pitch, pitch, H, W, C, h_start,
+                                          w_start, c0, pa, pb);
   else
-    stage_pro<NCH, STRIDE, ROWS, COLS, 1>(dst, src, n, H, W, C, h_start, w_start, c0, pa, pb);
+    stage_pro<NCH, STRIDE, ROWS, COLS, 1>(dst, src, row_pitch, pitch, H, W, C, h_start,
+                                          w_start, c0, pa, pb);
 }
 
-// Widest load an (.., C) bf16 tensor at `ptr` allows: 8, 2 or 1 elements.
-inline int load_width(const void* ptr, int C) {
+// Widest load a framed bf16 view at `ptr` allows: 8, 2 or 1 elements. A load
+// may reach past the last logical channel only when `lanes_zero` says the
+// buffer holds zeros there (the pre-padded ingest buffer: C = 238 in a
+// 256-channel pitch then takes 16-byte loads).
+inline int load_width(const void* ptr, int C, int pitch, bool lanes_zero) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(ptr);
-  if (C % 8 == 0 && addr % 16 == 0) return 8;
-  if (C % 2 == 0 && addr % 4 == 0) return 2;
+  if (pitch % 8 == 0 && addr % 16 == 0 && (C % 8 == 0 || lanes_zero)) return 8;
+  if (pitch % 2 == 0 && addr % 4 == 0 && (C % 2 == 0 || lanes_zero)) return 2;
   return 1;
 }
 
@@ -221,18 +266,20 @@ inline cudaError_t reduce_rows(const float* partial, float* out, int rows, int c
 
 struct ConvDims {
   int H, W, C, Cp, O, OP, n_otiles, relu, mode;
+  Frame fx, fy, fr;  // the views of x, y and (MODE_BWD) r
 };
 
 // One launch of the forward kernel, as the entry points fill it in.
 struct ConvParams {
-  const __nv_bfloat16* x;   // (N, H, W, C)
+  const __nv_bfloat16* x;   // logical (N, H, W, C), framed by d.fx
   const __nv_bfloat16* wp;  // (9, OP, Cp) packed weights
   const float* bias;        // (O,)
-  __nv_bfloat16* y;         // (N, H, W, O)
+  __nv_bfloat16* y;         // logical (N, H, W, O), framed by d.fy
   const float* pa;          // prologue affine (C,), or in MODE_BWD the (O,) affine
   const float* pb;
-  const __nv_bfloat16* r;   // MODE_BWD: the saved producer output (N, H, W, O)
+  const __nv_bfloat16* r;   // MODE_BWD: the saved producer output, framed by d.fr
   float* partial;           // reducing modes: (blocks, 2, OP)
+  bool x_lanes_zero;        // x's buffer is zero from channel C on (load_width)
   ConvDims d;
 };
 
@@ -287,6 +334,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
   const int n = blockIdx.z / p.n_otiles;
   const int o0 = (blockIdx.z % p.n_otiles) * NP;
   const bool prologue = pa != nullptr && p.mode != MODE_BWD;
+  const __nv_bfloat16* xn = x + image_offset(p.fx, n);
 
   float acc[2][NB][4];
 #pragma unroll
@@ -298,7 +346,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
 
   for (int c0 = 0; c0 < p.Cp; c0 += KC) {
     __syncthreads();  // the previous chunk's reads are done
-    stage_pro<KC, KS, TH + 2, HALO_W, VEC>(hs, x, n, p.H, p.W, p.C, h0 - 1, w0 - 1, c0,
+    stage_pro<KC, KS, TH + 2, HALO_W, VEC>(hs, xn, p.fx.cols * p.fx.pitch, p.fx.pitch, p.H,
+                                           p.W, p.C, h0 - 1, w0 - 1, c0,
                                            prologue ? pa : nullptr, prologue ? pb : nullptr);
     load_weights<NP>(ws, wp, p.OP, p.Cp, o0, c0);
     __syncthreads();
@@ -335,7 +384,9 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
   // Epilogue: accumulator element r of tile (j, nb) is pixel
   // (lane/4 + 8*(r/2)) of row tile j, output channel o0 + nb*8 + 2*(lane%4) + r%2.
   const int oh = h0 + warp;
-  const bool pairs = (p.O & 1) == 0;  // o even, so a pair is in range and 4-byte aligned
+  // o even, so a pair is in range and, with an even pitch, 4-byte aligned
+  const bool pairs = (p.O & 1) == 0 && (p.fy.pitch & 1) == 0;
+  __nv_bfloat16* const yn = y + image_offset(p.fy, n);
 
   if (p.mode == MODE_PLAIN) {
     if (oh >= p.H) return;
@@ -345,7 +396,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
       for (int half = 0; half < 2; ++half) {
         const int ow = w0 + j * 16 + (lane >> 2) + half * 8;
         if (ow >= p.W) continue;
-        __nv_bfloat16* yp = y + ((static_cast<size_t>(n) * p.H + oh) * p.W + ow) * p.O;
+        __nv_bfloat16* yp = yn + (oh * p.fy.cols + ow) * p.fy.pitch;
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb) {
           const int o = o0 + nb * 8 + (lane & 3) * 2;
@@ -399,7 +450,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
       for (int half = 0; half < 2; ++half) {
         const int ow = w0 + j * 16 + (lane >> 2) + half * 8;
         if (oh >= p.H || ow >= p.W || o >= p.O) continue;
-        const size_t pix = ((static_cast<size_t>(n) * p.H + oh) * p.W + ow) * p.O;
+        const int ypix = (oh * p.fy.cols + ow) * p.fy.pitch;
         float out[2] = {0.0f, 0.0f};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -410,7 +461,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
             s[0][e] += out[e];
             s[1][e] += out[e] * out[e];
           } else {
-            const float rr = __bfloat162float(res[pix + o + e]);
+            const float rr = __bfloat162float(
+                res[image_offset(p.fr, n) + (oh * p.fr.cols + ow) * p.fr.pitch + o + e]);
             const bool m = __fadd_rn(__fmul_rn(rr, bias_or_pa[e]), pbv[e]) > 0.0f;
             const float mdz = m ? v : 0.0f;
             out[e] = mdz * bias_or_pa[e];
@@ -419,11 +471,11 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
           }
         }
         if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(y + pix + o) =
+          *reinterpret_cast<__nv_bfloat162*>(yn + ypix + o) =
               __floats2bfloat162_rn(out[0], out[1]);
         } else {
-          y[pix + o] = __float2bfloat16_rn(out[0]);
-          if (o + 1 < p.O) y[pix + o + 1] = __float2bfloat16_rn(out[1]);
+          yn[ypix + o] = __float2bfloat16_rn(out[0]);
+          if (o + 1 < p.O) yn[ypix + o + 1] = __float2bfloat16_rn(out[1]);
         }
       }
     }
@@ -463,6 +515,9 @@ cudaError_t launch_conv_vec(const ConvParams& p, int N, int partial_rows, float*
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const ConvDims& d = p.d;
+  if (!frame_ok(d.fx, d.H, d.W, d.C) || !frame_ok(d.fy, d.H, d.W, d.O) ||
+      (d.mode == MODE_BWD && !frame_ok(d.fr, d.H, d.W, d.O)))
+    return cudaErrorInvalidValue;
   const dim3 grid((d.W + TW - 1) / TW, (d.H + TH - 1) / TH, N * d.n_otiles);
   const long long tiles = static_cast<long long>(grid.x) * grid.y * N;
   if (grid.y > 65535 || N * d.n_otiles > 65535) return cudaErrorInvalidValue;
@@ -477,7 +532,7 @@ cudaError_t launch_conv_vec(const ConvParams& p, int N, int partial_rows, float*
 template <int NP>
 cudaError_t launch_conv(const ConvParams& p, int N, int partial_rows, float* sums,
                         cudaStream_t stream) {
-  const int vec = load_width(p.x, p.d.C);
+  const int vec = load_width(p.x, p.d.C, p.d.fx.pitch, p.x_lanes_zero);
   if (vec == 8) return launch_conv_vec<NP, 8>(p, N, partial_rows, sums, stream);
   if (vec == 2) return launch_conv_vec<NP, 2>(p, N, partial_rows, sums, stream);
   return launch_conv_vec<NP, 1>(p, N, partial_rows, sums, stream);

@@ -6,6 +6,9 @@
 //
 // with z = x, or z = relu(pa*x + pb) recomputed from the raw x while it is
 // staged (rounded to bf16, in-image pixels only; outside the image z is zero).
+// x and g are framed views (the JAX kernel's pre_padded_c, arena_in and
+// arena_g): the host pre-padded ingest buffer and arena buffers are read in
+// place, and only their logical regions are staged (zero elsewhere, by select).
 //
 // Bound. 2*N*H*W*9*C*O FLOP against x and g read once (bf16) and dW written
 // (f32): with ~1.18 M pixels at full resolution that is 9*C*O/(C+O) FLOP per
@@ -45,8 +48,9 @@ constexpr int WG_SMEM = (HALO_PIX + TH * TW) * WS * static_cast<int>(sizeof(__nv
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
                      const float* __restrict__ pa, const float* __restrict__ pb,
-                     float* __restrict__ partial, int N, int H, int W, int C, int O,
-                     int tiles_h, int tiles_w, int tiles_per_split, int xvec, int gvec) {
+                     float* __restrict__ partial, const Frame fx, const Frame fg, int N, int H,
+                     int W, int C, int O, int tiles_h, int tiles_w, int tiles_per_split,
+                     int xvec, int gvec) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* gs = hs + HALO_PIX * WS;
@@ -76,8 +80,10 @@ conv3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
     const int h0 = ty * TH;
     const int w0 = tx * TW;
     __syncthreads();  // the previous tile's reads are done
-    stage_any<CT, WS, TH + 2, HALO_W>(xvec, hs, x, n, H, W, C, h0 - 1, w0 - 1, c0, pa, pb);
-    stage_any<OT, WS, TH, TW>(gvec, gs, g, n, H, W, O, h0, w0, o0, nullptr, nullptr);
+    stage_any<CT, WS, TH + 2, HALO_W>(xvec, hs, x + image_offset(fx, n), fx.cols * fx.pitch,
+                                      fx.pitch, H, W, C, h0 - 1, w0 - 1, c0, pa, pb);
+    stage_any<OT, WS, TH, TW>(gvec, gs, g + image_offset(fg, n), fg.cols * fg.pitch, fg.pitch,
+                              H, W, O, h0, w0, o0, nullptr, nullptr);
     __syncthreads();
 
     for (int row = 0; row < TH; ++row) {
@@ -128,14 +134,22 @@ conv3x3_wgrad_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
 
 }  // namespace
 
-// x: (N, H, W, C) bf16; g: (N, H, W, O) bf16; pa, pb: null or the (C,) f32
-// prologue affine; partial: (splits, 9, C, O) f32 scratch; dw: (9, C, O) f32,
-// tap = 3*dh + dw. Returns the cudaError_t of the launches.
+// x: logical (N, H, W, C) bf16; g: logical (N, H, W, O) bf16; frames: 10 ints,
+// the views {rows, cols, pitch, r0, c0} of x and g (Frame, conv3x3_common.cuh);
+// x_lanes_zero: x's buffer holds zeros from channel C to its pitch. pa, pb:
+// null or the (C,) f32 prologue affine; partial: (splits, 9, C, O) f32
+// scratch; dw: (9, C, O) f32, tap = 3*dh + dw. Returns the cudaError_t of the
+// launches.
 extern "C" int conv3x3_wgrad_bf16(const void* x, const void* g, const void* pa,
-                                  const void* pb, void* partial, void* dw, int N, int H,
-                                  int W, int C, int O, int splits, void* stream) {
-  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 ||
-      (pa == nullptr) != (pb == nullptr))
+                                  const void* pb, void* partial, void* dw, const int* frames,
+                                  int N, int H, int W, int C, int O, int splits,
+                                  int x_lanes_zero, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 || frames == nullptr ||
+      (pa == nullptr) != (pb == nullptr) || (x_lanes_zero && pa != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
+  const Frame fg{frames[5], frames[6], frames[7], frames[8], frames[9]};
+  if (!frame_ok(fx, H, W, C) || !frame_ok(fg, H, W, O))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_h = (H + TH - 1) / TH;
   const int tiles_w = (W + TW - 1) / TW;
@@ -154,8 +168,8 @@ extern "C" int conv3x3_wgrad_bf16(const void* x, const void* g, const void* pa,
   conv3x3_wgrad_kernel<<<grid, THREADS, WG_SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
       static_cast<const float*>(pa), static_cast<const float*>(pb),
-      static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w, tiles_per_split,
-      load_width(x, C), load_width(g, O));
+      static_cast<float*>(partial), fx, fg, N, H, W, C, O, tiles_h, tiles_w, tiles_per_split,
+      load_width(x, C, fx.pitch, x_lanes_zero != 0), load_width(g, O, fg.pitch, false));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_rows(static_cast<const float*>(partial),

@@ -16,6 +16,11 @@
 //     weights, no bias; with dz the accumulator, r the saved producer output
 //     and m = (pa*r + pb > 0): stores dx = m*dz*pa and returns dpa = sum m*dz*r,
 //     dpb = sum m*dz.
+// Framings (the JAX kernel's pre_padded, arena_in, arena_out and arena_g):
+// x, y and r are framed views of their buffers, so the host pre-padded ingest
+// buffer (logical (0,0) at (1,1), channel pitch 256) and arena buffers
+// (logical (0,0) at (8,8)) are read and written in place; staging zero-fills
+// everything outside the logical region by select.
 // The per-channel sums are per-block partials added in a fixed order by a
 // second kernel (conv3x3_common.cuh), never float atomics.
 //
@@ -37,22 +42,27 @@
 
 #include "conv3x3_common.cuh"
 
-// x: (N, H, W, C) bf16; wp: (9, NP, Cp) bf16 packed weights; b: (O,) f32;
-// y: (N, H, W, O) bf16. pa, pb: null, or the f32 prologue affine (C,), or in
-// mode 2 the (O,) affine. r: mode 2 only, (N, H, W, O) bf16. partial:
-// (partial_rows, 2, NP) f32 scratch and sums: (2, NP) f32, modes 1 and 2 only.
-// NP is 64 (O <= 64) or 128 (O <= 128); Cp is C rounded up to a multiple of
-// 32. Returns the cudaError_t of the launches.
+// x: logical (N, H, W, C) bf16; wp: (9, NP, Cp) bf16 packed weights; b: (O,)
+// f32; y: logical (N, H, W, O) bf16. pa, pb: null, or the f32 prologue affine
+// (C,), or in mode 2 the (O,) affine. r: mode 2 only, logical (N, H, W, O) bf16.
+// frames: 15 ints, the views {rows, cols, pitch, r0, c0} of x, y and r (see
+// Frame in conv3x3_common.cuh): the pre-padded ingest buffer, arena buffers
+// or plain tensors. x_lanes_zero: x's buffer holds zeros from channel C to
+// its pitch (16-byte loads at C = 238). partial: (partial_rows, 2, NP) f32
+// scratch and sums: (2, NP) f32, modes 1 and 2 only. NP is 64 (O <= 64) or
+// 128 (O <= 128); Cp is C rounded up to a multiple of 32. Returns the
+// cudaError_t of the launches.
 extern "C" int conv3x3_packed_bf16(const void* x, const void* wp, const void* b, void* y,
                                    const void* pa, const void* pb, const void* r,
-                                   void* partial, void* sums, int N, int H, int W, int C,
-                                   int Cp, int O, int NP, int relu, int mode,
-                                   int partial_rows, void* stream) {
+                                   void* partial, void* sums, const int* frames, int N, int H,
+                                   int W, int C, int Cp, int O, int NP, int relu, int mode,
+                                   int x_lanes_zero, int partial_rows, void* stream) {
   using namespace conv3x3;
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || O > NP || Cp < C || Cp % KC != 0 ||
       mode < MODE_PLAIN || mode > MODE_BWD || (pa == nullptr) != (pb == nullptr) ||
       (mode == MODE_BWD && (pa == nullptr || r == nullptr || relu)) ||
-      (mode == MODE_STATS && relu))
+      (mode == MODE_STATS && relu) || frames == nullptr ||
+      (x_lanes_zero && pa != nullptr && mode != MODE_BWD))
     return static_cast<int>(cudaErrorInvalidValue);
   ConvParams p;
   p.x = static_cast<const __nv_bfloat16*>(x);
@@ -63,7 +73,11 @@ extern "C" int conv3x3_packed_bf16(const void* x, const void* wp, const void* b,
   p.pb = static_cast<const float*>(pb);
   p.r = static_cast<const __nv_bfloat16*>(r);
   p.partial = static_cast<float*>(partial);
-  p.d = ConvDims{H, W, C, Cp, O, NP, 1, relu, mode};
+  p.x_lanes_zero = x_lanes_zero != 0;
+  const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
+  const Frame fy{frames[5], frames[6], frames[7], frames[8], frames[9]};
+  const Frame fr{frames[10], frames[11], frames[12], frames[13], frames[14]};
+  p.d = ConvDims{H, W, C, Cp, O, NP, 1, relu, mode, fx, fy, fr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(sums);
   if (NP == 64) return static_cast<int>(launch_conv<64>(p, N, partial_rows, out, s));

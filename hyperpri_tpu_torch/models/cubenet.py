@@ -12,6 +12,8 @@ take the conv3x3_packed kernel where `packed_serving_route` allows. Unfolded,
 `forward(x, train=True)` is the training form and `use_kernels` (JAX's
 `pallas_train`) sends the 3x3 convs that pass Conv3x3's gates through the
 trainable kernel convs; `conv_kwargs` reaches every Conv3x3 (the gates).
+A training forward may take the host pre-padded ingest buffer (`ingest_hw`,
+cubenet.py:50-60 and :97-118; geometry from `ingest_spec`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from hyperpri_tpu_torch.models.parts import (
     Up,
     _Conv,
     conv_bn_relu_pair,
+    first_conv_ingest_spec,
     pad_to_match,
     upsample2x_align_corners,
 )
@@ -82,10 +85,22 @@ class CubeNET(nn.Module):
                 if isinstance(m, _Conv):
                     m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def ingest_spec(self, h: int, w: int):
+        """The host pre-padded ingest geometry for (h, w) cubes, or None when
+        the first conv does not take the packed kernel (parts.py:96-122)."""
+        if self.fused_bn:
+            return None
+        return first_conv_ingest_spec(h, w, self.hsi_depth, self.first_conv.weight.shape[0],
+                                      **self.first_conv.gates())
+
+    def forward(self, x: torch.Tensor, train: bool = False, ingest_hw=None) -> torch.Tensor:
+        """ingest_hw: logical (h, w) when x is the host pre-padded ingest
+        buffer of `ingest_spec`, a training-only contract."""
         if self.fused_bn and train:
             raise ValueError("a BatchNorm-folded model serves; it does not train")
-        if x.shape[-1] != self.hsi_depth:
+        if ingest_hw is not None and not train:
+            raise ValueError("pre-padded ingest is a train-step-only contract")
+        if ingest_hw is None and x.shape[-1] != self.hsi_depth:
             raise ValueError(f"CubeNET expects {self.hsi_depth} bands (NHWC), "
                              f"got shape {tuple(x.shape)}")
         x = x.to(self.dtype)
@@ -93,7 +108,7 @@ class CubeNET(nn.Module):
             x1 = self.inc2_conv(self.first_conv(x))
         elif train:
             x1 = conv_bn_relu_pair(self.first_conv, self.first_bn, self.inc2_conv,
-                                   self.inc2_bn, x, self.dtype)
+                                   self.inc2_bn, x, self.dtype, ingest_hw)
         else:
             x1 = F.relu(self.first_bn(self.first_conv(x))).to(self.dtype)
             x1 = F.relu(self.inc2_bn(self.inc2_conv(x1))).to(self.dtype)

@@ -25,8 +25,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import conv3x3_packed
+from hyperpri_tpu_torch.ops.kernels import framing
 from hyperpri_tpu_torch.ops.kernels.conv_train import (
     BNACT_PACKED_MAX_BC,
+    PACKED_MAX_O,
     conv3x3_bias_stats_train,
     conv3x3_bias_train,
     conv3x3_bnact_stats_train,
@@ -55,6 +57,27 @@ def packed_serving_route(h: int, w: int, c: int, o: int) -> bool:
     (`_packed_serving_route`, parts.py:561; the kernel wrapper dispatches by
     device, so there is no backend clause)."""
     return h * w >= SERVING_MIN_PIXELS and c >= SERVING_MIN_CHANNELS and o <= SERVING_MAX_OUT
+
+
+def train_kernel_route(h: int, w: int, c: int, o: int, use_kernels: bool = True,
+                       min_pixels: int = TRAIN_MIN_PIXELS,
+                       min_channels: int = TRAIN_MIN_CHANNELS,
+                       max_channels: int = TRAIN_MAX_CHANNELS) -> bool:
+    """True iff a training conv takes the trainable kernel convs (the
+    `use_pallas` gate of parts.py:322-333 with the gates as arguments; the
+    wrappers dispatch by device, so there is no backend clause)."""
+    return (use_kernels and h * w >= min_pixels and min_channels <= c
+            and max(c, o) <= max_channels)
+
+
+def first_conv_ingest_spec(h: int, w: int, c: int, o: int, **gates):
+    """The host pre-padded ingest geometry of the network's first conv
+    (parts.py:96-122): ((H_pad, W_pad, C_pad), (1, 1), (h, w, c)), or None
+    when that conv would not take conv3x3_packed (the caller then feeds
+    logical cubes). `gates` are train_kernel_route's."""
+    if not (train_kernel_route(h, w, c, o, **gates) and o <= PACKED_MAX_O):
+        return None
+    return framing.ingest_spec(h, w, c)
 
 
 def _conv2d(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -114,23 +137,40 @@ class Conv3x3(_Conv):
 
     def kernel_route(self, h: int, w: int) -> bool:
         """True iff `train_forward` sends an (N, h, w, C) input through the
-        kernel convs (the `use_pallas` gate of parts.py:322-333; the wrappers
-        dispatch by device, so there is no backend clause)."""
+        kernel convs."""
         o, c = self.weight.shape[:2]
-        return (self.use_kernels and h * w >= self.min_pixels
-                and self.min_channels <= c and max(c, o) <= self.max_channels)
+        return train_kernel_route(h, w, c, o, **self.gates())
 
-    def train_forward(self, x: torch.Tensor, collect_stats: bool = False, prologue=None):
+    def gates(self) -> dict:
+        """The route gates, as train_kernel_route takes them."""
+        return dict(use_kernels=self.use_kernels, min_pixels=self.min_pixels,
+                    min_channels=self.min_channels, max_channels=self.max_channels)
+
+    def train_forward(self, x: torch.Tensor, collect_stats: bool = False, prologue=None,
+                      pre_padded=None):
         """-> (y, stats). stats is the (sum, sumsq) float32 pair of y's batch
         statistics when `collect_stats` and the kernel route is taken, else
         None (the BatchNorm then reduces them itself). prologue: optional
         per-input-channel float32 (pa, pb); the conv then reads
         relu(pa*x + pb), in the kernel's prologue on the kernel route with
         `collect_stats`, else applied here first in float32 and rounded to
-        the compute dtype (parts.py:377-443)."""
-        _, h, w, _ = x.shape
+        the compute dtype (parts.py:377-443). `pre_padded` = logical
+        (h, w, c) declares x the host pre-padded ingest buffer, for the bare
+        statistics conv on the conv3x3_packed route only, else this raises."""
+        o, c = self.weight.shape[:2]
+        if pre_padded is None:
+            _, h, w, _ = x.shape
+        else:
+            h, w, pc = pre_padded
+            if pc != c:
+                raise ValueError(f"pre-padded ingest of {pc} channels into a {c}-channel conv")
         x = x.to(self.dtype)
         use_kernels = self.kernel_route(h, w)
+        if pre_padded is not None and not (use_kernels and o <= PACKED_MAX_O and collect_stats
+                                           and prologue is None):
+            raise ValueError(f"pre-padded ingest off the packed statistics route: kernel route "
+                             f"{use_kernels}, features {o}, collect_stats {collect_stats}, "
+                             f"prologue {prologue is not None}")
         fuse_prologue = prologue is not None and use_kernels and collect_stats
         if prologue is not None and not fuse_prologue:
             pa, pb = prologue
@@ -144,7 +184,8 @@ class Conv3x3(_Conv):
                                                      bias, self.bnact_packed_max_bc)
                 return y, (s, ss)
             if collect_stats:
-                y, s, ss = conv3x3_bias_stats_train(x, kernel, bias)
+                y, s, ss = conv3x3_bias_stats_train(
+                    x, kernel, bias, None if pre_padded is None else (h, w))
                 return y, (s, ss)
             return conv3x3_bias_train(x, kernel, bias), None
         y = _conv2d(x, self.weight.to(self.dtype), padding=1)
@@ -265,13 +306,16 @@ def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     return F.pad(x, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
 
 
-def conv_bn_relu_pair(conv1, bn1, conv2, bn2, x: torch.Tensor, dtype) -> torch.Tensor:
+def conv_bn_relu_pair(conv1, bn1, conv2, bn2, x: torch.Tensor, dtype,
+                      ingest_hw=None) -> torch.Tensor:
     """Training form of conv1 -> bn1 -> ReLU -> conv2 -> bn2 -> ReLU
     (parts.py:720-759, and cubenet.py:115-141 across first_conv and inc2):
     bn1 only folds its affine, conv2 applies it with the ReLU on its input,
     and each BatchNorm takes its statistics from its conv where the conv has
-    them."""
-    x, st = conv1.train_forward(x, collect_stats=True)
+    them. `ingest_hw` = logical (h, w) when x is the host pre-padded ingest
+    buffer of conv1."""
+    pre_padded = None if ingest_hw is None else (*ingest_hw, conv1.weight.shape[1])
+    x, st = conv1.train_forward(x, collect_stats=True, pre_padded=pre_padded)
     prologue = bn1(x, train=True, precomputed=st, affine_only=True)
     x, st = conv2.train_forward(x, collect_stats=True, prologue=prologue)
     return F.relu(bn2(x, train=True, precomputed=st)).to(dtype)

@@ -78,11 +78,14 @@ def first_max_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
-def check_conv_args(name: str, x, w, b, pa, pb, max_out: Optional[int] = None):
+def check_conv_args(name: str, x, w, b, pa, pb, max_out: Optional[int] = None,
+                    framed: bool = False):
+    """Shapes of a 3x3 conv call. With `framed`, x may be a framed buffer
+    whose channel pitch exceeds C; C is then w's (framing.py)."""
     if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
         raise ValueError(f"need x (N,H,W,C), w (3,3,C,O), b (O,); got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
-    c, o = x.shape[-1], w.shape[-1]
+    c, o = (w.shape[2] if framed else x.shape[-1]), w.shape[-1]
     if tuple(w.shape) != (3, 3, c, o) or b.shape[0] != o:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}")
@@ -127,3 +130,9 @@ def pack_weights(w: torch.Tensor, tile: int, kc: int) -> torch.Tensor:
     wp = torch.zeros((9, op, cp), dtype=torch.bfloat16, device=w.device)
     wp[:, :o, :c] = w.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(9, o, c)
     return wp
+
+
+def count(counts: dict, names) -> None:
+    """Add one to each name's entry of a wrapper's by-framing counter."""
+    for name in names:
+        counts[name] = counts.get(name, 0) + 1

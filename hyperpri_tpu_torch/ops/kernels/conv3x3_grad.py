@@ -11,6 +11,19 @@ pixel axis is split across blocks and the partials are added in a fixed order:
 no float atomics, two runs give the same bits. The source note in the .cu file
 gives the kernel's bound and design.
 
+Framings (the JAX kernel's, hyperpri_tpu/ops/pallas/conv3x3_grad.py:184-330;
+geometry in framing.py). x and g are framed views of their buffers:
+  - `pre_padded_c=C`: x is the host pre-padded ingest buffer (logical (0,0) at
+    (1,1), zeros elsewhere) of C true channels; excludes the prologue and
+    the arena modes;
+  - `arena_in`: x is an arena (logical (0,0) at (8,8), anything in the frame);
+    needs the prologue, whose pa gives C;
+  - `arena_g` (needs `logical_hw`): g is a zero-framed arena whose channel
+    width is O.
+Logical (h, w) come from g, or from `logical_hw` when g is framed. Only the
+logical regions are read. The JAX kernel's `pad_w_to` has no counterpart: it
+names the width of a pad pass the CUDA kernel never makes.
+
 `conv3x3_wgrad` runs the plain version, `conv3x3_wgrad_reference`, only for
 tensors on the CPU. For CUDA tensors it launches the kernel or raises.
 """
@@ -22,20 +35,62 @@ from typing import Optional
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _build, _plain
+from hyperpri_tpu_torch.ops.kernels import _build, _plain, framing
+from hyperpri_tpu_torch.ops.kernels.framing import Frame
 
 _TH, _TW, _CT, _OT = 8, 32, 64, 64  # the kernel's pixel, C and O tiles
 _TARGET_BLOCKS = 2 * 132  # about two blocks per SM of an H100
 _MAX_PARTIAL_BYTES = 1 << 28
 
 
+def _resolve(x, g, pa, arena_in, arena_g, logical_hw, pre_padded_c):
+    """(n, h, w, c, o, frame of x, frame of g, framing names); raises on what
+    the kernel does not take (the JAX kernel's rules, conv3x3_grad.py:260-330)."""
+    if x.dim() != 4 or g.dim() != 4 or x.shape[0] != g.shape[0]:
+        raise ValueError(f"need x (N,H,W,C) and g (N,H,W,O); got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    if pre_padded_c is not None and (arena_in or arena_g or pa is not None):
+        raise ValueError("pre_padded_c is a raw read of the ingest buffer: no arena "
+                         "modes, no prologue")
+    if arena_in and pa is None:
+        raise ValueError("arena_in x needs the prologue (its pa gives C)")
+    if arena_g:
+        if logical_hw is None:
+            raise ValueError("arena_g needs logical_hw")
+        h, width = logical_hw
+        fg = Frame.of(g, framing.ARENA_OFFSET)
+    else:
+        h, width = g.shape[1], g.shape[2]
+        if logical_hw is not None and tuple(logical_hw) != (h, width):
+            raise ValueError(f"logical_hw {tuple(logical_hw)} != g's {(h, width)}")
+        fg = Frame.of(g)
+    o = g.shape[-1]
+    if arena_in:
+        c, fx = pa.shape[0], Frame.of(x, framing.ARENA_OFFSET)
+    elif pre_padded_c is not None:
+        c, fx = pre_padded_c, Frame.of(x, framing.INGEST_OFFSET)
+    else:
+        c, fx = x.shape[-1], Frame.of(x)
+        if tuple(x.shape[1:3]) != (h, width):
+            raise ValueError(f"x {tuple(x.shape)} and g's logical {(h, width)} differ")
+    fx.check("conv3x3_wgrad x", h, width, c)
+    fg.check("conv3x3_wgrad g", h, width, o)
+    names = tuple(name for name, on in (("pre_padded", pre_padded_c is not None),
+                                        ("arena_in", arena_in), ("arena_g", arena_g)) if on)
+    return x.shape[0], h, width, c, o, fx, fg, names or ("unframed",)
+
+
 def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
                             pa: Optional[torch.Tensor] = None,
-                            pb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            pb: Optional[torch.Tensor] = None, *, arena_in: bool = False,
+                            arena_g: bool = False, logical_hw=None,
+                            pre_padded_c: Optional[int] = None) -> torch.Tensor:
     """Plain version: for each tap, the float32 product of the shifted,
-    zero-padded input (C, N*H*W) with the cotangent (N*H*W, O)."""
-    _, h, width, c = x.shape
-    o = g.shape[-1]
+    zero-padded input (C, N*H*W) with the cotangent (N*H*W, O), on the
+    logical views of framed operands."""
+    _, h, width, c, o, fx, fg, _ = _resolve(x, g, pa, arena_in, arena_g, logical_hw,
+                                            pre_padded_c)
+    x, g = fx.logical(x, h, width, c), fg.logical(g, h, width, o)
     zp = _plain.pad_same(_plain.prologue_act(x, pa, pb))
     g2 = g.float().reshape(-1, o)
     dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
@@ -48,7 +103,8 @@ def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
 def _lib():
     fn = _build.load("conv3x3_grad").conv3x3_wgrad_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -63,29 +119,32 @@ def _splits(n: int, h: int, width: int, c: int, o: int) -> int:
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] = None,
-                  pb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  pb: Optional[torch.Tensor] = None, *, arena_in: bool = False,
+                  arena_g: bool = False, logical_hw=None,
+                  pre_padded_c: Optional[int] = None) -> torch.Tensor:
     """dW (3, 3, C, O) float32; see the module docstring.
 
     `conv3x3_wgrad.calls` counts every call; `conv3x3_wgrad.launches` counts
-    launches of the CUDA kernel only."""
-    if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
-        raise ValueError(f"need x (N,H,W,C) and g (N,H,W,O); got {tuple(x.shape)}, "
-                         f"{tuple(g.shape)}")
+    launches of the CUDA kernel only, and `calls_by_framing` /
+    `launches_by_framing` count them by framing ("unframed" without one)."""
     if g.dtype != x.dtype:
         raise TypeError(f"x and g must share a dtype, got {x.dtype} and {g.dtype}")
-    c, o = x.shape[-1], g.shape[-1]
     if (pa is None) != (pb is None):
         raise ValueError("pa and pb come together")
+    flags = dict(arena_in=arena_in, arena_g=arena_g, logical_hw=logical_hw,
+                 pre_padded_c=pre_padded_c)
+    n, h, width, c, o, fx, fg, names = _resolve(x, g, pa, arena_in, arena_g, logical_hw,
+                                                pre_padded_c)
     if pa is not None and (tuple(pa.shape) != (c,) or tuple(pb.shape) != (c,)):
         raise ValueError(f"pa, pb must be ({c},), got {tuple(pa.shape)}, {tuple(pb.shape)}")
     conv3x3_wgrad.calls += 1
+    _plain.count(conv3x3_wgrad.calls_by_framing, names)
     if x.device.type == "cpu":
-        return conv3x3_wgrad_reference(x, g, pa, pb)
+        return conv3x3_wgrad_reference(x, g, pa, pb, **flags)
     _plain.require_cuda_bf16("conv3x3_wgrad", x, g, pa, pb)
     if not g.is_contiguous():
         raise ValueError("conv3x3_wgrad: g must be a contiguous NHWC tensor")
-    n, h, width, _ = x.shape
-    if x.numel() == 0 or g.numel() == 0:
+    if n * h * width == 0:
         raise ValueError("conv3x3_wgrad: empty input")
     splits = _splits(n, h, width, c, o)
     paf, pbf = _plain.f32_vector(pa), _plain.f32_vector(pb)
@@ -94,14 +153,18 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
     with torch.cuda.device(x.device):
         err = _lib()(
             x.data_ptr(), g.data_ptr(), _plain.ptr(paf), _plain.ptr(pbf),
-            partial.data_ptr(), dw.data_ptr(), n, h, width, c, o, splits,
-            torch.cuda.current_stream().cuda_stream,
+            partial.data_ptr(), dw.data_ptr(), framing.frames_arg(fx, fg), n, h, width, c, o,
+            splits, int(pre_padded_c is not None), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv3x3_wgrad kernel launch failed: cudaError_t {err}")
     conv3x3_wgrad.launches += 1
+    _plain.count(conv3x3_wgrad.launches_by_framing, names)
     return dw
+
 
 
 conv3x3_wgrad.calls = 0
 conv3x3_wgrad.launches = 0
+conv3x3_wgrad.calls_by_framing = {}
+conv3x3_wgrad.launches_by_framing = {}

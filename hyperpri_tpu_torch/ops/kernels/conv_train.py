@@ -26,6 +26,15 @@ conv3x3_packed, a wider one conv3x3_bias_act; the plain VJP's adjoint goes by
 the same rule on its own output width (= C); the statistics VJP's adjoint
 stays on conv3x3_packed up to 128 outputs; the BatchNorm-ReLU boundary takes
 the packed epilogue up to `packed_max_bc` (64) channels.
+
+Framing (conv_train.py:146-247 of the reference; framing.py): the statistics
+conv with `pre_padded_hw` takes x as the host pre-padded ingest buffer, read in
+place forward and by the weight gradient; dx is None (the ingest buffer is
+leaf data). The reference's arena chain (arena_out -> arena_hw, arena-g
+backwards) is not wired here: on the TPU it saves the pad and slice passes
+between convs, but the CUDA kernels read unframed tensors with no pad pass,
+so an arena only adds a zeroed buffer and a copy of g_eff per conv. The
+kernels keep the arena modes (conv3x3_packed.py, conv3x3_grad.py).
 """
 
 from __future__ import annotations
@@ -41,17 +50,20 @@ PACKED_MAX_ADJOINT = 128     # adjoint outputs (= C) of the stats VJP likewise
 BNACT_PACKED_MAX_BC = 64     # boundary widths that take the backward epilogue
 
 
-def _conv_route(x, w, b, pa=None, pb=None, *, relu, with_stats=False):
-    """One 3x3 SAME conv, routed by its output width (conv_train.py:57-80)."""
+def _conv_route(x, w, b, pa=None, pb=None, *, relu, with_stats=False, **framing):
+    """One 3x3 SAME conv, routed by its output width (conv_train.py:57-80).
+    The pre-padded framing is packed-route only."""
     if w.shape[-1] <= PACKED_MAX_O:
-        return conv3x3_packed(x, w, b, pa, pb, relu=relu, with_stats=with_stats)
+        return conv3x3_packed(x, w, b, pa, pb, relu=relu, with_stats=with_stats, **framing)
+    if any(framing.values()):
+        raise ValueError("pre-padded geometry is packed-route only")
     return conv3x3_bias_act(x, w, b, pa, pb, relu=relu, with_stats=with_stats)
 
 
-def _wgrad(x, g, w_dtype, pa=None, pb=None):
+def _wgrad(x, g, w_dtype, pa=None, pb=None, **framing):
     """dW in w's dtype: float32 out of the kernel, then rounded as the
     reference's `.astype(w.dtype)` does."""
-    return conv3x3_wgrad(x, g, pa, pb).to(w_dtype)
+    return conv3x3_wgrad(x, g, pa, pb, **framing).to(w_dtype)
 
 
 def _adjoint_weights(w):
@@ -93,15 +105,22 @@ class _BiasTrain(torch.autograd.Function):
 
 class _BiasStatsTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
-        y, (s, ss) = _conv_route(x, w, b, relu=False, with_stats=True)
+    def forward(ctx, x, w, b, pre_padded_hw):
+        framed = pre_padded_hw is not None
+        y, (s, ss) = _conv_route(x, w, b, relu=False, with_stats=True, pre_padded=framed,
+                                 logical_hw=pre_padded_hw)
         ctx.save_for_backward(x, w, y)
+        ctx.pre_padded_hw = pre_padded_hw
         return y, s, ss
 
     @staticmethod
     def backward(ctx, gy, gsum, gsumsq):
         x, w, y = ctx.saved_tensors
         g_eff = _fold_stats_cotangent(gy, gsum, gsumsq, y, x.dtype)
+        if ctx.pre_padded_hw is not None:
+            # the ingest buffer is leaf data: no dx (conv_train.py:204-211)
+            dw = _wgrad(x, g_eff, w.dtype, pre_padded_c=w.shape[2])
+            return None, dw, g_eff.float().sum(dim=(0, 1, 2)), None
         dx = None
         if ctx.needs_input_grad[0]:
             # Adjoint outputs (= C) up to 128 stay on the packed kernel
@@ -111,7 +130,7 @@ class _BiasStatsTrain(torch.autograd.Function):
                 dx = conv3x3_packed(g_eff, wt, zero, relu=False)
             else:
                 dx = conv3x3_bias_act(g_eff, wt, zero, relu=False)
-        return dx, _wgrad(x, g_eff, w.dtype), g_eff.float().sum(dim=(0, 1, 2))
+        return dx, _wgrad(x, g_eff, w.dtype), g_eff.float().sum(dim=(0, 1, 2)), None
 
 
 class _BnactStatsTrain(torch.autograd.Function):
@@ -150,10 +169,13 @@ def conv3x3_bias_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tor
     return _BiasTrain.apply(x, w, b)
 
 
-def conv3x3_bias_stats_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+def conv3x3_bias_stats_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                             pre_padded_hw=None):
     """(y, sum_c(y), sumsq_c(y)): the conv and the BatchNorm batch statistics
-    of its output from the kernel's epilogue (conv_train.py:146-247)."""
-    return _BiasStatsTrain.apply(x, w, b)
+    of its output from the kernel's epilogue (conv_train.py:146-247).
+    `pre_padded_hw` = logical (h, w) when x is the host pre-padded ingest
+    buffer (no dx then)."""
+    return _BiasStatsTrain.apply(x, w, b, pre_padded_hw)
 
 
 def conv3x3_bnact_stats_train(x: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,

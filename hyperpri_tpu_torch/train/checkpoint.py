@@ -1,0 +1,116 @@
+"""Checkpointing: the dual best-model policy and resume (port of
+hyperpri_tpu/train/checkpoint.py), with the JAX package's file names:
+
+  - Checkpoints/      best-val_loss FULL state (model, BatchNorm statistics,
+                      Adam state, epoch/wait/best counters) as
+                      `epoch={e}-val_loss={l:.3f}-val_dice={d:.3f}.ckpt`, plus
+                      `last.ckpt` every epoch;
+  - diceCheckpoints/  best-val_dice WEIGHTS-ONLY state.
+
+A payload is a torch.save file of nested dicts whose keys are the flax paths
+of hyperpri_tpu_torch/weights.py ("params"/"first_conv"/"kernel", ...) and
+whose leaves are CPU tensors in flax's layouts: weights.load_jax_variables
+reads it back, and it loads with torch.load(weights_only=True).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def save_checkpoint(path: str, payload: Any) -> None:
+    """Write beside the target and rename: a reader never sees half a file."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Any:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+class DualCheckpointManager:
+    """Best-val_loss full checkpoints + best-val_dice weight checkpoints."""
+
+    def __init__(self, save_path: str, save_last: bool = True):
+        self.ckpt_dir = os.path.join(save_path, "Checkpoints")
+        self.dice_dir = os.path.join(save_path, "diceCheckpoints")
+        self.save_last = save_last
+        self.best_val_loss = float("inf")
+        self.best_val_dice = float("-inf")
+        self._best_loss_file: Optional[str] = None
+        self._best_dice_file: Optional[str] = None
+
+    @staticmethod
+    def _fname(epoch: int, val_loss: float, val_dice: float) -> str:
+        return f"epoch={epoch}-val_loss={val_loss:.3f}-val_dice={val_dice:.3f}.ckpt"
+
+    def step(self, epoch: int, val_loss: float, val_dice: float, full_state: Any,
+             weights_state: Any) -> Dict[str, bool]:
+        """Call once per epoch after validation. Returns which bests updated."""
+        out = {"best_loss": False, "best_dice": False}
+        name = self._fname(epoch, val_loss, val_dice)
+        if val_loss < self.best_val_loss:
+            self.best_val_loss = val_loss
+            new = os.path.join(self.ckpt_dir, name)
+            save_checkpoint(new, full_state)
+            if self._best_loss_file and os.path.exists(self._best_loss_file):
+                os.remove(self._best_loss_file)  # save_top_k=1
+            self._best_loss_file = new
+            out["best_loss"] = True
+        if val_dice > self.best_val_dice:
+            self.best_val_dice = val_dice
+            new = os.path.join(self.dice_dir, name)
+            save_checkpoint(new, weights_state)
+            if self._best_dice_file and os.path.exists(self._best_dice_file):
+                os.remove(self._best_dice_file)
+            self._best_dice_file = new
+            out["best_dice"] = True
+        if self.save_last:
+            save_checkpoint(os.path.join(self.ckpt_dir, "last.ckpt"), full_state)
+        return out
+
+
+def _newest(directory: str, keep) -> Optional[str]:
+    best, best_t = None, -1.0
+    for name in os.listdir(directory):
+        path = os.path.join(directory, name)
+        if keep(name) and os.path.getmtime(path) > best_t:
+            best, best_t = path, os.path.getmtime(path)
+    return best
+
+
+def find_resume_checkpoint(save_path: str) -> Optional[str]:
+    """Newest `last*` checkpoint for crash resume (checkpoint.py:136-157)."""
+    load_path = os.path.join(save_path, "Checkpoints")
+    if not os.path.exists(load_path):
+        return None
+    return _newest(load_path, lambda name: "last" in name)
+
+
+def find_eval_checkpoint(save_path: str) -> Optional[str]:
+    """Newest non-`last` checkpoint in Checkpoints/, else last.ckpt, else
+    best_wts.pt beside them (checkpoint.py:160-176)."""
+    load_path = os.path.join(save_path, "Checkpoints")
+    if os.path.exists(load_path):
+        best = _newest(load_path, lambda name: "last" not in name)
+        if best is not None:
+            return best
+        last = os.path.join(load_path, "last.ckpt")
+        return last if os.path.exists(last) else None
+    alt = os.path.join(save_path, "best_wts.pt")
+    return alt if os.path.exists(alt) else None
+
+
+def parse_ckpt_name(path: str) -> Dict[str, float]:
+    m = re.match(r"epoch=(\d+)-val_loss=([-\d.]+)-val_dice=([-\d.]+)\.ckpt",
+                 os.path.basename(path))
+    if not m:
+        return {}
+    return {"epoch": int(m.group(1)), "val_loss": float(m.group(2)),
+            "val_dice": float(m.group(3))}

@@ -35,16 +35,18 @@ def make_optimizer(model: nn.Module, optimizer: str = "ADAM", learn_rate: float 
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    threshold: float = 0.5, return_logits: bool = False
+                    threshold: float = 0.5, return_logits: bool = False, ingest_hw=None
                     ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, object]]:
     """-> step(batch) -> {"loss_sum": loss * n_valid, "n": n_valid, "stats":
     StatScores of sigmoid(logits) > threshold} (and "logits" on request). One
     call runs the model's training form, the backward and the optimizer
-    update; the BatchNorm running statistics move in place."""
+    update; the BatchNorm running statistics move in place. `ingest_hw`:
+    logical (h, w) when the batch's image is the host pre-padded ingest
+    buffer (CubeNET.ingest_spec)."""
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         optimizer.zero_grad(set_to_none=True)
-        logits = model(batch["image"], train=True)
+        logits = model(batch["image"], train=True, ingest_hw=ingest_hw)
         loss = masked_bce(logits, batch["mask"], batch["valid"])
         loss.backward()
         optimizer.step()

@@ -133,3 +133,46 @@ def export_flax_trees(model: nn.Module,
                 put("mu", path, module, state["exp_avg"])
                 put("nu", path, module, state["exp_avg_sq"])
     return {kind: _nest(leaves) for kind, leaves in flat.items()}
+
+
+def _tensors(tree):
+    """Nested dicts of numpy arrays -> of CPU tensors (torch.load with
+    weights_only=True takes tensors, not numpy arrays)."""
+    return {k: _tensors(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in tree.items()}
+
+
+def export_state(model: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
+    """A checkpoint's state: "params" and "batch_stats" under flax paths and
+    layouts, and with an Adam optimizer its moments "mu", "nu" and step
+    count "count" (optax's names), all as CPU tensors."""
+    trees = export_flax_trees(model, optimizer)
+    state = {k: _tensors(trees[k]) for k in ("params", "batch_stats")}
+    if optimizer is not None and trees["mu"]:
+        steps = {float(st["step"]) for st in optimizer.state.values() if "step" in st}
+        if len(steps) != 1:
+            raise ValueError(f"Adam parameters at different step counts: {sorted(steps)}")
+        state.update(mu=_tensors(trees["mu"]), nu=_tensors(trees["nu"]),
+                     count=torch.tensor(int(steps.pop())))
+    return state
+
+
+def load_adam_moments(model: nn.Module, optimizer: torch.optim.Optimizer, mu: dict,
+                      nu: dict, count: int) -> None:
+    """Set a torch.optim.Adam's state from optax-named moments under flax
+    paths and layouts (export_state's "mu", "nu", "count"), exactly."""
+    flat_mu, flat_nu = _flatten(mu), _flatten(nu)
+    for name, module in model.named_modules():
+        for leaf, collection, flax_leaf, transform in _torch_leaves(module):
+            if collection != "params":
+                continue
+            path = "/".join(name.split(".") + [flax_leaf]) if name else flax_leaf
+            param = getattr(module, leaf)
+
+            def moment(flat):
+                value = flat[path] if transform is None else transform(flat[path])
+                return torch.tensor(np.ascontiguousarray(value, dtype=np.float32)).to(param)
+
+            optimizer.state[param] = {"step": torch.tensor(float(count)),
+                                      "exp_avg": moment(flat_mu),
+                                      "exp_avg_sq": moment(flat_nu)}

@@ -246,3 +246,128 @@ def test_max_pool_2x2_bwd_matches_plain_exactly(cuda_device, shape, kind):
     assert torch.equal(dx, ref)
     # every window routes its cotangent to exactly one element
     assert torch.equal(dx.float().reshape(n, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4)), g.float())
+
+
+def _framed(t, offset):
+    """t inside an arena (offset 8) or the pre-padded ingest buffer (offset
+    1): NaN frame, zero lanes past C in the logical pixels."""
+    from hyperpri_tpu_torch.ops.kernels import framing
+
+    n, h, w, c = t.shape
+    if offset == framing.ARENA_OFFSET:
+        shape = framing.arena_shape(n, h, w, c)
+    else:
+        (hp, wp, cp), _, _ = framing.ingest_spec(h, w, c)
+        shape = (n, hp, wp, cp)
+    buf = torch.full(shape, float("nan"), dtype=t.dtype, device=t.device)
+    buf[:, offset:offset + h, offset:offset + w] = 0
+    buf[:, offset:offset + h, offset:offset + w, :c] = t
+    return buf
+
+
+_FRAMED_SHAPES = [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 24), ((1, 13, 21, 61), 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o", _FRAMED_SHAPES)
+@pytest.mark.parametrize("mode", ["pre_padded", "pre_padded+arena_out", "arena_out",
+                                  "relu+arena_out", "relu+arena_g", "arena_in", "arena_g"])
+def test_conv3x3_packed_framings_match_plain(cuda_device, shape, o, mode):
+    """Each framed mode of conv3x3_packed on NaN-framed buffers: within one
+    bf16 ulp of the plain version, sums within SUM_REL, same bits twice."""
+    x, w, b, rng = _conv_inputs(cuda_device, shape, o)
+    h, wd = shape[1], shape[2]
+    kw = dict(relu=mode.startswith("relu"), with_stats=not mode.startswith("relu"))
+    pa = pb = None
+    if "pre_padded" in mode:
+        x = _framed(x, 1)
+        kw.update(pre_padded=True, logical_hw=(h, wd))
+    if mode in ("arena_in", "relu+arena_g", "arena_g"):
+        x = _framed(x, 8)
+        kw.update(logical_hw=(h, wd), **{"arena_in" if mode == "arena_in" else "arena_g": True})
+    if mode == "arena_in":
+        pa, pb = _affine(rng, cuda_device, shape[-1])
+    if mode == "arena_g":
+        b = torch.zeros_like(b)
+    if "arena_out" in mode:
+        kw["arena_out"] = True
+    out, again = (conv3x3_packed(x, w, b, pa, pb, **kw) for _ in range(2))
+    ref = conv3x3_packed_reference(x, w, b, pa, pb, **kw)
+    torch.cuda.synchronize()
+    if kw["with_stats"]:
+        (out, (s, ss)), (again, (s2, ss2)), (ref, (rs, rss)) = out, again, ref
+        yf = ref.float()[:, 8:8 + h, 8:8 + wd, :o] if "arena_out" in mode else ref.float()
+        _assert_sums_close(s, rs, yf.abs().sum(dim=(0, 1, 2)))
+        _assert_sums_close(ss, rss, (yf * yf).sum(dim=(0, 1, 2)))
+        assert torch.equal(s, s2) and torch.equal(ss, ss2)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert _bf16_ulp_error(out, ref) <= 1.0 and torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o", [((2, 29, 71, 64), 64), ((1, 37, 53, 48), 24)])
+@pytest.mark.parametrize("arena_g", [False, True])
+def test_conv3x3_packed_arena_bwd_epilogue_matches_plain(cuda_device, shape, o, arena_g):
+    """The backward epilogue with an arena residual (NaN frame), dx written as
+    an arena of the residual's shape; with arena_g the cotangent is framed."""
+    g, wt, zero, rng = _conv_inputs(cuda_device, shape, o)
+    zero = torch.zeros_like(zero)
+    pa, pb = _affine(rng, cuda_device, o)
+    h, wd = shape[1], shape[2]
+    r = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    ra = _framed(r, 8)
+    if arena_g:
+        g = _framed(g, 8)
+    kw = dict(relu=False, logical_hw=(h, wd), arena_in=True, arena_out=True, arena_g=arena_g)
+    dx, (dpa, dpb) = conv3x3_packed(g, wt, zero, pa, pb, ra, **kw)
+    rdx, (rdpa, rdpb) = conv3x3_packed_reference(g, wt, zero, pa, pb, ra, **kw)
+    torch.cuda.synchronize()
+    assert dx.shape == ra.shape and bool(torch.isfinite(dx).all())
+    assert _bf16_ulp_error(dx, rdx) <= 1.0
+    mdz = rdx.float()[:, 8:8 + h, 8:8 + wd, :o].abs() / pa
+    _assert_sums_close(dpa, rdpa, (mdz * r.float().abs()).sum(dim=(0, 1, 2)) + 1e-3)
+    _assert_sums_close(dpb, rdpb, mdz.sum(dim=(0, 1, 2)) + 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o", [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 64),
+                                     ((1, 13, 21, 61), 24)])
+@pytest.mark.parametrize("mode", ["pre_padded", "arena_g", "arena_in", "arena_in+arena_g"])
+def test_conv3x3_wgrad_framings_match_plain(cuda_device, shape, o, mode):
+    x, _, _, rng = _conv_inputs(cuda_device, shape, o)
+    g = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    h, wd, c = shape[1], shape[2], shape[3]
+    pa = pb = None
+    kw = {}
+    if mode == "pre_padded":
+        x = _framed(x, 1)
+        kw["pre_padded_c"] = c
+    if "arena_in" in mode:
+        pa, pb = _affine(rng, cuda_device, c)
+        x = _framed(x, 8)
+        kw["arena_in"] = True
+    if "arena_g" in mode:
+        g = _framed(g, 8)
+        kw.update(arena_g=True, logical_hw=(h, wd))
+    dw, dw2 = (conv3x3_wgrad(x, g, pa, pb, **kw) for _ in range(2))
+    ref = conv3x3_wgrad_reference(x, g, pa, pb, **kw)
+    scale = conv3x3_wgrad_reference(x.abs() if pa is None else x, g.abs(), pa, pb, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dw).all()) and torch.equal(dw, dw2)
+    _assert_sums_close(dw, ref, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 96, 64), (1, 13, 21, 5)])
+def test_element_out_probe_matches_plain_exactly(cuda_device, shape):
+    from hyperpri_tpu_torch.ops.kernels.probe_element_out import (
+        element_out, element_out_reference)
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).to(
+        cuda_device)
+    launches = element_out.launches
+    y = element_out(x)
+    assert element_out.launches == launches + 1
+    assert torch.equal(y, element_out_reference(x))

@@ -36,9 +36,25 @@ import hyperpri_tpu_torch.ops.pool
 import hyperpri_tpu_torch.serve
 import hyperpri_tpu_torch.train.step
 import hyperpri_tpu_torch.weights
+import hyperpri_tpu_torch.cli
+import hyperpri_tpu_torch.config
+import hyperpri_tpu_torch.data.dataset
+import hyperpri_tpu_torch.data.envi
+import hyperpri_tpu_torch.data.pipeline
+import hyperpri_tpu_torch.data.png
+import hyperpri_tpu_torch.data.splits
+import hyperpri_tpu_torch.data.synthetic
+import hyperpri_tpu_torch.models.registry
+import hyperpri_tpu_torch.ops.kernels.framing
+import hyperpri_tpu_torch.ops.kernels.probe_element_out
+import hyperpri_tpu_torch.train.checkpoint
+import hyperpri_tpu_torch.train.evaluate
+import hyperpri_tpu_torch.train.trainer
+import hyperpri_tpu_torch.utils.logging
+import hyperpri_tpu_torch.utils.tb_events
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
-                                    "hyperpri_tpu"))
+                                    "hyperpri_tpu", "PIL", "matplotlib", "ml_dtypes"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -99,3 +115,14 @@ def test_chip_smoke_fails_without_cuda():
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_product_loop_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from hyperpri_tpu_torch.config import ExpHyperspectralPRI
+    from hyperpri_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExpHyperspectralPRI(calling_path=str(tmp_path))
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
