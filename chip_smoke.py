@@ -6,9 +6,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (a) environment: card name and power limit, torch / CUDA / nvcc versions;
   (b) build every CUDA kernel from hyperpri_tpu_torch/csrc, one nvcc each, all
       started together; ptxas's register and spill report is printed;
-  (c) each kernel and each of its modes and framings against its plain
-      PyTorch version on the card, at the shapes the main paths give it and
-      at ragged ones; every reducing kernel twice, for identical bits;
+  (c) each kernel and each of its modes and framings, in bf16 and in float32,
+      against its plain PyTorch version on the card (TF32 off), at the shapes
+      the main paths give it and at ragged ones; every reducing kernel twice,
+      for identical bits;
   (d) serving: CubeNET-64 answering two full-resolution 608x968x238 bf16 cubes
       through the folded, kernel-routed model, with the launch count read
       around that run and the
@@ -36,9 +37,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
       steps per second, the device idle share of a profiled epoch, the host
       seconds per batch, and each framed kernel mode at the main path's
       shapes timed against the same call unframed, in turns;
-  (i) the CLI's kfold_train --validate at the configuration's default fp32
-      precision, as a subprocess, with the route it took.
-In (c) the framed modes read buffers whose frames hold NaN. The line before
+  (j) training: three steps of UNET on RGB at batch 2, 608x968x3, float32,
+      masked BCE, Adam(1e-3), through the float32 kernels (3xTF32), with the
+      launch counts held against the routing, step 1 of the kernel route and
+      of the stock float32 route (cuDNN + autograd, TF32 off) each held
+      against a float64 run of the stock route, the loss falling on a
+      repeated batch, the running statistics moving, ms per step with kernels
+      on and off in turns and peak memory;
+  (k) the same for CubeNET-64 at 608x968x238 in float32, the first conv
+      reading a float32 host pre-padded buffer;
+  (i) the CLI's kfold_train --validate at its default precision, fp32, as two
+      subprocesses: --dataset RGB (UNET) and no flag (CubeNET on HSI), with
+      the route each took and its float32 kernel launches.
+The phases run in the order a-g, j, k, h, i. In (c) the framed modes read
+buffers whose frames hold NaN. The script's elapsed seconds and the card's
+name and power limit come next; the line before
 the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -59,12 +72,16 @@ import time
 import torch
 import torch.nn.functional as F
 
-# Published H100 SXM peaks (dense bf16 tensor rate, float32 rate outside the
-# tensor cores, HBM3 bandwidth); bound_ms is the larger of ops / peak and
-# bytes / PEAK_BYTES.
+# Published H100 SXM peaks (dense bf16 tensor rate, dense TF32 tensor rate,
+# float32 rate outside the tensor cores, HBM3 bandwidth); bound_ms is the
+# larger of ops / peak and bytes / PEAK_BYTES. The float32 convs are bounded by
+# the TF32 rate: no float32-accurate route (3xTF32 spends three TF32 products
+# on one) beats it, while the SIMT rate would put them over 100%.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 H, W, D = 608, 968, 238
 N_REQUESTS = 2
@@ -132,6 +149,17 @@ TRAIN_LOGIT_REL_L2 = 4e-2
 TRAIN_GRAD_REL_L2 = 7e-2
 TRAIN_LEAF_REL = 0.8
 TRAIN_VS_STOCK = 1.2
+# Float32 training step 1 (phases j and k): the kernel route (3xTF32 products,
+# float32 sums in other orders) and the stock float32 route (cuDNN + autograd,
+# TF32 off) each against a float64 run of the stock route from the same
+# weights on the same batch. The kernel route may be at most F32_VS_STOCK
+# times as far from float64 as the stock float32 route, in the loss, the
+# logits and the gradients. A single-TF32 route (2**-11 a product) would be
+# orders of magnitude further. The loss is one number, the mean of 1.18 M
+# terms: its distance is counted from F32_LOSS_FLOOR up, a few float32 ulps,
+# so that a stock route that lands on float64 by chance sets no limit of 0.
+F32_VS_STOCK = 2.0
+F32_LOSS_FLOOR = 1e-6
 
 
 def check(cond: bool, msg: str):
@@ -184,9 +212,10 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 # ---------------------------------------------------------------------------
 # The kernel calls of the two main paths, derived by walking the models.
 
-def _conv_input_shapes(model, batch):
-    """{module name: (n, h, w, c)} of every 3x3 conv, from an eval forward on
-    the meta device (no device work; the shapes are those of training)."""
+def _conv_input_shapes(model, batch, channels=D):
+    """{module name: (n, h, w, c)} of every 3x3 conv, in call order, from an
+    eval forward on the meta device (no device work; the shapes are those of
+    training)."""
     from hyperpri_tpu_torch.models import parts
 
     shapes = {}
@@ -195,7 +224,7 @@ def _conv_input_shapes(model, batch):
             name, tuple(inp[0].shape)))
         for name, m in model.named_modules()
         if isinstance(m, (parts.Conv3x3, parts.ServingConv3x3))]
-    model(torch.empty((batch, H, W, D), device="meta"))
+    model(torch.empty((batch, H, W, channels), device="meta"))
     for handle in handles:
         handle.remove()
     return shapes
@@ -212,25 +241,38 @@ def serving_calls():
         o = meta.get_submodule(name).weight.shape[0]
         if parts.packed_serving_route(h, w, c, o):
             calls.append(dict(kernel="conv3x3_packed", path="serving", layer=name, mode="relu",
-                              framing=(), shape=(n, h, w, c), o=o))
+                              framing=(), shape=(n, h, w, c), o=o, dtype="bf16"))
     return calls
 
 
-def training_calls(ingest: bool = False):
+def _train_model(model_name: str):
+    """(model with kernels on, its input channels, the conv whose output the
+    first Down's pool reads) for a training path."""
+    from hyperpri_tpu_torch.models.cubenet import CubeNET
+    from hyperpri_tpu_torch.models.unet import UNet
+
+    if model_name == "UNET":
+        return UNet(3, 1, bilinear=False, use_kernels=True), 3, "inc.conv2"
+    return CubeNET(use_kernels=True), D, "inc2_conv"
+
+
+def training_calls(model_name: str = "CubeNET", ingest: bool = False, dtype: str = "bf16",
+                   path: str = "training"):
     """Every kernel call of one training step at batch 2, by the routing
     rules: Conv3x3's gates choose the layers; forward O <= 64 is packed, else
     halo; the adjoint of a statistics conv is packed up to 128 outputs, that
     of a BatchNorm-ReLU boundary takes the packed epilogue up to 64 channels
-    and the halo kernel above; one weight gradient per layer; the first conv
-    has no adjoint; pools with even maps and whole channel vectors take the
-    pool-backward kernel. With `ingest` the first conv reads the host
-    pre-padded buffer, forward and in its weight gradient; every other call
-    is unframed."""
-    from hyperpri_tpu_torch.models.cubenet import CubeNET
+    and the halo kernel above; one weight gradient per layer; the network's
+    first conv (the one that reads the image) has no adjoint; pools with even
+    maps and whole channel vectors take the pool-backward kernel. With
+    `ingest` the first conv reads the host pre-padded buffer, forward and in
+    its weight gradient; every other call is unframed."""
     from hyperpri_tpu_torch.ops.pool import pool_bwd_kernel_route
 
-    meta = CubeNET(use_kernels=True).to("meta")
-    shapes = _conv_input_shapes(meta, TRAIN_BATCH)
+    model, channels, first_feed = _train_model(model_name)
+    meta = model.to("meta")
+    shapes = _conv_input_shapes(meta, TRAIN_BATCH, channels)
+    first = next(iter(shapes))
     calls = []
     for name, (n, h, w, c) in shapes.items():
         conv = meta.get_submodule(name)
@@ -238,14 +280,14 @@ def training_calls(ingest: bool = False):
             continue
         o = conv.weight.shape[0]
         bnact = name.endswith("conv2") or name == "inc2_conv"   # reads relu(pa*x + pb)
-        framing = ("pre_padded",) if ingest and name == "first_conv" else ()
-        common = dict(path="training", layer=name, framing=framing)
+        framing = ("pre_padded",) if ingest and name == first else ()
+        common = dict(path=path, layer=name, framing=framing, dtype=dtype)
         calls.append(dict(kernel="conv3x3_packed" if o <= 64 else "conv3x3_bias_act",
                           mode="stats+prologue" if bnact else "stats",
                           shape=(n, h, w, c), o=o, **common))
         calls.append(dict(kernel="conv3x3_wgrad", mode="prologue" if bnact else "plain",
                           shape=(n, h, w, c), o=o, **common))
-        if name == "first_conv":
+        if name == first:
             continue
         adjoint = dict(shape=(n, h, w, o), o=c, **common)   # cotangent in, dx out
         if bnact and c <= conv.bnact_packed_max_bc:
@@ -257,14 +299,15 @@ def training_calls(ingest: bool = False):
             calls.append(dict(kernel="conv3x3_packed" if c <= 128 else "conv3x3_bias_act",
                               mode="adjoint", **adjoint))
     # each pool reads the block before it: same map, that block's output channels
-    feeds = {"down1": "inc2_conv", "down2": "down1.conv.conv2", "down3": "down2.conv.conv2",
+    feeds = {"down1": first_feed, "down2": "down1.conv.conv2", "down3": "down2.conv.conv2",
              "down4": "down3.conv.conv2"}
     for name, feed in feeds.items():
         n, h, w, _ = shapes[feed]
         c = meta.get_submodule(feed).weight.shape[0]
         if pool_bwd_kernel_route(h, w, c):
-            calls.append(dict(kernel="max_pool_2x2_bwd", path="training", layer=f"{name}.pool",
-                              mode="first-max", framing=(), shape=(n, h, w, c), o=c))
+            calls.append(dict(kernel="max_pool_2x2_bwd", path=path, layer=f"{name}.pool",
+                              mode="first-max", framing=(), shape=(n, h, w, c), o=c,
+                              dtype=dtype))
     return calls
 
 
@@ -289,11 +332,10 @@ def count_by_kernel(calls):
 # ---------------------------------------------------------------------------
 # One kernel call: inputs, kernel, plain version, library call, bound.
 
-def conv_inputs(shape, o, gen):
+def conv_inputs(shape, o, gen, dtype=torch.bfloat16):
     c = shape[-1]
-    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    wk = (torch.randn((3, 3, c, o), generator=gen, device="cuda") / (9 * c) ** 0.5
-          ).to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    wk = (torch.randn((3, 3, c, o), generator=gen, device="cuda") / (9 * c) ** 0.5).to(dtype)
     b = 0.1 * torch.randn((o,), generator=gen, device="cuda")
     return x, wk, b
 
@@ -324,11 +366,25 @@ def framed_copy(t, offset, nan_frame=True):
     return buf
 
 
+def with_tf32(fn):
+    """fn with cuDNN allowed TF32 for float32 convolutions (torch's default,
+    which this script turns off), for the labelled TF32 library time."""
+    def run():
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+    return run
+
+
 class Case:
-    """One kernel call on seeded inputs: `run()` launches the kernel, `plain()`
-    its plain version, `library()` one PyTorch call of the same function on the
-    logical tensors (a yardstick only); `flops`, `nbytes` give the bound.
-    Framed operands (call["framing"]) are built with NaN frames."""
+    """One kernel call on seeded inputs of the call's dtype: `run()` launches
+    the kernel, `plain()` its plain version, `library()` one PyTorch call of
+    the same function on the logical tensors (a yardstick only; cuDNN's TF32
+    is off, `library_tf32` the same call with it on); `flops`, `nbytes` give
+    the bound. Framed operands (call["framing"]) are built with NaN frames."""
 
     def __init__(self, call, gen):
         from hyperpri_tpu_torch.ops.kernels import conv3x3, conv3x3_grad, conv3x3_packed, pool_bwd
@@ -336,14 +392,17 @@ class Case:
         self.call = call
         kernel, mode, shape, o = call["kernel"], call["mode"], call["shape"], call["o"]
         flags = call.get("framing", ())
+        self.dtype = DTYPES[call.get("dtype", "bf16")]
+        dt, esize = self.dtype, (2.0 if self.dtype == torch.bfloat16 else 4.0)
         n, h, w, c = shape
         pixels = n * h * w
-        self.peak = PEAK_BF16_FLOPS
+        self.peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS
         self.kwargs = {}
         self.out_view = lambda t: t
+        self.library_tf32 = None
         if kernel == "max_pool_2x2_bwd":
-            x = torch.randn(shape, generator=gen, device="cuda").relu().to(torch.bfloat16)
-            g = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda").to(torch.bfloat16)
+            x = torch.randn(shape, generator=gen, device="cuda").relu().to(dt)
+            g = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda").to(dt)
             self.fn, self.ref = pool_bwd.max_pool_2x2_bwd, pool_bwd.max_pool_2x2_bwd_reference
             self.args = (x, g)
             x_cl = x.permute(0, 3, 1, 2)
@@ -351,16 +410,16 @@ class Case:
             g_cl = g.permute(0, 3, 1, 2)
             self.library = lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 g_cl, x_cl, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
-            self.flops = 4.0 * pixels * c                      # compares
-            self.nbytes = 2.0 * pixels * c * (1 + 0.25 + 1)    # x, g read; dx written
+            self.flops = 4.0 * pixels * c                        # compares
+            self.nbytes = esize * pixels * c * (1 + 0.25 + 1)    # x, g read; dx written
             self.peak = PEAK_F32_FLOPS
             return
         self.flops = 2.0 * pixels * 9 * c * o
         if flags:
             self.kwargs["logical_hw"] = (h, w)
         if kernel == "conv3x3_wgrad":
-            x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-            g = torch.randn((n, h, w, o), generator=gen, device="cuda").to(torch.bfloat16)
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            g = torch.randn((n, h, w, o), generator=gen, device="cuda").to(dt)
             pa, pb = affine_inputs(c, gen) if mode == "prologue" else (None, None)
             self.fn, self.ref = conv3x3_grad.conv3x3_wgrad, conv3x3_grad.conv3x3_wgrad_reference
             x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
@@ -374,34 +433,38 @@ class Case:
                 g = framed_copy(g, 8)
                 self.kwargs["arena_g"] = True
             self.args = (x, g, pa, pb)
-            w_oihw = torch.empty((o, c, 3, 3), device="cuda", dtype=torch.bfloat16).contiguous(
+            w_oihw = torch.empty((o, c, 3, 3), device="cuda", dtype=dt).contiguous(
                 memory_format=torch.channels_last)
             self.library = lambda: torch.ops.aten.convolution_backward(
                 g_cl, x_cl, w_oihw, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
                 [False, True, False])
-            self.nbytes = 2.0 * pixels * (c + o) + 4.0 * 9 * c * o
+            self.nbytes = esize * pixels * (c + o) + 4.0 * 9 * c * o
+            if dt == torch.float32:
+                self.library_tf32 = with_tf32(self.library)
             return
         packed = kernel == "conv3x3_packed"
         module = conv3x3_packed if packed else conv3x3
         self.fn = module.conv3x3_packed if packed else module.conv3x3_bias_act
         self.ref = (module.conv3x3_packed_reference if packed
                     else module.conv3x3_bias_act_reference)
-        x, wk, b = conv_inputs(shape, o, gen)
-        self.nbytes = 2.0 * pixels * (c + o) + 2.0 * 9 * c * o + 4.0 * o
+        x, wk, b = conv_inputs(shape, o, gen, dt)
+        self.nbytes = esize * pixels * (c + o) + esize * 9 * c * o + 4.0 * o
         pa = pb = r = None
         if "prologue" in mode:
             pa, pb = affine_inputs(c, gen)
             self.nbytes += 8.0 * c
         if mode == "bwd_x":
             pa, pb = affine_inputs(o, gen)
-            r = torch.randn((n, h, w, o), generator=gen, device="cuda").to(torch.bfloat16)
+            r = torch.randn((n, h, w, o), generator=gen, device="cuda").to(dt)
             b = torch.zeros_like(b)
-            self.nbytes += 2.0 * pixels * o + 8.0 * o
+            self.nbytes += esize * pixels * o + 8.0 * o
         if mode == "adjoint":
             b = torch.zeros_like(b)
         w_oihw = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        x_cl, b16 = x.permute(0, 3, 1, 2), b.to(torch.bfloat16)
-        self.library = lambda: F.conv2d(x_cl, w_oihw, b16, padding=1)
+        x_cl, b_dt = x.permute(0, 3, 1, 2), b.to(dt)
+        self.library = lambda: F.conv2d(x_cl, w_oihw, b_dt, padding=1)
+        if dt == torch.float32:
+            self.library_tf32 = with_tf32(self.library)
         self.logical_r = r
         if "pre_padded" in flags:
             x = framed_copy(x, 1)
@@ -424,16 +487,29 @@ class Case:
     def plain(self):
         return self.ref(*self.args, **self.kwargs)
 
+    def abs_terms(self):
+        """The plain version on the absolute values of the inputs (a
+        prologue's relu(pa*x + pb) is non-negative already): per output, the
+        sum of the absolute values of its terms."""
+        x, wk, b, pa, pb = self.args[:5]
+        prologue = pa is not None and self.call["mode"] != "bwd_x"
+        out = self.ref(x if prologue else x.abs(), wk.abs(), b.abs(), pa, pb, *self.args[5:],
+                       **dict(self.kwargs, relu=False, with_stats=False))
+        return out[0] if isinstance(out, tuple) else out
+
     def label(self) -> str:
         c = self.call
         n, h, w, ch = c["shape"]
         flags = "+".join(c.get("framing", ())) or "-"
-        return (f"{c['kernel']:17s} {c['mode']:15s} {flags:26s} {c.get('layer', 'ragged'):15s} "
-                f"{n}x{h}x{w} {ch:3d}->{c['o']:3d}")
+        return (f"{c['kernel']:17s} {c.get('dtype', 'bf16'):4s} {c['mode']:15s} {flags:26s} "
+                f"{c.get('layer', 'ragged'):17s} {n}x{h}x{w} {ch:3d}->{c['o']:3d}")
 
     def verify(self):
         """Kernel vs plain version; reducing modes twice for identical bits.
-        -> (max abs error of the main output, max relative error of the sums)."""
+        bf16 outputs within one bf16 ulp; float32 outputs, and every float32
+        sum, within SUM_REL of the sum of the absolute values of its terms.
+        -> (max abs error of the main output, the largest error against the
+        absolute terms: of the sums, and in float32 of the outputs too)."""
         kernel, mode = self.call["kernel"], self.call["mode"]
         out, ref = self.run(), self.plain()
         torch.cuda.synchronize()
@@ -452,26 +528,36 @@ class Case:
         sums = ref_sums = None
         if isinstance(out, tuple):
             (out, sums), (ref, ref_sums) = out, ref
-        check(out.shape == ref.shape and out.dtype == torch.bfloat16,
+        check(out.shape == ref.shape and out.dtype == self.dtype,
               f"{self.label()}: output {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(out).all()), f"{self.label()}: non-finite output")
-        ulps, abs_err = bf16_ulp_error(out, ref)
-        check(ulps <= 1.0, f"{self.label()}: {ulps} bf16 ulp > 1")
+        terms, rel_out = None, 0.0
+        if self.dtype == torch.bfloat16:
+            ulps, abs_err = bf16_ulp_error(out, ref)
+            check(ulps <= 1.0, f"{self.label()}: {ulps} bf16 ulp > 1")
+        else:
+            terms = self.abs_terms()
+            abs_err = (out - ref).abs().max().item()
+            rel_out = sum_error(out, ref, terms)
+            check(rel_out <= SUM_REL,
+                  f"{self.label()}: output off by {rel_out} of its absolute terms")
         rel = 0.0
         if sums is not None:
-            rf = self.out_view(ref).float()
             if mode == "bwd_x":
                 pa, r = self.args[3], self.logical_r.float()
-                mdz = rf.abs() / pa   # |m*dz| up to the rounding of dx
+                # |m*dz|: from the rounded dx in bf16, from its absolute terms in float32
+                mdz = (self.out_view(ref).float().abs() if terms is None
+                       else self.out_view(terms)) / pa
                 scales = ((mdz * r.abs()).sum(dim=(0, 1, 2)), mdz.sum(dim=(0, 1, 2)))
             else:
+                rf = self.out_view(ref if terms is None else terms).float()
                 scales = (rf.abs().sum(dim=(0, 1, 2)), (rf * rf).sum(dim=(0, 1, 2)))
             rel = max(sum_error(s, rs, sc) for s, rs, sc in zip(sums, ref_sums, scales))
             check(rel <= SUM_REL, f"{self.label()}: sums off by {rel} of their absolute sum")
             out2, sums2 = self.run()
             check(torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(sums, sums2)),
                   f"{self.label()}: two runs differ")
-        return abs_err, rel
+        return abs_err, max(rel, rel_out)
 
 
 def distinct(calls):
@@ -479,8 +565,8 @@ def distinct(calls):
     and the layers that make it."""
     groups = {}
     for call in calls:
-        key = (call["kernel"], call["mode"], call.get("framing", ()), call["shape"], call["o"],
-               call["path"])
+        key = (call["kernel"], call.get("dtype", "bf16"), call["mode"], call.get("framing", ()),
+               call["shape"], call["o"], call["path"])
         group = groups.setdefault(key, dict(call, count=0, layers=[]))
         group["count"] += 1
         group["layers"].append(call["layer"])
@@ -537,19 +623,22 @@ def phase_kernel_check(calls):
                for s in RAGGED_POOL]
     ragged += [dict(kernel=kernel, mode=mode, framing=flags, shape=shape, o=o)
                for shape, o in RAGGED_FRAMED for kernel, mode, flags in FRAMED_MODES]
-    errors = {}
-    for call in distinct(calls) + [dict(c, path="ragged", layer="ragged") for c in ragged]:
+    errors = {}   # {(kernel, dtype): [max abs error, max sums rel error]}
+    for call in distinct(calls) + [dict(c, path="ragged", layer="ragged", dtype=dtype)
+                                   for dtype in DTYPES for c in ragged]:
         case = Case(call, gen)
         abs_err, rel = case.verify()
-        print(f"{case.label()}: max abs {abs_err:.3e}, sums rel {rel:.2e}")
-        worst = errors.setdefault(call["kernel"], [0.0, 0.0])
+        print(f"{case.label()}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e}")
+        worst = errors.setdefault((call["kernel"], call["dtype"]), [0.0, 0.0])
         worst[0], worst[1] = max(worst[0], abs_err), max(worst[1], rel)
         del case
-    check_pool_ties()
-    errors["probe_element_out"] = [check_element_out(), 0.0]
+    for dtype in DTYPES:
+        check_pool_ties(DTYPES[dtype])
+    errors["probe_element_out", "f32"] = [check_element_out(), 0.0]
     torch.cuda.empty_cache()
-    for kernel, (abs_err, rel) in errors.items():
-        print(f"worst {kernel}: max abs {abs_err:.3e}, sums rel {rel:.2e} (limit {SUM_REL})")
+    for (kernel, dtype), (abs_err, rel) in errors.items():
+        print(f"worst {kernel} {dtype}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e} "
+              f"(limit {SUM_REL})")
     return errors
 
 
@@ -572,7 +661,7 @@ def check_element_out() -> float:
     return 0.0
 
 
-def check_pool_ties():
+def check_pool_ties(dtype):
     """max_pool_2x2_bwd exactly, ties included: a constant input, an input with
     duplicated maxima, and windows of -inf."""
     from hyperpri_tpu_torch.ops.kernels.pool_bwd import (
@@ -580,12 +669,12 @@ def check_pool_ties():
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     shape = (2, 64, 96, 64)
-    g = torch.randn((2, 32, 48, 64), generator=gen, device="cuda").to(torch.bfloat16)
-    dup = torch.randint(0, 2, shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((2, 32, 48, 64), generator=gen, device="cuda").to(dtype)
+    dup = torch.randint(0, 2, shape, generator=gen, device="cuda").to(dtype)
     holes = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.7,
                         torch.full(shape, -float("inf"), device="cuda"),
-                        torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
-    for name, x in (("constant", torch.full(shape, 1.5, device="cuda", dtype=torch.bfloat16)),
+                        torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    for name, x in (("constant", torch.full(shape, 1.5, device="cuda", dtype=dtype)),
                     ("duplicated maxima", dup), ("-inf windows", holes)):
         dx = max_pool_2x2_bwd(x, g)
         check(torch.equal(dx, max_pool_2x2_bwd_reference(x, g)), f"pool backward, {name}")
@@ -594,13 +683,13 @@ def check_pool_ties():
         if name == "constant":
             check(torch.equal(dx[:, ::2, ::2], g) and int((dx != 0).sum()) == int((g != 0).sum()),
                   "pool backward, constant input: not the first element")
-        print(f"max_pool_2x2_bwd   {name}: exact")
+        print(f"max_pool_2x2_bwd   {name} ({dtype}): exact")
 
 
-def make_requests(gen, n_requests, batch):
+def make_requests(gen, n_requests, batch, channels=D, dtype=torch.bfloat16):
     reqs = []
     for _ in range(n_requests):
-        image = torch.randn((batch, H, W, D), generator=gen, device="cuda").to(torch.bfloat16)
+        image = torch.randn((batch, H, W, channels), generator=gen, device="cuda").to(dtype)
         mask = (torch.rand((batch, H, W, 1), generator=gen, device="cuda") < 0.3).float()
         reqs.append({"image": image, "mask": mask,
                      "valid": torch.ones(batch, device="cuda")})
@@ -608,18 +697,15 @@ def make_requests(gen, n_requests, batch):
 
 
 def kernel_wrappers():
-    from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act
-    from hyperpri_tpu_torch.ops.kernels.conv3x3_grad import conv3x3_wgrad
-    from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import conv3x3_packed
-    from hyperpri_tpu_torch.ops.kernels.pool_bwd import max_pool_2x2_bwd
+    from hyperpri_tpu_torch.ops.kernels import training_kernels
 
-    return {"conv3x3_packed": conv3x3_packed, "conv3x3_bias_act": conv3x3_bias_act,
-            "conv3x3_wgrad": conv3x3_wgrad, "max_pool_2x2_bwd": max_pool_2x2_bwd}
+    return training_kernels()
 
 
 def zero_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        fn.launches_by_dtype.clear()
         if hasattr(fn, "launches_by_framing"):
             fn.launches_by_framing.clear()
 
@@ -635,12 +721,16 @@ def read_framings():
 
 def check_launches(label, calls, times):
     """The launches (and, for the framed kernels, the launches by framing)
-    since zero_launches() against `times` passes of the predicted calls."""
+    since zero_launches() against `times` passes of the predicted calls, all
+    of them in the calls' dtype."""
     expected = count_by_kernel(calls)
     launches = read_launches()
+    dtypes = {call["dtype"] for call in calls}
     for name, count in launches.items():
         check(count == times * expected.get(name, 0),
               f"{label}: {count} {name} launches, predicted {expected.get(name, 0)} a pass")
+        by_dtype = {k: v for k, v in kernel_wrappers()[name].launches_by_dtype.items() if v}
+        check(set(by_dtype) <= dtypes, f"{label}: {name} launched in {by_dtype}, not {dtypes}")
     framings = read_framings()
     for name, by in count_by_framing(calls).items():
         want = {k: times * v for k, v in by.items()}
@@ -727,6 +817,12 @@ def step_errors(run, ref):
     }
 
 
+def step_record(model, logs):
+    """Step 1 of a run: its loss, logits and gradients, kept off the model."""
+    return {"loss": float(logs["loss_sum"] / logs["n"]), "logits": logs["logits"].float().clone(),
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()}}
+
+
 def phase_training(calls):
     phase(f"(e) CubeNET-64 training, batch {TRAIN_BATCH}, 608x968x238 bf16, Adam(1e-3)")
     from hyperpri_tpu_torch.train.step import build_cubenet_trainer
@@ -751,8 +847,7 @@ def phase_training(calls):
         check(tuple(logs["logits"].shape) == (TRAIN_BATCH, H, W, 1), "logits shape")
         losses.append(loss)
         if i == 0:
-            first = {"loss": loss, "logits": logs["logits"].clone(),
-                     "grads": {n: p.grad.clone() for n, p in model.named_parameters()}}
+            first = step_record(model, logs)
         print(f"step {i + 1}: loss {loss:.6f}  n {float(logs['n']):.0f}  "
               f"stats {[int(v) for v in logs['stats']]}")
     launches, framings = check_launches(f"training, {TRAIN_STEPS} steps", calls, TRAIN_STEPS)
@@ -773,8 +868,7 @@ def phase_training(calls):
         zero_launches()
         logs = ref_step(order[0])
         check(sum(read_launches().values()) == 0, "the reference model launched a kernel")
-        records[label] = {"loss": float(logs["loss_sum"] / logs["n"]), "logits": logs["logits"],
-                          "grads": {n: p.grad for n, p in ref_model.named_parameters()}}
+        records[label] = step_record(ref_model, logs)
         del ref_model, ref_step, logs
     errs = {}
     for run, ref in (("kernels", "stock_f32"), ("stock_bf16", "stock_f32"),
@@ -812,6 +906,124 @@ def phase_training(calls):
     return launches, framings, step_ms, peak, step, order[0]
 
 
+def phase_training_f32(model_name, calls, letter):
+    """UNET on RGB (phase j) or CubeNET-64 on HSI with the host pre-padded
+    ingest (phase k), three float32 steps through the float32 kernels."""
+    from hyperpri_tpu_torch.data.pipeline import pre_pad_images
+    from hyperpri_tpu_torch.train.step import (
+        build_cubenet_trainer, build_unet_trainer, make_train_step)
+
+    ingest = model_name == "CubeNET"
+    channels = D if ingest else 3
+    build = build_cubenet_trainer if ingest else build_unet_trainer
+    phase(f"({letter}) {model_name} training, batch {TRAIN_BATCH}, {H}x{W}x{channels} float32, "
+          f"Adam(1e-3)" + (", host pre-padded ingest" if ingest else ""))
+    expected = count_by_kernel(calls)
+    print(f"the routing predicts per step: {expected}, by framing {count_by_framing(calls)}")
+    batches = make_requests(torch.Generator(device="cuda").manual_seed(9), 2, TRAIN_BATCH,
+                            channels, torch.float32)
+    batches[1]["valid"] = torch.tensor([1.0, 0.0], device="cuda")   # a padded entry
+    order = [batches[0], batches[1], batches[0]][:TRAIN_STEPS]
+
+    model, opt, _ = build(0, use_kernels=True, dtype=torch.float32)
+    feed, ingest_hw = order, None
+    if ingest:
+        spec = model.ingest_spec(H, W)
+        check(spec is not None, "CubeNET-64's first conv does not take the ingest at 608x968")
+        ingest_hw = (H, W)
+        padded = [dict(b, image=pre_pad_images(b["image"], spec)) for b in batches]
+        feed = [padded[0], padded[1], padded[0]][:TRAIN_STEPS]
+    step = make_train_step(model, opt, 0.5, return_logits=True, ingest_hw=ingest_hw)
+    before = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, first = [], None
+    for i, batch in enumerate(feed):
+        logs = step(batch)
+        torch.cuda.synchronize()
+        loss = float(logs["loss_sum"] / logs["n"])
+        check(loss == loss and abs(loss) != float("inf"), f"step {i + 1}: loss {loss}")
+        check(bool(torch.isfinite(logs["logits"]).all()), f"step {i + 1}: non-finite logits")
+        check(tuple(logs["logits"].shape) == (TRAIN_BATCH, H, W, 1), "logits shape")
+        losses.append(loss)
+        if i == 0:
+            first = step_record(model, logs)
+        print(f"step {i + 1}: loss {loss:.6f}  n {float(logs['n']):.0f}  "
+              f"stats {[int(v) for v in logs['stats']]}")
+    launches, framings = check_launches(f"{model_name} float32, {TRAIN_STEPS} steps", calls,
+                                        TRAIN_STEPS)
+    peak_on = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(losses[2] < losses[0], f"the loss did not fall on the repeated batch: {losses}")
+    moved = [k for k, v in model.state_dict().items() if "running" in k
+             and not torch.equal(v, before[k])]
+    check(len(moved) == len(before), "some BatchNorm running statistics did not move")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "non-finite parameter")
+    print(f"loss on the repeated batch: {losses[0]:.6f} -> {losses[2]:.6f}; all "
+          f"{len(before)} running statistics moved; peak memory {peak_on:.3f} GiB")
+
+    # Step 1 against the stock route (cuDNN + autograd) in float32 and float64
+    # (TF32 off), same seeded weights, same batch of logical images.
+    records = {"kernels": first}
+    for label, dtype in (("stock_f32", torch.float32), ("stock_f64", torch.float64)):
+        ref_model, _, ref_step = build(0, use_kernels=False, dtype=dtype, return_logits=True)
+        zero_launches()
+        logs = ref_step(order[0])
+        check(sum(read_launches().values()) == 0, "the reference model launched a kernel")
+        records[label] = step_record(ref_model, logs)
+        del ref_model, ref_step, logs
+        torch.cuda.empty_cache()
+    errs = {}
+    for run in ("kernels", "stock_f32"):
+        e = errs[run] = step_errors(records[run], records["stock_f64"])
+        print(f"step 1, {run} vs stock_f64: loss {records[run]['loss']:.9f} vs "
+              f"{records['stock_f64']['loss']:.9f} (rel {e['loss']:.3e}), logits rel L2 "
+              f"{e['logits']:.3e}, sign agreement {e['agree']:.6f}, gradients rel L2 "
+              f"{e['grads']:.3e}, worst leaf {e['leaf']:.3e} ({e['leaf_name']})")
+    ours, stock = errs["kernels"], errs["stock_f32"]
+    for key in ("loss", "logits", "grads"):
+        limit = F32_VS_STOCK * (max(stock[key], F32_LOSS_FLOOR) if key == "loss" else stock[key])
+        check(ours[key] <= limit,
+              f"step 1: the float32 kernel route is {ours[key]:.3e} from float64 in {key}, "
+              f"over {F32_VS_STOCK} x the stock float32 route's {stock[key]:.3e}")
+    print(f"step 1: the kernel route is {ours['loss'] / max(stock['loss'], F32_LOSS_FLOOR):.3f}x, "
+          f"{ours['logits'] / stock['logits']:.3f}x and {ours['grads'] / stock['grads']:.3f}x as "
+          f"far from float64 as the stock float32 route in loss, logits and gradients "
+          f"(limit {F32_VS_STOCK}x)")
+    del records, first
+    torch.cuda.empty_cache()
+
+    # Step time, kernels on and off in turns on one card: with cuDNN's TF32 as
+    # torch sets it by default (the production setting for the convs off the
+    # kernel route), then once each with TF32 off.
+    off_model, _, off_step = build(0, use_kernels=False, dtype=torch.float32)
+    off_feed = order[0]
+    step_ms, peak = {}, {"kernels_on": peak_on}
+    runs = (("kernels_off", off_step, off_feed, True), ("kernels_on", step, feed[0], True),
+            ("kernels_on_again", step, feed[0], True),
+            ("kernels_off_again", off_step, off_feed, True),
+            ("kernels_on_tf32_off", step, feed[0], False),
+            ("kernels_off_tf32_off", off_step, off_feed, False))
+    for label, fn, batch, tf32 in runs:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[label] = cuda_ms(lambda: fn(batch), reps=5)
+        peak[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{model_name} float32 step {label} (cuDNN TF32 {'on' if tf32 else 'off'}): "
+              f"{step_ms[label]:.3f} ms ({TRAIN_BATCH * 1e3 / step_ms[label]:.2f} images/s), "
+              f"peak {peak[label]:.3f} GiB")
+    print(f"where the time goes: torch.profiler over one kernel-route {model_name} float32 "
+          "step (cuDNN TF32 on)")
+    torch.backends.cudnn.allow_tf32 = True
+    profile = profile_step(step, feed[0])
+    torch.backends.cudnn.allow_tf32 = False
+    del off_model, off_step, model, opt, step, feed, batches, order
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_by_framing": framings, "step_ms": step_ms,
+            "peak_gib": peak, "losses": losses, "profile": profile,
+            "vs_f64": {k: {m: v for m, v in e.items() if m != "leaf_name"}
+                       for k, e in errs.items()}}
+
+
 def phase_times(calls, card):
     phase(f"(f) kernel times on {card}")
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -821,19 +1033,22 @@ def phase_times(calls, card):
         ms = cuda_ms(case.run)
         plain_ms = cuda_ms(case.plain, reps=3, warmup=1)
         library_ms = cuda_ms(case.library)
+        library_tf32_ms = cuda_ms(case.library_tf32) if case.library_tf32 else None
         bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
         n, h, w, c = call["shape"]
-        rows.append({"kernel": call["kernel"], "path": call["path"], "mode": call["mode"],
-                     "framing": list(call.get("framing", ())),
+        rows.append({"kernel": call["kernel"], "dtype": call["dtype"], "path": call["path"],
+                     "mode": call["mode"], "framing": list(call.get("framing", ())),
                      "layers": call["layers"], "count": call["count"], "shape": [n, h, w, c],
                      "o": call["o"], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "flops": case.flops,
-                     "bytes": case.nbytes})
+                     "library_tf32_ms": library_tf32_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
         rate = (f"{case.flops / ms / 1e9:6.1f} TFLOP/s" if call["kernel"] != "max_pool_2x2_bwd"
                 else f"{case.nbytes / ms / 1e9:6.3f} TB/s")
+        tf32 = (f", library with TF32 {library_tf32_ms:.4f} ms" if library_tf32_ms is not None
+                else "")
         print(f"{case.label()} x{call['count']} ({call['path']}): kernel {ms:.4f} ms ({rate}), "
               f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
-              f"library {library_ms:.4f} ms")
+              f"library {library_ms:.4f} ms{tf32}")
         del case
     rows.append(time_element_out())
     torch.cuda.empty_cache()
@@ -871,7 +1086,8 @@ def time_element_out():
     print(f"probe_element_out  {shape}: kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s), "
           f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, library "
           f"(torch.mul into a zeroed arena) {library_ms:.4f} ms")
-    return {"kernel": "probe_element_out", "path": "probe", "mode": "2x", "framing": ["arena_out"],
+    return {"kernel": "probe_element_out", "dtype": "f32", "path": "probe", "mode": "2x",
+            "framing": ["arena_out"], "library_tf32_ms": None,
             "layers": [], "count": 1, "shape": list(shape), "o": shape[-1], "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": float(x.numel()), "bytes": nbytes}
@@ -879,6 +1095,12 @@ def time_element_out():
 
 def phase_profile(step, batch):
     phase("(g) where the time goes: torch.profiler over one kernel-route training step")
+    return profile_step(step, batch)
+
+
+def profile_step(step, batch):
+    """torch.profiler over one training step after a warm-up: the device's busy
+    time against the step's wall time, and the 20 kernels that took longest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -893,13 +1115,14 @@ def phase_profile(step, batch):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("the profiler recorded no device time")
-        return
+        return None
     print(f"device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall for the step "
           f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, profiler on); "
           f"{sum(e.count for e in kernels)} device kernels")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  {e.count:4d} calls  "
               f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}%  {e.key[:90]}")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1066,25 +1289,46 @@ def phase_product_loop(tree, calls, card):
 
 
 def phase_cli(tree):
-    phase("(i) the CLI: kfold_train --validate at the configuration's default precision")
+    phase("(i) the CLI: kfold_train --validate --dataset RGB, then with no flag")
     shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
     shutil.rmtree(os.path.join(tree, "Saved_Models_resumed"), ignore_errors=True)
     repo = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "hyperpri_tpu_torch.cli", "kfold_train", "--calling-path",
-           tree, "--dataset", "HSI", "--model", "CubeNET", "--num-splits", "1",
-           "--max-epochs", "1", "--validate"]
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    lines = proc.stdout.splitlines()
-    route = [ln.strip() for ln in lines if "route:" in ln]
-    print(f"{' '.join(cmd[1:4])} ... exit {proc.returncode} in {seconds:.2f} s")
-    print("\n".join(route) or "no route line")
-    print("\n".join(ln for ln in lines if "epoch" in ln or "Threshold" in ln or "DICE" in ln))
-    check(proc.returncode == 0, f"the CLI failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    check(any("Best Threshold" in ln for ln in lines), "the CLI did not validate")
-    return {"seconds": seconds, "route": route}
+    seconds, routes, launches = {}, {}, {}
+    for flags, model in [(["--dataset", "RGB"], "UNET"), ([], "CubeNET_64")]:
+        cmd = [sys.executable, "-m", "hyperpri_tpu_torch.cli", "kfold_train", "--calling-path",
+               tree, "--num-splits", "1", "--max-epochs", "1", "--validate"] + flags
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                              timeout=600)
+        seconds[model] = time.perf_counter() - t0
+        lines = [ln.strip() for ln in proc.stdout.splitlines()]
+        print(f"kfold_train {' '.join(flags)} ... exit {proc.returncode} in "
+              f"{seconds[model]:.2f} s")
+        print("\n".join(ln for ln in lines if "Model:" in ln or "route:" in ln
+                        or "kernel launches" in ln or "epoch" in ln or "Threshold" in ln
+                        or "DICE" in ln))
+        check(proc.returncode == 0,
+              f"the CLI failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        trained = [ln.split(":", 1)[1].strip() for ln in lines if ln.startswith("Model:")]
+        check(trained == [model], f"kfold_train {flags} trained {trained}, not {model}")
+        check(sum("Best Threshold" in ln for ln in lines) == 1, f"{model} was not validated")
+        routes[model] = [ln for ln in lines if ln.startswith("route:")]
+        check(len(routes[model]) == 1
+              and "fp32: gated 3x3 convs on the CUDA kernels" in routes[model][0],
+              f"{model}: routes {routes[model]}")
+        launch_lines = [ln for ln in lines if "kernel launches in this fit" in ln]
+        check(len(launch_lines) == 1, f"{model}: kernel launch lines {launch_lines}")
+        counts = {}
+        for item in launch_lines[0].split(":", 1)[1].split(","):
+            parts = item.split()
+            if len(parts) == 3:
+                counts[f"{parts[0]} {parts[1]}"] = int(parts[2])
+        launches[model] = counts
+        for kernel in kernel_wrappers():
+            check(counts.get(f"{kernel} f32", 0) > 0 and counts.get(f"{kernel} bf16", 0) == 0,
+                  f"{model}: float32 launches {counts}")
+    return {"seconds": seconds, "route": routes, "launches": launches}
 
 
 REPLACES = {
@@ -1102,35 +1346,45 @@ REPLACES = {
 
 
 def kernel_summary(rows, errors, launches_by_path, framings_by_path):
-    """One entry per kernel. ms, plain_ms, library_ms and bound_ms are sums over
-    the kernel's calls in one pass of each main path (one serving forward and
-    one product-loop training step); launches are those counted during the
-    paths' runs, by path and, for the framed kernels, by framing. The element
-    probe is no part of a path (its launches are 0); its numbers are one call
-    at 2x608x968x64."""
+    """One entry per kernel and dtype. ms, plain_ms, library_ms (TF32 off),
+    library_tf32_ms and bound_ms are sums over the kernel's calls in one pass
+    of each main path of that dtype (bf16: one serving forward and one
+    product-loop training step; float32: one UNET step and one CubeNET-64
+    step); launches are those counted during the paths' runs, by path and,
+    for the framed kernels, by framing. The float32 bound takes the TF32
+    tensor rate. The element probe is no part of a path (its launches are 0);
+    its numbers are one call at 2x608x968x64."""
     kernels = []
     for name, (source, replaces) in REPLACES.items():
-        mine = [r for r in rows if r["kernel"] == name]
-        flops = sum(r["flops"] * r["count"] for r in mine)
-        nbytes = sum(r["bytes"] * r["count"] for r in mine)
-        peak = (PEAK_F32_FLOPS if name in ("max_pool_2x2_bwd", "probe_element_out")
-                else PEAK_BF16_FLOPS)
-        bound_ms, bound_by = bound(flops, nbytes, peak)
-        by_path = {path: counts.get(name, 0) for path, counts in launches_by_path.items()}
-        library = [r["library_ms"] for r in mine]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "launches_by_framing": {path: f[name] for path, f in framings_by_path.items()
-                                    if name in f},
-            "max_abs_err": errors[name][0], "max_sum_rel_err": errors[name][1],
-            "ms": sum(r["ms"] * r["count"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] * r["count"] for r in mine),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": (None if None in library
-                           else sum(ms * r["count"] for ms, r in zip(library, mine))),
-            "calls": mine,
-        })
+        for dtype in DTYPES:
+            mine = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype]
+            if not mine:
+                continue
+            flops = sum(r["flops"] * r["count"] for r in mine)
+            nbytes = sum(r["bytes"] * r["count"] for r in mine)
+            peak = (PEAK_F32_FLOPS if name in ("max_pool_2x2_bwd", "probe_element_out")
+                    else PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS)
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            by_path = {path: counts.get(name, 0) for path, counts in
+                       launches_by_path[dtype].items()}
+            library = [r["library_ms"] for r in mine]
+            tf32 = [r["library_tf32_ms"] for r in mine]
+            kernels.append({
+                "name": name, "dtype": dtype, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "launches_by_framing": {path: f[name] for path, f in
+                                        framings_by_path[dtype].items() if name in f},
+                "max_abs_err": errors[name, dtype][0], "max_rel_err": errors[name, dtype][1],
+                "ms": sum(r["ms"] * r["count"] for r in mine),
+                "plain_ms": sum(r["plain_ms"] * r["count"] for r in mine),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": (None if None in library
+                               else sum(ms * r["count"] for ms, r in zip(library, mine))),
+                "library_tf32_ms": (None if None in tf32
+                                    else sum(ms * r["count"] for ms, r in zip(tf32, mine))),
+                "calls": mine,
+            })
     return kernels
 
 
@@ -1139,6 +1393,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import hyperpri_tpu_torch  # noqa: F401  (fails here when run outside the repo)
+    started = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions stay float32
     torch.backends.cudnn.allow_tf32 = False        # and so does the float32 reference model
@@ -1146,29 +1401,43 @@ def main():
     phase_build()
     serve_calls, train_calls = serving_calls(), training_calls()
     loop_calls = training_calls(ingest=True)
-    errors = phase_kernel_check(serve_calls + train_calls + loop_calls)
+    unet_calls = training_calls("UNET", dtype="f32", path="unet_training")
+    cube32_calls = training_calls("CubeNET", ingest=True, dtype="f32",
+                                  path="cubenet_f32_training")
+    errors = phase_kernel_check(serve_calls + train_calls + loop_calls + unet_calls
+                                + cube32_calls)
     serving_launches, serving_framings, serving_ms = phase_serving(serve_calls)
     training_launches, training_framings, step_ms, peak, step, batch = phase_training(
         train_calls)
-    rows = phase_times(serve_calls + loop_calls, card)
+    rows = phase_times(serve_calls + loop_calls + unet_calls + cube32_calls, card)
     phase_profile(step, batch)
     del step, batch
     torch.cuda.empty_cache()
+    unet = phase_training_f32("UNET", unet_calls, "j")
+    cube32 = phase_training_f32("CubeNET", cube32_calls, "k")
     tree = write_tree()
     try:
         loop = phase_product_loop(tree, loop_calls, card)
         cli = phase_cli(tree)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
+    cli_launches = {name: sum(counts.get(f"{name} f32", 0) for counts in cli["launches"].values())
+                    for name in kernel_wrappers()}
     kernels = kernel_summary(
         rows, errors,
-        {"serving": serving_launches, "training_step": training_launches,
-         "product_loop": loop["launches"]},
-        {"serving": serving_framings, "training_step": training_framings,
-         "product_loop": loop["launches_by_framing"]})
+        {"bf16": {"serving": serving_launches, "training_step": training_launches,
+                  "product_loop": loop["launches"]},
+         "f32": {"unet_training": unet["launches"], "cubenet_f32_training": cube32["launches"],
+                 "cli": cli_launches}},
+        {"bf16": {"serving": serving_framings, "training_step": training_framings,
+                  "product_loop": loop["launches_by_framing"]},
+         "f32": {"unet_training": unet["launches_by_framing"],
+                 "cubenet_f32_training": cube32["launches_by_framing"]}})
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s from import to summary")
     print(card)
     print(json.dumps({"kernels": kernels, "serving_ms_per_cube": serving_ms,
                       "training_ms_per_step": step_ms, "training_peak_gib": peak,
+                      "unet_f32": unet, "cubenet_f32": cube32,
                       "product_loop": loop, "cli": cli}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,15 +3,20 @@
     python -m hyperpri_tpu_torch.cli kfold_train    [flags]
     python -m hyperpri_tpu_torch.cli kfold_validate [flags]
 
-The flags are the JAX package's (cli.py:61-204). kfold_train trains each
-split (and seed) and, with --validate, runs the threshold sweep after each
-run. kfold_validate sweeps each split's thresholds for each model and writes
-the curves to {calling_path}/Saved_Models/{dataset}/{models}_pr.csv, where the
-JAX package draws a combined PNG plot. Only CubeNET is ported, so --models
-defaults to it; kfold_segmaps, and the flags of options not ported yet
-(--model-shard, --chunks, --offload, --decoded-cache, --save-segmaps), raise.
-The configuration's default precision is fp32, whose convs run on F.conv2d;
---precision bf16 takes the CUDA kernels (see config.py).
+The flags are the JAX package's (cli.py:61-204). kfold_train trains one
+model, each split (and seed) and, with --validate, runs the threshold sweep
+after each run. As in the JAX package, --dataset (default HSI) picks the
+configuration and the configuration picks the model, unless --model names
+one: `kfold_train --dataset RGB` trains UNET, `kfold_train` trains CubeNET.
+kfold_validate sweeps each split's thresholds for each model of --models
+(default KFOLD_MODELS, each on RGB for UNET and HSI otherwise) and writes the
+curves to {calling_path}/Saved_Models/{dataset}/{models}_pr.csv, where the JAX
+package draws a combined PNG plot. SpectralUNET joins KFOLD_MODELS with its
+slice; kfold_segmaps, and the flags of options not ported yet (--model-shard,
+--chunks, --offload, --decoded-cache, --save-segmaps), raise. At the
+configuration's default precision, fp32, the gated 3x3 convs and pool
+backwards run the CUDA kernels in float32 (3xTF32 products); --precision bf16
+runs them in bf16 (see config.py).
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import os
 import sys
 from typing import List, Optional
 
-KFOLD_MODELS = ["CubeNET"]
+# kfold_validate's default --models: the ported subset of the JAX package's
+# KFOLD_MODELS (cli.py:29), in its order.
+KFOLD_MODELS = ["UNET", "CubeNET"]
 
 
 def _make_config(dataset: str, calling_path: str, split_no: int, seed_num: int,
@@ -62,7 +69,7 @@ def _add_common(p):
     p.add_argument("--offload", action="store_true", help="not ported yet")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
-                   help="fp32 (the default) runs the convs on F.conv2d; bf16 takes the "
+                   help="compute precision of the model; both run the gated convs on the "
                         "CUDA kernels")
 
 

@@ -5,12 +5,14 @@ Attribute names, defaults and the path templates are the JAX package's:
   Saved_Models/{dataset}/{model_param_str}/Run_{run_num}/   (run_num = 10*seed + split)
   Saved_Models/{dataset}/Val_Segmentation_Maps/Run_{run_num}/{model_param_str}/
 Differences: `device` defaults to 'cuda' ('cpu' on request); `precision`
-'bf16' makes the model compute in bfloat16 and routes its 3x3 convs through
-the CUDA kernels, while 'fp32' (the default, as in the JAX package) runs them
-on F.conv2d, because the kernels take bf16 inputs only (ROADMAP queue 2);
-The JAX package's mesh, ZeRO, offload, chunked-accumulation, orbax and profiling
-options are kept as fields so configurations read the same, and the Trainer
-refuses the ones this port does not have yet.
+'fp32' (the default, as in the JAX package) or 'bf16' is the model's compute
+dtype, and with `pallas_train` the gated 3x3 convs and pool backwards run the
+CUDA kernels in that dtype (float32 by 3xTF32 products). At fp32 the host
+pre-padded ingest buffer of CubeNET is float32 too (2x610x970x256 floats,
+about 1.2 GB of pinned host memory at full resolution). The JAX package's
+mesh, ZeRO, offload, chunked-accumulation, orbax and profiling options are
+kept as fields so configurations read the same, and the Trainer refuses the
+ones this port does not have yet.
 """
 
 from __future__ import annotations

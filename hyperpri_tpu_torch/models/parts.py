@@ -5,8 +5,8 @@ Modules take and return NHWC tensors, as the JAX package's do. Inside,
 `x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor is the zero-copy
 channels_last NCHW view that F.conv2d, F.max_pool2d and F.conv_transpose2d
 take, and the buffer layout the CUDA kernel reads. Parameters are float32 in
-torch layouts; each module computes in its `dtype` (bf16 when serving and
-training), and BatchNorm statistics stay float32.
+torch layouts; each module computes in its `dtype` (float32, the
+configuration's default, or bf16), and BatchNorm statistics stay float32.
 
 Training (`train=True`) mirrors the reference's rounding points: a conv hands
 its BatchNorm the batch statistics (from its kernel's epilogue where it takes
@@ -174,7 +174,7 @@ class Conv3x3(_Conv):
         fuse_prologue = prologue is not None and use_kernels and collect_stats
         if prologue is not None and not fuse_prologue:
             pa, pb = prologue
-            x = F.relu(x.float() * pa + pb).to(self.dtype)
+            x = F.relu(stat_float(x) * pa + pb).to(self.dtype)
         if use_kernels:
             kernel = self.weight.permute(2, 3, 1, 0).to(self.dtype)  # OIHW -> HWIO
             bias = self.bias.float()
@@ -243,12 +243,18 @@ class ConvTransposeUp(_Conv):
         return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)
 
 
+def stat_float(x: torch.Tensor) -> torch.Tensor:
+    """x in the statistics' precision: float32, or float64 for a float64
+    model (a reference run at higher precision)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm with torch semantics in float32 (parts.py:125-194), eps 1e-5;
-    returns float32. Eval uses the running statistics. Training uses the
-    batch's: var = E[x^2] - mean^2 from per-channel sums, the running
-    statistics take the unbiased variance with momentum 0.1, and the gradient
-    reaches the producer through the sums."""
+    returns float32 (float64 for float64 input). Eval uses the running
+    statistics. Training uses the batch's: var = E[x^2] - mean^2 from
+    per-channel sums, the running statistics take the unbiased variance with
+    momentum 0.1, and the gradient reaches the producer through the sums."""
 
     def __init__(self, features: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
         super().__init__()
@@ -266,7 +272,7 @@ class TorchBatchNorm(nn.Module):
         affine_only: update the running statistics but return the folded
         per-channel float32 pair (pa, pb) with y = pa*x + pb instead of
         applying it; the consumer fuses the apply (+ ReLU) into its load."""
-        x32 = x.float()
+        x32 = stat_float(x)
         if not train:
             mean, var = self.running_mean, self.running_var
         else:

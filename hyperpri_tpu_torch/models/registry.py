@@ -1,6 +1,7 @@
 """Model factory and naming (port of hyperpri_tpu/models/registry.py).
 
-CubeNET is ported; UNET and SpectralUNET raise until their slices land.
+UNET and CubeNET are ported; UNET+ (UNET's use_attention) and SpectralUNET
+raise until their slices land.
 """
 
 from __future__ import annotations
@@ -11,28 +12,33 @@ import torch
 import torch.nn as nn
 
 from hyperpri_tpu_torch.models.cubenet import CubeNET
+from hyperpri_tpu_torch.models.unet import UNet
 
 
 def initialize_model(model_name: str, num_classes: int, network_parameters: Mapping[str, Any],
                      analyze: bool = False, dtype: torch.dtype = torch.float32,
                      seed: Optional[int] = None) -> nn.Module:
     """Name -> model on the CPU, with flax's init drawn from `seed` (torch's
-    default generator when None). The kernel route (`pallas_train`) is taken
-    only by a bf16 model: the CUDA kernels take bf16 inputs. A float32 model
-    with `pallas_train` runs every conv on F.conv2d, and `describe_route`,
-    which the Trainer prints, says so."""
+    default generator when None). `pallas_train` sends the gated 3x3 convs
+    and the pool backwards through the CUDA kernels, which take bf16 and
+    float32 inputs; `describe_route`, which the Trainer prints, says which."""
     name = model_name.lower()
-    if name in ("unet", "unet+", "spectralunet"):
-        raise NotImplementedError(f"{model_name} is not ported yet (ROADMAP slices D/E); "
-                                  "the port has CubeNET")
-    if name != "cubenet":
+    if name == "spectralunet":
+        raise NotImplementedError(f"{model_name} is not ported yet (ROADMAP slice E); the "
+                                  "port has UNET and CubeNET")
+    if name not in ("unet", "unet+", "cubenet"):
         raise RuntimeError(f"Invalid model: {model_name!r}")
-    if analyze or network_parameters.get("use_attention", False):
-        raise NotImplementedError("CubeNET's analyze and use_attention options are not "
-                                  "ported yet")
-    depth = network_parameters["hsi_hi"] - network_parameters["hsi_lo"]
-    use_kernels = network_parameters.get("pallas_train", False) and dtype == torch.bfloat16
+    use_attention = network_parameters.get("use_attention", False) or name == "unet+"
+    if analyze or use_attention:
+        raise NotImplementedError(f"{model_name}: the analyze and use_attention (UNET+) "
+                                  "options are not ported yet")
+    use_kernels = network_parameters.get("pallas_train", False)
     generator = None if seed is None else torch.Generator().manual_seed(seed)
+    if name == "unet":
+        return UNet(n_channels=network_parameters["channels"], n_classes=num_classes,
+                    bilinear=network_parameters.get("bilinear", True), use_kernels=use_kernels,
+                    dtype=dtype, generator=generator)
+    depth = network_parameters["hsi_hi"] - network_parameters["hsi_lo"]
     return CubeNET(hsi_depth=depth, n_classes=num_classes,
                    first_depth=network_parameters["3d_featmaps"],
                    bilinear=network_parameters.get("bilinear", True), use_kernels=use_kernels,
@@ -40,16 +46,15 @@ def initialize_model(model_name: str, num_classes: int, network_parameters: Mapp
 
 
 def describe_route(model: nn.Module, pallas_train: bool) -> str:
-    """Which convs `model` runs, for the log, and why when `pallas_train`
-    asked for the kernels and the model's dtype turned them down."""
+    """Which convs `model` runs, for the log."""
     dtype = getattr(model, "dtype", None)
     name = {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype, str(dtype))
     if any(getattr(m, "use_kernels", False) for m in model.modules()):
-        return f"{name}: gated 3x3 convs on the CUDA kernels"
-    if pallas_train:
-        return (f"{name}: every conv on F.conv2d, although pallas_train is set: the CUDA "
-                "kernels take bf16 inputs only (precision 'bf16', --precision bf16, for them)")
-    return f"{name}: every conv on F.conv2d (pallas_train off)"
+        products = "3xTF32" if dtype == torch.float32 else "bf16"
+        return (f"{name}: gated 3x3 convs on the CUDA kernels ({products} products), and "
+                "the even pools' backwards; the rest on F.conv2d")
+    why = "although pallas_train is set" if pallas_train else "pallas_train off"
+    return f"{name}: every conv on F.conv2d ({why})"
 
 
 def translate_load_dir(model_name: str, net_params: Mapping[str, Any]) -> str:

@@ -1,0 +1,74 @@
+"""UNet for RGB root segmentation, eval and training forms (port of
+hyperpri_tpu/models/unet.py:21-70).
+
+Widths 64 -> 128 -> 256 -> 512 -> 1024 and a binary logit head: 31,043,521
+parameters at n_channels=3, bilinear=False, n_classes=1.
+
+Input (N, H, W, n_channels) NHWC; output (N, H, W, n_classes) float32 logits.
+`forward(x, train=True)` is the training form. `use_kernels` (JAX's
+`pallas_train`) sends the 3x3 convs that pass Conv3x3's gates through the
+trainable kernel convs, and the even pools' backwards through the pool
+kernel; `conv_kwargs` reaches every Conv3x3 (the gates). The 3-channel stem
+`inc.conv1` stays on F.conv2d under the C >= 32 gate, as in the JAX package.
+The JAX model's `use_attention` (UNET+), `analyze`, `fused_bn`/`use_pallas`
+serving forms and `spatial_mesh` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from hyperpri_tpu_torch.models.parts import DoubleConv, Down, OutConv, Up, _Conv
+
+
+class UNet(nn.Module):
+    def __init__(self, n_channels: int = 3, n_classes: int = 1, bilinear: bool = True,
+                 use_attention: bool = False, analyze: bool = False,
+                 use_kernels: bool = False, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None, **conv_kwargs):
+        super().__init__()
+        if use_attention or analyze:
+            raise NotImplementedError("UNet's use_attention (UNET+) and analyze options are "
+                                      "not ported yet")
+        self.n_channels = n_channels
+        self.dtype = dtype
+        factor = 2 if bilinear else 1
+        c = 64
+        kw = dict(use_kernels=use_kernels, dtype=dtype, **conv_kwargs)
+        self.inc = DoubleConv(n_channels, c, **kw)
+        self.down1 = Down(c, c * 2, **kw)
+        self.down2 = Down(c * 2, c * 4, **kw)
+        self.down3 = Down(c * 4, c * 8, **kw)
+        self.down4 = Down(c * 8, c * 16 // factor, **kw)
+        self.up1 = Up(c * 16, c * 8, bilinear, **kw)
+        self.up2 = Up(c * 8, c * 4, bilinear, **kw)
+        self.up3 = Up(c * 4, c * 2, bilinear, **kw)
+        self.up4 = Up(c * 2, c * factor, bilinear, **kw)
+        self.outc = OutConv(c * factor, n_classes, dtype)
+        if generator is not None:
+            for m in self.modules():
+                if isinstance(m, _Conv):
+                    m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False, ingest_hw=None) -> torch.Tensor:
+        """ingest_hw must be None: the host pre-padded ingest is CubeNET's
+        (its first conv takes the packed kernel; UNet's stem does not)."""
+        if ingest_hw is not None:
+            raise ValueError("UNet takes logical images: the pre-padded ingest is CubeNET's")
+        if x.shape[-1] != self.n_channels:
+            raise ValueError(f"UNet expects {self.n_channels} input channels (NHWC), got "
+                             f"shape {tuple(x.shape)}")
+        x = x.to(self.dtype)
+        x1 = self.inc(x, train)
+        x2 = self.down1(x1, train)
+        x3 = self.down2(x2, train)
+        x4 = self.down3(x3, train)
+        x5 = self.down4(x4, train)
+        y = self.up1(x5, x4, train)
+        y = self.up2(y, x3, train)
+        y = self.up3(y, x2, train)
+        y = self.up4(y, x1, train)
+        return self.outc(y).float()

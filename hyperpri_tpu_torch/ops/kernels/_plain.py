@@ -1,5 +1,5 @@
 """Plain float32 arithmetic shared by the kernels' plain versions, and the
-argument checks shared by their CUDA wrappers.
+argument checks and C bindings shared by their CUDA wrappers.
 
 The plain versions are built from explicit float32 tensor arithmetic (shifted
 matrix products, sums), not from F.conv2d or autograd of a convolution, so
@@ -8,10 +8,13 @@ they do not depend on cuDNN or its TF32 setting.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from hyperpri_tpu_torch.ops.kernels import _build
 
 
 def prologue_act(x: torch.Tensor, pa: Optional[torch.Tensor],
@@ -97,19 +100,36 @@ def check_conv_args(name: str, x, w, b, pa, pb, max_out: Optional[int] = None,
         raise ValueError("pa and pb come together")
 
 
-def require_cuda_bf16(name: str, x: torch.Tensor, *others: torch.Tensor):
-    """The CUDA kernels take contiguous bf16 activations; every other operand
-    lies on x's device. Raises on anything else (there is no fallback)."""
+# The activation types the CUDA kernels take, by the suffix of their C entry
+# points (csrc/*.cu: <name>_bf16, <name>_f32).
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def require_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> str:
+    """The CUDA kernels take contiguous bf16 or float32 activations; every
+    other operand lies on x's device. Returns the entry points' suffix for x's
+    dtype; raises on anything else (there is no fallback)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for t in others:
         if t is not None and t.device != x.device:
             raise ValueError(f"{name}: operands must share one CUDA device; got "
                              f"{x.device} and {t.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA kernel takes bf16 or float32 activations, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous NHWC tensor")
+    return KERNEL_DTYPES[x.dtype]
+
+
+def bind(library: str, symbol: str, argtypes):
+    """The C entry point `symbol` of csrc/<library>.cu, built and loaded at
+    first use, with its argument types set."""
+    fn = getattr(_build.load(library), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def f32_vector(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -120,15 +140,22 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def pack_weights(w: torch.Tensor, tile: int, kc: int) -> torch.Tensor:
-    """(3, 3, C, O) -> bf16 (9, OP, Cp): wp[3*dh+dw, o, c] = w[dh, dw, c, o],
-    zero-padded to OP a multiple of `tile` outputs and Cp a multiple of `kc`
-    inputs."""
+def chunk_channels(dtype: torch.dtype) -> int:
+    """Input channels of the conv kernels' 64-byte staging chunk: 32 bf16 or
+    16 float32. Packed weights pad C to a multiple of it."""
+    return 64 // torch.empty((), dtype=dtype).element_size()
+
+
+def pack_weights(w: torch.Tensor, tile: int, dtype: torch.dtype) -> torch.Tensor:
+    """(3, 3, C, O) -> (9, OP, Cp) in `dtype`: wp[3*dh+dw, o, c] = w[dh, dw, c, o],
+    zero-padded to OP a multiple of `tile` outputs and Cp a whole staging
+    chunk of inputs."""
     _, _, c, o = w.shape
+    kc = chunk_channels(dtype)
     op = -(-o // tile) * tile
     cp = -(-c // kc) * kc
-    wp = torch.zeros((9, op, cp), dtype=torch.bfloat16, device=w.device)
-    wp[:, :o, :c] = w.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(9, o, c)
+    wp = torch.zeros((9, op, cp), dtype=dtype, device=w.device)
+    wp[:, :o, :c] = w.to(dtype).permute(0, 1, 3, 2).reshape(9, o, c)
     return wp
 
 

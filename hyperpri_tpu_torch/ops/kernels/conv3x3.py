@@ -4,7 +4,8 @@ kernel in csrc/conv3x3.cu.
 
 Contract: y = act(conv3x3_SAME(act_in(x), w) + b) with x (N, H, W, C) NHWC, w
 HWIO (3, 3, C, O) for any O, b (O,) float32, float32 accumulation and the bias
-added in float32 before the optional ReLU; y has x's dtype (bf16 on the card).
+added in float32 before the optional ReLU; y has x's dtype (bf16 or float32
+on the card, float32 by 3xTF32 products).
   - prologue `pa, pb` (float32 (C,)): act_in(x) = relu(pa*x + pb) computed in
     float32 and rounded to x's dtype before the products; the SAME border is
     exact zero.
@@ -26,9 +27,8 @@ from typing import Optional
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _build, _plain
+from hyperpri_tpu_torch.ops.kernels import _plain
 
-_KC = 32  # input-channel chunk of the kernel; packed weights pad C to it
 _TH, _TW = 8, 32  # the kernel's pixel tile: one row of partial sums per tile
 
 
@@ -43,12 +43,9 @@ def conv3x3_bias_act_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return _plain.conv3x3_modes_reference(x, w, b, pa, pb, relu=relu, with_stats=with_stats)
 
 
-def _lib():
-    fn = _build.load("conv3x3").conv3x3_bias_act_bf16
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def _lib(suffix: str):
+    return _plain.bind("conv3x3", f"conv3x3_bias_act_{suffix}",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -57,7 +54,8 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """y or (y, (sum, sumsq)); see the module docstring.
 
     `conv3x3_bias_act.calls` counts every call; `conv3x3_bias_act.launches`
-    counts launches of the CUDA kernel only."""
+    counts launches of the CUDA kernel only, and `launches_by_dtype` by the
+    activations' type ("bf16", "f32")."""
     _plain.check_conv_args("conv3x3_bias_act", x, w, b, pa, pb)
     if with_stats and relu:
         raise ValueError("with_stats needs relu=False")
@@ -67,13 +65,13 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     conv3x3_bias_act.calls += 1
     if x.device.type == "cpu":
         return conv3x3_bias_act_reference(x, w, b, pa, pb, relu=relu, with_stats=with_stats)
-    _plain.require_cuda_bf16("conv3x3_bias_act", x, w, b, pa, pb)
+    suffix = _plain.require_cuda("conv3x3_bias_act", x, w, b, pa, pb)
     n, h, width, _ = x.shape
-    y = torch.empty((n, h, width, o), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((n, h, width, o), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         raise ValueError("conv3x3_bias_act: empty input")
     np_ = 64 if o <= 64 else 128
-    wp = _plain.pack_weights(w, np_, _KC)
+    wp = _plain.pack_weights(w, np_, x.dtype)
     op = wp.shape[1]
     bf, paf, pbf = _plain.f32_vector(b), _plain.f32_vector(pa), _plain.f32_vector(pb)
     rows = n * -(-h // _TH) * -(-width // _TW)
@@ -82,7 +80,7 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         partial = torch.empty((rows, 2, op), dtype=torch.float32, device=x.device)
         sums = torch.empty((2, op), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib()(
+        err = _lib(suffix)(
             x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
             _plain.ptr(pbf), _plain.ptr(partial), _plain.ptr(sums),
             n, h, width, c, wp.shape[2], o, op, np_, int(relu), int(with_stats), rows,
@@ -91,6 +89,7 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"conv3x3_bias_act kernel launch failed: cudaError_t {err}")
     conv3x3_bias_act.launches += 1
+    _plain.count(conv3x3_bias_act.launches_by_dtype, (suffix,))
     if with_stats:
         return y, (sums[0, :o], sums[1, :o])
     return y
@@ -98,3 +97,4 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 conv3x3_bias_act.calls = 0
 conv3x3_bias_act.launches = 0
+conv3x3_bias_act.launches_by_dtype = {}

@@ -4,12 +4,13 @@ CUDA kernel in csrc/conv3x3_grad.cu.
 
 Contract: dW[dh,dw,c,o] = sum_{n,h,w} z_pad[n,h+dh,w+dw,c] * g[n,h,w,o], a
 float32 (3, 3, C, O) tensor, for x (N, H, W, C) and the cotangent g
-(N, H, W, O) of one dtype (bf16 on the card). z = x, or with `pa, pb`
-(float32 (C,)) z = relu(pa*x + pb) recomputed from the raw x in float32 and
-rounded to x's dtype, with the SAME border exact zero. On the card the long
-pixel axis is split across blocks and the partials are added in a fixed order:
-no float atomics, two runs give the same bits. The source note in the .cu file
-gives the kernel's bound and design.
+(N, H, W, O) of one dtype (bf16 or float32 on the card, float32 by 3xTF32
+products). z = x, or with `pa, pb` (float32 (C,)) z = relu(pa*x + pb)
+recomputed from the raw x in float32 and rounded to x's dtype, with the SAME
+border exact zero. On the card the long pixel axis is split across blocks
+and the partials are added in a fixed order: no float atomics, two runs give
+the same bits. The source note in the .cu file gives the kernel's bound and
+design.
 
 Framings (the JAX kernel's, hyperpri_tpu/ops/pallas/conv3x3_grad.py:184-330;
 geometry in framing.py). x and g are framed views of their buffers:
@@ -35,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _build, _plain, framing
+from hyperpri_tpu_torch.ops.kernels import _plain, framing
 from hyperpri_tpu_torch.ops.kernels.framing import Frame
 
 _TH, _TW, _CT, _OT = 8, 32, 64, 64  # the kernel's pixel, C and O tiles
@@ -100,13 +101,10 @@ def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
     return dw
 
 
-def _lib():
-    fn = _build.load("conv3x3_grad").conv3x3_wgrad_bf16
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
+def _lib(suffix: str):
+    return _plain.bind("conv3x3_grad", f"conv3x3_wgrad_{suffix}",
+                       [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _splits(n: int, h: int, width: int, c: int, o: int) -> int:
@@ -125,8 +123,9 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
     """dW (3, 3, C, O) float32; see the module docstring.
 
     `conv3x3_wgrad.calls` counts every call; `conv3x3_wgrad.launches` counts
-    launches of the CUDA kernel only, and `calls_by_framing` /
-    `launches_by_framing` count them by framing ("unframed" without one)."""
+    launches of the CUDA kernel only, `calls_by_framing` /
+    `launches_by_framing` count them by framing ("unframed" without one) and
+    `launches_by_dtype` by the activations' type ("bf16", "f32")."""
     if g.dtype != x.dtype:
         raise TypeError(f"x and g must share a dtype, got {x.dtype} and {g.dtype}")
     if (pa is None) != (pb is None):
@@ -141,7 +140,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
     _plain.count(conv3x3_wgrad.calls_by_framing, names)
     if x.device.type == "cpu":
         return conv3x3_wgrad_reference(x, g, pa, pb, **flags)
-    _plain.require_cuda_bf16("conv3x3_wgrad", x, g, pa, pb)
+    suffix = _plain.require_cuda("conv3x3_wgrad", x, g, pa, pb)
     if not g.is_contiguous():
         raise ValueError("conv3x3_wgrad: g must be a contiguous NHWC tensor")
     if n * h * width == 0:
@@ -151,7 +150,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
     partial = torch.empty((splits, 9, c, o), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib()(
+        err = _lib(suffix)(
             x.data_ptr(), g.data_ptr(), _plain.ptr(paf), _plain.ptr(pbf),
             partial.data_ptr(), dw.data_ptr(), framing.frames_arg(fx, fg), n, h, width, c, o,
             splits, int(pre_padded_c is not None), torch.cuda.current_stream().cuda_stream,
@@ -160,11 +159,12 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
         raise RuntimeError(f"conv3x3_wgrad kernel launch failed: cudaError_t {err}")
     conv3x3_wgrad.launches += 1
     _plain.count(conv3x3_wgrad.launches_by_framing, names)
+    _plain.count(conv3x3_wgrad.launches_by_dtype, (suffix,))
     return dw
-
 
 
 conv3x3_wgrad.calls = 0
 conv3x3_wgrad.launches = 0
 conv3x3_wgrad.calls_by_framing = {}
 conv3x3_wgrad.launches_by_framing = {}
+conv3x3_wgrad.launches_by_dtype = {}

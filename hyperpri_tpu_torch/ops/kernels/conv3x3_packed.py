@@ -5,10 +5,12 @@ CUDA kernel in csrc/conv3x3_packed.cu.
 
 Contract: y = act(conv3x3_SAME(act_in(x), w) + b) with x (N, H, W, C) NHWC, w
 HWIO (3, 3, C, O), b (O,) float32, float32 accumulation and the bias added in
-float32 before the optional ReLU; y has x's dtype. On the card x is bf16.
+float32 before the optional ReLU; y has x's dtype. On the card x is bf16 (bf16
+tensor-core products) or float32 (3xTF32 products, about 2**-21 relative
+each).
   - prologue `pa, pb` (float32 (C,)): act_in(x) = relu(pa*x + pb), computed in
-    float32 and rounded to x's dtype before the products; the SAME border is
-    exact zero, not relu(pb).
+    float32 and rounded to x's dtype before the products (the identity at
+    float32); the SAME border is exact zero, not relu(pb).
   - `with_stats` (needs relu=False): returns (y, (sum y, sum y*y)), two float32
     (O,) vectors over N, H, W taken from the float32 value before y is rounded.
   - `bwd_x` (the backward epilogue): x is a cotangent, w the flipped and
@@ -50,11 +52,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _build, _plain, framing
+from hyperpri_tpu_torch.ops.kernels import _plain, framing
 from hyperpri_tpu_torch.ops.kernels.framing import Frame
 
 MAX_OUT = 128
-_KC = 32  # input-channel chunk of the kernel; packed weights pad C to it
 _TH, _TW = 8, 32  # the kernel's pixel tile: one row of partial sums per tile
 _MODE_PLAIN, _MODE_STATS, _MODE_BWD = 0, 1, 2
 
@@ -182,13 +183,10 @@ def _check(x, w, b, pa, pb, bwd_x, relu, with_stats):
                          f"{tuple(pb.shape)}")
 
 
-def _lib():
-    fn = _build.load("conv3x3_packed").conv3x3_packed_bf16
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)]
+def _lib(suffix: str):
+    return _plain.bind("conv3x3_packed", f"conv3x3_packed_{suffix}",
+                       [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -200,9 +198,10 @@ def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """y, (y, (sum, sumsq)) or (dx, (dpa, dpb)); see the module docstring.
 
     `conv3x3_packed.calls` counts every call (the kernel route was taken);
-    `conv3x3_packed.launches` counts launches of the CUDA kernel only, and
+    `conv3x3_packed.launches` counts launches of the CUDA kernel only,
     `calls_by_framing` / `launches_by_framing` count them by framing flag
-    ("unframed" for a call without one)."""
+    ("unframed" for a call without one) and `launches_by_dtype` by the
+    activations' type ("bf16", "f32")."""
     _check(x, w, b, pa, pb, bwd_x, relu, with_stats)
     flags = dict(logical_hw=logical_hw, arena_in=arena_in, arena_out=arena_out,
                  arena_g=arena_g, pre_padded=pre_padded)
@@ -212,16 +211,16 @@ def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_packed_reference(x, w, b, pa, pb, bwd_x, relu=relu,
                                         with_stats=with_stats, **flags)
-    _plain.require_cuda_bf16("conv3x3_packed", x, w, b, pa, pb, bwd_x)
+    suffix = _plain.require_cuda("conv3x3_packed", x, w, b, pa, pb, bwd_x)
     if bwd_x is not None and not bwd_x.is_contiguous():
         raise ValueError("bwd_x must be a contiguous NHWC tensor")
     n, h, width, c, o = f.n, f.h, f.w, f.c, f.o
     alloc = torch.zeros if arena_out else torch.empty   # an arena's frame is zero
-    y = alloc(f.y_shape, dtype=torch.bfloat16, device=x.device)
+    y = alloc(f.y_shape, dtype=x.dtype, device=x.device)
     if n * h * width == 0:
         raise ValueError("conv3x3_packed: empty input")
     mode = _MODE_BWD if bwd_x is not None else _MODE_STATS if with_stats else _MODE_PLAIN
-    wp = _plain.pack_weights(w, 64 if o <= 64 else 128, _KC)
+    wp = _plain.pack_weights(w, 64 if o <= 64 else 128, x.dtype)
     np_ = wp.shape[1]
     bf, paf, pbf = _plain.f32_vector(b), _plain.f32_vector(pa), _plain.f32_vector(pb)
     rows = n * -(-h // _TH) * -(-width // _TW)
@@ -230,7 +229,7 @@ def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         partial = torch.empty((rows, 2, np_), dtype=torch.float32, device=x.device)
         sums = torch.empty((2, np_), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib()(
+        err = _lib(suffix)(
             x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
             _plain.ptr(pbf), _plain.ptr(bwd_x), _plain.ptr(partial), _plain.ptr(sums),
             framing.frames_arg(f.fx, f.fy, f.fr), n, h, width, c, wp.shape[2], o, np_,
@@ -240,6 +239,7 @@ def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"conv3x3_packed kernel launch failed: cudaError_t {err}")
     conv3x3_packed.launches += 1
     _plain.count(conv3x3_packed.launches_by_framing, f.names)
+    _plain.count(conv3x3_packed.launches_by_dtype, (suffix,))
     if mode == _MODE_PLAIN:
         return y
     return y, (sums[0, :o], sums[1, :o])
@@ -249,3 +249,4 @@ conv3x3_packed.calls = 0
 conv3x3_packed.launches = 0
 conv3x3_packed.calls_by_framing = {}
 conv3x3_packed.launches_by_framing = {}
+conv3x3_packed.launches_by_dtype = {}

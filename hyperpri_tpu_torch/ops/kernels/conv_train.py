@@ -8,9 +8,10 @@ conv3x3_bias_act and conv3x3_wgrad.
     conv3x3_bias_stats_train(x, w, b)             -> y, sum(y), sum(y*y)
     conv3x3_bnact_stats_train(x, pa, pb, w, b)    -> the same for z = relu(pa*x + pb)
 
-x (N, H, W, C) in the compute dtype, w HWIO (3, 3, C, O) in the same dtype (the
-cast of the float32 parameter, so that autograd's cast node carries dW back),
-b (O,) float32, pa/pb (C,) float32. Backward:
+x (N, H, W, C) in the compute dtype (bf16 or float32; the roundings below are
+the identity at float32), w HWIO (3, 3, C, O) in the same dtype (the cast of
+the float32 parameter, so that autograd's cast node carries dW back), b (O,)
+float32, pa/pb (C,) float32. Backward:
   - the cotangent of y is cast to x's dtype; the statistics' cotangents fold
     into it, g_eff = g_y + g_sum[c] + 2*y*g_sumsq[c], computed in float32 from
     the saved rounded y and rounded to the compute dtype;

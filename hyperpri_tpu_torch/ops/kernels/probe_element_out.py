@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _build, framing
+from hyperpri_tpu_torch.ops.kernels import _plain, framing
 from hyperpri_tpu_torch.ops.kernels.framing import Frame
 
 
@@ -36,12 +36,9 @@ def element_out_reference(x: torch.Tensor) -> torch.Tensor:
 
 
 def _lib():
-    fn = _build.load("probe_element_out").element_out_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    return _plain.bind("probe_element_out", "element_out_f32",
+                       [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def element_out(x: torch.Tensor) -> torch.Tensor:

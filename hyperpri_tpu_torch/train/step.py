@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from hyperpri_tpu_torch._device import resolve_device
 from hyperpri_tpu_torch.models.cubenet import CubeNET
+from hyperpri_tpu_torch.models.unet import UNet
 from hyperpri_tpu_torch.serve import FIRST_DEPTH, HSI_DEPTH, batch_stats_metrics, masked_bce
 
 
@@ -62,6 +63,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return train_step
 
 
+def _trainer(model: nn.Module, device: torch.device, optimizer: str, learn_rate: float,
+             threshold: float, return_logits: bool):
+    model = model.to(device)
+    opt = make_optimizer(model, optimizer, learn_rate)
+    return model, opt, make_train_step(model, opt, threshold, return_logits)
+
+
 def build_cubenet_trainer(seed: int = 0, device=None, use_kernels: bool = True,
                           dtype=torch.bfloat16, optimizer: str = "ADAM",
                           learn_rate: float = 1e-3, threshold: float = 0.5,
@@ -72,6 +80,17 @@ def build_cubenet_trainer(seed: int = 0, device=None, use_kernels: bool = True,
     the pool backwards through the CUDA kernels."""
     device = resolve_device(device)
     model = CubeNET(HSI_DEPTH, 1, FIRST_DEPTH, use_kernels=use_kernels, dtype=dtype,
-                    generator=torch.Generator().manual_seed(seed)).to(device)
-    opt = make_optimizer(model, optimizer, learn_rate)
-    return model, opt, make_train_step(model, opt, threshold, return_logits)
+                    generator=torch.Generator().manual_seed(seed))
+    return _trainer(model, device, optimizer, learn_rate, threshold, return_logits)
+
+
+def build_unet_trainer(seed: int = 0, device=None, use_kernels: bool = True,
+                       dtype=torch.float32, optimizer: str = "ADAM", learn_rate: float = 1e-3,
+                       threshold: float = 0.5, return_logits: bool = False):
+    """UNET on RGB (3 channels, bilinear=False, one class: the configuration's
+    defaults) with flax's init drawn from `seed`, as build_cubenet_trainer:
+    -> (model, optimizer, step)."""
+    device = resolve_device(device)
+    model = UNet(3, 1, bilinear=False, use_kernels=use_kernels, dtype=dtype,
+                 generator=torch.Generator().manual_seed(seed))
+    return _trainer(model, device, optimizer, learn_rate, threshold, return_logits)

@@ -30,6 +30,7 @@ from hyperpri_tpu_torch._device import resolve_device
 from hyperpri_tpu_torch.config import ExperimentConfig
 from hyperpri_tpu_torch.data.pipeline import DataLoader
 from hyperpri_tpu_torch.models.registry import describe_route
+from hyperpri_tpu_torch.ops.kernels import launches_by_dtype
 from hyperpri_tpu_torch.ops.metrics import (
     StatScores,
     accuracy_from_stats,
@@ -165,6 +166,7 @@ class Trainer:
                 print(f"Resumed from {resume_from} at epoch {start_epoch}")
         epochs = max_epochs if max_epochs is not None else cfg.epochs
         stopped, history = False, []
+        launched = launches_by_dtype()
         epoch = start_epoch - 1
         try:
             for epoch in range(start_epoch, epochs):
@@ -211,6 +213,11 @@ class Trainer:
                     break
         finally:
             logger.close()
+        if progress:
+            now = launches_by_dtype()
+            counts = [f"{name} {dtype} {n - launched.get((name, dtype), 0)}"
+                      for (name, dtype), n in now.items() if n > launched.get((name, dtype), 0)]
+            print(f"kernel launches in this fit: {', '.join(counts) or 'none'}")
         return FitResult(epochs_run=epoch - start_epoch + 1, best_val_loss=best_val_loss,
                          best_val_dice=best_val_dice, stopped_early=stopped,
                          state=self.state, history=history)

@@ -27,12 +27,19 @@ from hyperpri_tpu_torch.ops.kernels.pool_bwd import (
     max_pool_2x2_bwd_reference,
 )
 
-# Float32 per-channel sums (statistics, dpa, dpb, dW): the kernel and the plain
-# version add the same float32 terms in different orders. With K terms of
-# absolute sum A, each order's error is at most about K * 2**-24 * A, and far
-# less in practice (the partial sums grow like sqrt(K)); the shapes here have
-# K <= 8e3, so 1e-4 * A leaves room.
+# Float32 per-channel sums of the bf16 kernels (statistics, dpa, dpb, dW): the
+# kernel and the plain version add the same float32 terms in different orders.
+# With K terms of absolute sum A, each order's error is at most about
+# K * 2**-24 * A, and far less in practice (the partial sums grow like
+# sqrt(K)); the shapes here have K <= 8e3, so 1e-4 * A leaves room.
 SUM_REL = 1e-4
+# Float32 kernels (3xTF32 products, about 2**-21 relative each, float32
+# accumulation in another order than the plain version's): every output and
+# every sum within 2e-5 of the sum of the absolute values of its terms, which
+# the plain version computes from the absolute values of the inputs. A single
+# TF32 product (2**-11) would miss it.
+F32_REL = 2e-5
+DTYPES = [torch.bfloat16, torch.float32]
 
 
 @pytest.fixture
@@ -53,21 +60,32 @@ def _bf16_ulp_error(out, ref):
     return float(((o - r).abs() / ulp).max())
 
 
-def _assert_sums_close(out, ref, scale):
-    """|out - ref| <= SUM_REL * scale, elementwise; scale is the sum of the
+def _assert_sums_close(out, ref, scale, rel=SUM_REL):
+    """|out - ref| <= rel * scale, elementwise; scale is the sum of the
     absolute terms."""
     err = (out.double() - ref.double()).abs()
-    assert bool((err <= SUM_REL * scale.double() + 1e-30).all()), float(
+    assert bool((err <= rel * scale.double() + 1e-30).all()), float(
         (err / scale.double().clamp_min(1e-30)).max())
 
 
-def _conv_inputs(device, shape, o, seed=0):
+def _assert_out_close(out, ref, abs_terms):
+    """A conv output against its plain version: one bf16 ulp in bf16; in
+    float32 within F32_REL of `abs_terms`, the plain version's output for the
+    absolute values of the inputs."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    if out.dtype == torch.bfloat16:
+        assert _bf16_ulp_error(out, ref) <= 1.0
+    else:
+        _assert_sums_close(out, ref, abs_terms, F32_REL)
+
+
+def _conv_inputs(device, shape, o, seed=0, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     c = shape[-1]
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(3, 3, c, o)) / np.sqrt(9 * c)).astype(np.float32))
     b = torch.from_numpy((0.1 * rng.normal(size=(o,))).astype(np.float32))
-    return (x.to(device, torch.bfloat16), w.to(device, torch.bfloat16), b.to(device), rng)
+    return (x.to(device, dtype), w.to(device, dtype), b.to(device), rng)
 
 
 def _affine(rng, device, channels):
@@ -83,50 +101,56 @@ _CONV_KERNELS = {
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,o,relu", [
-    ((1, 37, 53, 238), 48, False),   # C=238: 4-byte loads, ragged H/W tiles
+    ((1, 37, 53, 238), 48, False),   # C=238: 4- or 8-byte loads, ragged H/W tiles
     ((2, 29, 71, 64), 64, True),     # 16-byte loads
     ((1, 17, 33, 61), 128, True),    # odd C: element loads; O=128
 ])
-def test_conv3x3_packed_matches_plain(cuda_device, shape, o, relu):
-    x, w, b, _ = _conv_inputs(cuda_device, shape, o)
+def test_conv3x3_packed_matches_plain(cuda_device, shape, o, relu, dtype):
+    x, w, b, _ = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     launches = conv3x3_packed.launches
     out = conv3x3_packed(x, w, b, relu=relu)
     assert conv3x3_packed.launches == launches + 1
     ref = conv3x3_packed_reference(x, w, b, relu=relu)
+    abs_terms = conv3x3_packed_reference(x.abs(), w.abs(), b.abs(), relu=False)
     torch.cuda.synchronize()
-    assert out.shape == ref.shape and out.dtype == torch.bfloat16
-    assert _bf16_ulp_error(out, ref) <= 1.0
+    _assert_out_close(out, ref, abs_terms)
 
 
 @pytest.mark.cuda
-def test_conv3x3_packed_rejects_non_bf16(cuda_device):
-    x = torch.zeros((1, 8, 8, 8), device=cuda_device)
-    with pytest.raises(TypeError, match="bf16"):
-        conv3x3_packed(x, torch.zeros((3, 3, 8, 8), device=cuda_device),
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_conv3x3_packed_rejects_non_bf16(cuda_device, dtype):
+    """The kernels take bf16 and float32 activations; any other type raises
+    (there is no fallback)."""
+    x = torch.zeros((1, 8, 8, 8), device=cuda_device, dtype=dtype)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        conv3x3_packed(x, torch.zeros((3, 3, 8, 8), device=cuda_device, dtype=dtype),
                        torch.zeros(8, device=cuda_device))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel,shape,o,relu", [
     ("halo", (1, 37, 53, 238), 48, False),
     ("halo", (2, 29, 71, 64), 96, True),
     ("halo", (1, 17, 33, 61), 256, True),
     ("halo", (2, 20, 40, 128), 131, False),  # odd O: element stores, ragged O tile
 ])
-def test_conv3x3_bias_act_matches_plain(cuda_device, kernel, shape, o, relu):
+def test_conv3x3_bias_act_matches_plain(cuda_device, kernel, shape, o, relu, dtype):
     fn, ref_fn = _CONV_KERNELS[kernel]
-    x, w, b, _ = _conv_inputs(cuda_device, shape, o)
+    x, w, b, _ = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     launches = fn.launches
     out = fn(x, w, b, relu=relu)
     assert fn.launches == launches + 1
     ref = ref_fn(x, w, b, relu=relu)
+    abs_terms = ref_fn(x.abs(), w.abs(), b.abs(), relu=False)
     torch.cuda.synchronize()
-    assert out.shape == ref.shape and out.dtype == torch.bfloat16
-    assert _bf16_ulp_error(out, ref) <= 1.0
+    _assert_out_close(out, ref, abs_terms)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("prologue", [False, True])
 @pytest.mark.parametrize("kernel,shape,o", [
     ("packed", (2, 29, 71, 64), 64),
@@ -136,31 +160,40 @@ def test_conv3x3_bias_act_matches_plain(cuda_device, kernel, shape, o, relu):
     ("halo", (1, 37, 53, 238), 96),
     ("halo", (1, 17, 33, 61), 131),
 ])
-def test_conv_stats_and_prologue_match_plain(cuda_device, kernel, shape, o, prologue):
+def test_conv_stats_and_prologue_match_plain(cuda_device, kernel, shape, o, prologue, dtype):
     """with_stats (and the pa/pb prologue): y within one bf16 ulp, the sums
-    within SUM_REL of their absolute sums, and the same bits on a second run."""
+    within SUM_REL of their absolute sums (float32: y and the sums within
+    F32_REL of their absolute terms), and the same bits on a second run."""
     fn, ref_fn = _CONV_KERNELS[kernel]
-    x, w, b, rng = _conv_inputs(cuda_device, shape, o)
+    x, w, b, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     pa, pb = _affine(rng, cuda_device, shape[-1]) if prologue else (None, None)
     y, (s, ss) = fn(x, w, b, pa, pb, relu=False, with_stats=True)
     y2, (s2, ss2) = fn(x, w, b, pa, pb, relu=False, with_stats=True)
     ry, (rs, rss) = ref_fn(x, w, b, pa, pb, relu=False, with_stats=True)
+    # relu(pa*x + pb) >= 0 already: the prologue's input stays as it is
+    abs_terms = ref_fn(x if prologue else x.abs(), w.abs(), b.abs(), pa, pb, relu=False)
     torch.cuda.synchronize()
     assert s.shape == (o,) and s.dtype == torch.float32
-    assert _bf16_ulp_error(y, ry) <= 1.0
-    yf = ry.float()
-    _assert_sums_close(s, rs, yf.abs().sum(dim=(0, 1, 2)))
-    _assert_sums_close(ss, rss, (yf * yf).sum(dim=(0, 1, 2)))
+    _assert_out_close(y, ry, abs_terms)
+    if dtype == torch.bfloat16:
+        yf = ry.float()
+        _assert_sums_close(s, rs, yf.abs().sum(dim=(0, 1, 2)))
+        _assert_sums_close(ss, rss, (yf * yf).sum(dim=(0, 1, 2)))
+    else:
+        a = abs_terms.float()
+        _assert_sums_close(s, rs, a.sum(dim=(0, 1, 2)), F32_REL)
+        _assert_sums_close(ss, rss, (a * a).sum(dim=(0, 1, 2)), F32_REL)
     assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(ss, ss2)
 
 
 @pytest.mark.cuda
-def test_prologue_border_is_zero(cuda_device):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prologue_border_is_zero(cuda_device, dtype):
     """With x = 0 and pb > 0 every in-image z is relu(pb) and the border must
     still be exact zero: the corner output sums 4 taps, the centre 9."""
     c, o = 16, 8
-    x = torch.zeros((1, 8, 8, c), dtype=torch.bfloat16, device=cuda_device)
-    w = torch.ones((3, 3, c, o), dtype=torch.bfloat16, device=cuda_device)
+    x = torch.zeros((1, 8, 8, c), dtype=dtype, device=cuda_device)
+    w = torch.ones((3, 3, c, o), dtype=dtype, device=cuda_device)
     b = torch.zeros(o, device=cuda_device)
     pa = torch.ones(c, device=cuda_device)
     pb = torch.full((c,), 0.5, device=cuda_device)
@@ -171,41 +204,60 @@ def test_prologue_border_is_zero(cuda_device):
         assert float(y[0, 0, 4, 0]) == 6 * c * 0.5
 
 
+def _assert_bwd_close(g, wt, zero, pa, pb, r, dx, dpa, dpb, rdx, rdpa, rdpb, logical, **kw):
+    """The backward epilogue against its plain version. bf16: dx within one
+    ulp, dpa and dpb within SUM_REL of sums of |m*dz|(*|r|) taken from the
+    rounded dx. float32: dx, dpa and dpb within F32_REL of their absolute
+    terms, m * conv(|g|, |W'|) * pa (times |r| for dpa), from the plain
+    version on |g| and |W'|. `logical` slices a framed dx to its logical view."""
+    if dx.dtype == torch.bfloat16:
+        assert _bf16_ulp_error(dx, rdx) <= 1.0
+        mdz = logical(rdx).float().abs() / pa   # |m*dz| up to the bf16 rounding of dx
+        _assert_sums_close(dpa, rdpa, (mdz * r.float().abs()).sum(dim=(0, 1, 2)) + 1e-3)
+        _assert_sums_close(dpb, rdpb, mdz.sum(dim=(0, 1, 2)) + 1e-3)
+        return
+    adx = conv3x3_packed_reference(g.abs(), wt.abs(), zero, pa, pb, **kw)[0]
+    _assert_sums_close(dx, rdx, adx, F32_REL)
+    amdz = logical(adx) / pa
+    _assert_sums_close(dpa, rdpa, (amdz * r.abs()).sum(dim=(0, 1, 2)), F32_REL)
+    _assert_sums_close(dpb, rdpb, amdz.sum(dim=(0, 1, 2)), F32_REL)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,o", [
     ((2, 29, 71, 64), 64),     # cotangent 64 channels, boundary 64
     ((1, 37, 53, 48), 33),     # odd boundary width: element loads and stores
     ((1, 17, 33, 96), 128),
 ])
-def test_conv3x3_packed_bwd_epilogue_matches_plain(cuda_device, shape, o):
-    g, wt, zero, rng = _conv_inputs(cuda_device, shape, o)
+def test_conv3x3_packed_bwd_epilogue_matches_plain(cuda_device, shape, o, dtype):
+    g, wt, zero, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     zero = torch.zeros_like(zero)
     pa, pb = _affine(rng, cuda_device, o)
     r = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
+        cuda_device, dtype)
     dx, (dpa, dpb) = conv3x3_packed(g, wt, zero, pa, pb, r, relu=False)
     dx2, (dpa2, dpb2) = conv3x3_packed(g, wt, zero, pa, pb, r, relu=False)
     rdx, (rdpa, rdpb) = conv3x3_packed_reference(g, wt, zero, pa, pb, r, relu=False)
     torch.cuda.synchronize()
-    assert _bf16_ulp_error(dx, rdx) <= 1.0
-    mdz = rdx.float().abs() / pa   # |m*dz| up to the bf16 rounding of dx
-    _assert_sums_close(dpa, rdpa, (mdz * r.float().abs()).sum(dim=(0, 1, 2)) + 1e-3)
-    _assert_sums_close(dpb, rdpb, mdz.sum(dim=(0, 1, 2)) + 1e-3)
+    _assert_bwd_close(g, wt, zero, pa, pb, r, dx, dpa, dpb, rdx, rdpa, rdpb, lambda t: t,
+                      bwd_x=r, relu=False)
     assert torch.equal(dx, dx2) and torch.equal(dpa, dpa2) and torch.equal(dpb, dpb2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("prologue", [False, True])
 @pytest.mark.parametrize("shape,o", [
     ((2, 29, 71, 64), 64),
-    ((1, 37, 53, 238), 48),     # ragged C tile, 4-byte loads
+    ((1, 37, 53, 238), 48),     # ragged C tile, 4- or 8-byte loads
     ((1, 17, 33, 61), 131),     # element loads on both operands
     ((2, 40, 64, 128), 256),
 ])
-def test_conv3x3_wgrad_matches_plain(cuda_device, shape, o, prologue):
-    x, _, _, rng = _conv_inputs(cuda_device, shape, o)
+def test_conv3x3_wgrad_matches_plain(cuda_device, shape, o, prologue, dtype):
+    x, _, _, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     g = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
+        cuda_device, dtype)
     pa, pb = _affine(rng, cuda_device, shape[-1]) if prologue else (None, None)
     launches = conv3x3_wgrad.launches
     dw = conv3x3_wgrad(x, g, pa, pb)
@@ -216,15 +268,16 @@ def test_conv3x3_wgrad_matches_plain(cuda_device, shape, o, prologue):
         x.abs() if pa is None else x, g.abs(), pa, pb)  # relu(..) >= 0 already
     torch.cuda.synchronize()
     assert dw.shape == (3, 3, shape[-1], o) and dw.dtype == torch.float32
-    _assert_sums_close(dw, ref, scale)
+    _assert_sums_close(dw, ref, scale, SUM_REL if dtype == torch.bfloat16 else F32_REL)
     assert torch.equal(dw, dw2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 16, 24, 64), (1, 10, 14, 238), (1, 6, 8, 7),
                                    (1, 64, 64, 128)])
-@pytest.mark.parametrize("kind", ["random", "constant", "duplicates", "neg_inf"])
-def test_max_pool_2x2_bwd_matches_plain_exactly(cuda_device, shape, kind):
+@pytest.mark.parametrize("kind", ["random", "constant", "duplicates", "neg_inf", "nan"])
+def test_max_pool_2x2_bwd_matches_plain_exactly(cuda_device, shape, kind, dtype):
     rng = np.random.default_rng(0)
     if kind == "random":
         x = rng.normal(size=shape)
@@ -232,20 +285,24 @@ def test_max_pool_2x2_bwd_matches_plain_exactly(cuda_device, shape, kind):
         x = np.full(shape, 1.5)
     elif kind == "duplicates":
         x = rng.integers(0, 2, size=shape).astype(np.float64)  # many tied maxima
-    else:
+    elif kind == "neg_inf":
         x = np.where(rng.random(size=shape) < 0.7, -np.inf, rng.normal(size=shape))
+    else:   # a window that holds a NaN routes nothing
+        x = np.where(rng.random(size=shape) < 0.1, np.nan, rng.normal(size=shape))
     n, h, w, c = shape
-    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device, torch.bfloat16)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device, dtype)
     g = torch.from_numpy(rng.normal(size=(n, h // 2, w // 2, c)).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
+        cuda_device, dtype)
     launches = max_pool_2x2_bwd.launches
     dx = max_pool_2x2_bwd(x, g)
     assert max_pool_2x2_bwd.launches == launches + 1
     ref = max_pool_2x2_bwd_reference(x, g)
     torch.cuda.synchronize()
     assert torch.equal(dx, ref)
-    # every window routes its cotangent to exactly one element
-    assert torch.equal(dx.float().reshape(n, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4)), g.float())
+    # every window routes its cotangent to exactly one element (none with a NaN)
+    routed = dx.float().reshape(n, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4))
+    has_nan = torch.isnan(x.float()).reshape(n, h // 2, 2, w // 2, 2, c).any(dim=4).any(dim=2)
+    assert torch.equal(routed, torch.where(has_nan, torch.zeros_like(routed), g.float()))
 
 
 def _framed(t, offset):
@@ -269,53 +326,65 @@ _FRAMED_SHAPES = [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 24), ((1, 13, 21, 61
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,o", _FRAMED_SHAPES)
 @pytest.mark.parametrize("mode", ["pre_padded", "pre_padded+arena_out", "arena_out",
                                   "relu+arena_out", "relu+arena_g", "arena_in", "arena_g"])
-def test_conv3x3_packed_framings_match_plain(cuda_device, shape, o, mode):
+def test_conv3x3_packed_framings_match_plain(cuda_device, shape, o, mode, dtype):
     """Each framed mode of conv3x3_packed on NaN-framed buffers: within one
-    bf16 ulp of the plain version, sums within SUM_REL, same bits twice."""
-    x, w, b, rng = _conv_inputs(cuda_device, shape, o)
+    bf16 ulp of the plain version, sums within SUM_REL (float32: outputs and
+    sums within F32_REL of their absolute terms), same bits twice."""
+    x, w, b, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     h, wd = shape[1], shape[2]
+    x_abs = x.abs()
     kw = dict(relu=mode.startswith("relu"), with_stats=not mode.startswith("relu"))
     pa = pb = None
     if "pre_padded" in mode:
-        x = _framed(x, 1)
+        x, x_abs = _framed(x, 1), _framed(x_abs, 1)
         kw.update(pre_padded=True, logical_hw=(h, wd))
     if mode in ("arena_in", "relu+arena_g", "arena_g"):
-        x = _framed(x, 8)
+        x, x_abs = _framed(x, 8), _framed(x_abs, 8)
         kw.update(logical_hw=(h, wd), **{"arena_in" if mode == "arena_in" else "arena_g": True})
     if mode == "arena_in":
         pa, pb = _affine(rng, cuda_device, shape[-1])
+        x_abs = x   # relu(pa*x + pb) >= 0 already
     if mode == "arena_g":
         b = torch.zeros_like(b)
     if "arena_out" in mode:
         kw["arena_out"] = True
     out, again = (conv3x3_packed(x, w, b, pa, pb, **kw) for _ in range(2))
     ref = conv3x3_packed_reference(x, w, b, pa, pb, **kw)
+    abs_kw = dict(kw, relu=False, with_stats=False)
+    abs_terms = conv3x3_packed_reference(x_abs, w.abs(), b.abs(), pa, pb, **abs_kw)
     torch.cuda.synchronize()
     if kw["with_stats"]:
         (out, (s, ss)), (again, (s2, ss2)), (ref, (rs, rss)) = out, again, ref
-        yf = ref.float()[:, 8:8 + h, 8:8 + wd, :o] if "arena_out" in mode else ref.float()
-        _assert_sums_close(s, rs, yf.abs().sum(dim=(0, 1, 2)))
-        _assert_sums_close(ss, rss, (yf * yf).sum(dim=(0, 1, 2)))
+        logical = ((lambda t: t.float()[:, 8:8 + h, 8:8 + wd, :o]) if "arena_out" in mode
+                   else (lambda t: t.float()))
+        yf = logical(abs_terms if dtype == torch.float32 else ref)
+        rel = F32_REL if dtype == torch.float32 else SUM_REL
+        _assert_sums_close(s, rs, yf.abs().sum(dim=(0, 1, 2)), rel)
+        _assert_sums_close(ss, rss, (yf * yf).sum(dim=(0, 1, 2)), rel)
         assert torch.equal(s, s2) and torch.equal(ss, ss2)
     assert out.shape == ref.shape and bool(torch.isfinite(out).all())
-    assert _bf16_ulp_error(out, ref) <= 1.0 and torch.equal(out, again)
+    _assert_out_close(out, ref, abs_terms)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,o", [((2, 29, 71, 64), 64), ((1, 37, 53, 48), 24)])
 @pytest.mark.parametrize("arena_g", [False, True])
-def test_conv3x3_packed_arena_bwd_epilogue_matches_plain(cuda_device, shape, o, arena_g):
+def test_conv3x3_packed_arena_bwd_epilogue_matches_plain(cuda_device, shape, o, arena_g,
+                                                         dtype):
     """The backward epilogue with an arena residual (NaN frame), dx written as
     an arena of the residual's shape; with arena_g the cotangent is framed."""
-    g, wt, zero, rng = _conv_inputs(cuda_device, shape, o)
+    g, wt, zero, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     zero = torch.zeros_like(zero)
     pa, pb = _affine(rng, cuda_device, o)
     h, wd = shape[1], shape[2]
     r = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
+        cuda_device, dtype)
     ra = _framed(r, 8)
     if arena_g:
         g = _framed(g, 8)
@@ -324,20 +393,19 @@ def test_conv3x3_packed_arena_bwd_epilogue_matches_plain(cuda_device, shape, o, 
     rdx, (rdpa, rdpb) = conv3x3_packed_reference(g, wt, zero, pa, pb, ra, **kw)
     torch.cuda.synchronize()
     assert dx.shape == ra.shape and bool(torch.isfinite(dx).all())
-    assert _bf16_ulp_error(dx, rdx) <= 1.0
-    mdz = rdx.float()[:, 8:8 + h, 8:8 + wd, :o].abs() / pa
-    _assert_sums_close(dpa, rdpa, (mdz * r.float().abs()).sum(dim=(0, 1, 2)) + 1e-3)
-    _assert_sums_close(dpb, rdpb, mdz.sum(dim=(0, 1, 2)) + 1e-3)
+    _assert_bwd_close(g, wt, zero, pa, pb, r, dx, dpa, dpb, rdx, rdpa, rdpb,
+                      lambda t: t[:, 8:8 + h, 8:8 + wd, :o], bwd_x=ra, **kw)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,o", [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 64),
                                      ((1, 13, 21, 61), 24)])
 @pytest.mark.parametrize("mode", ["pre_padded", "arena_g", "arena_in", "arena_in+arena_g"])
-def test_conv3x3_wgrad_framings_match_plain(cuda_device, shape, o, mode):
-    x, _, _, rng = _conv_inputs(cuda_device, shape, o)
+def test_conv3x3_wgrad_framings_match_plain(cuda_device, shape, o, mode, dtype):
+    x, _, _, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     g = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
+        cuda_device, dtype)
     h, wd, c = shape[1], shape[2], shape[3]
     pa = pb = None
     kw = {}
@@ -356,7 +424,7 @@ def test_conv3x3_wgrad_framings_match_plain(cuda_device, shape, o, mode):
     scale = conv3x3_wgrad_reference(x.abs() if pa is None else x, g.abs(), pa, pb, **kw)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dw).all()) and torch.equal(dw, dw2)
-    _assert_sums_close(dw, ref, scale)
+    _assert_sums_close(dw, ref, scale, SUM_REL if dtype == torch.bfloat16 else F32_REL)
 
 
 @pytest.mark.cuda

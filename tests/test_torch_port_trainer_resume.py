@@ -1,7 +1,8 @@
 """The port's fit loop on its own (train/trainer.py, checkpoint.py, config,
 registry), on a tiny synthetic tree on the CPU: a resumed epoch bit-equal to
 an uninterrupted one, the host pre-padded ingest bit-equal to logical cubes,
-early stopping at patience 0, and the kernel route of a bf16 configuration.
+early stopping at patience 0, and the kernel route of a bf16 and of a float32
+configuration.
 
 The gates are lowered through CubeNET's constructor so that the kernel route
 and the ingest fire on their plain versions at 16x24. A
@@ -91,18 +92,18 @@ def test_ingest_on_equals_ingest_off(runs):
 
 def test_early_stop_at_patience_zero(tree, tmp_path_factory, capsys):
     """Patience 0 stops after the first epoch; the fit states its route: the
-    configuration's default fp32 drops pallas_train, and says so."""
+    configuration's default fp32 takes the kernels (3xTF32 products)."""
     cfg = _cfg(tmp_path_factory, tree, "early", overall=0)
     trainer = train_net(cfg, max_epochs=3)
     shutil.rmtree(cfg.save_path)
     assert trainer.fit_result.stopped_early and trainer.fit_result.epochs_run == 1
-    assert ("route: fp32: every conv on F.conv2d, although pallas_train is set"
+    assert ("route: fp32: gated 3x3 convs on the CUDA kernels (3xTF32 products)"
             in capsys.readouterr().out)
 
 
 @pytest.mark.parametrize("precision,pallas_train,route", [
     ("bf16", True, "bf16: gated 3x3 convs on the CUDA kernels"),
-    ("fp32", True, "fp32: every conv on F.conv2d, although pallas_train is set"),
+    ("fp32", True, "fp32: gated 3x3 convs on the CUDA kernels (3xTF32 products)"),
     ("bf16", False, "bf16: every conv on F.conv2d (pallas_train off)"),
 ])
 def test_route_is_described(tree, precision, pallas_train, route):
@@ -113,16 +114,19 @@ def test_route_is_described(tree, precision, pallas_train, route):
 
 def test_bf16_config_takes_the_kernel_route(tree, tmp_path_factory):
     """precision 'bf16' builds a kernel-route model whose first conv takes the
-    ingest at full resolution; 'fp32' keeps every conv on F.conv2d."""
+    ingest at full resolution; so does 'fp32', in float32."""
     cfg = _cfg(tmp_path_factory, tree, "bf16")
     model = ExpHyperspectralPRI(calling_path=cfg.calling_path, device="cpu",
                                 precision="bf16").get_network()
     assert model.first_conv.use_kernels and model.dtype == torch.bfloat16
     assert model.ingest_spec(608, 968) == ((610, 970, 256), (1, 1), (608, 968, 238))
     assert model.ingest_spec(*HW) is None   # below the pixel gate: logical cubes
-    assert not cfg.get_network().first_conv.use_kernels
+    fp32 = ExpHyperspectralPRI(calling_path=cfg.calling_path, device="cpu").get_network()
+    assert fp32.first_conv.use_kernels and fp32.dtype == torch.float32
+    assert fp32.ingest_spec(608, 968) == ((610, 970, 256), (1, 1), (608, 968, 238))
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(ExpHyperspectralPRI(calling_path=cfg.calling_path, device="cpu",
                                     mesh_shape={"data": 2}))
-    with pytest.raises(NotImplementedError, match="slices D/E"):
-        ExpHyperspectralPRI(calling_path=cfg.calling_path, model_name="UNET").get_network()
+    with pytest.raises(NotImplementedError, match="slice E"):
+        ExpHyperspectralPRI(calling_path=cfg.calling_path,
+                            model_name="SpectralUNET").get_network()
