@@ -9,7 +9,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (c) each kernel and each of its modes and framings, in bf16 and in float32,
       against its plain PyTorch version on the card (TF32 off), at the shapes
       the main paths give it and at ragged ones; every reducing kernel twice,
-      for identical bits;
+      for identical bits; the kernels on no model path too: the weight
+      gradient's fold mode (every framing, its dW bit-equal to the non-fold
+      kernel on the materialized g_eff), the shift conv, the dh-fold probe's
+      two kernels at the probe's shapes and the eight Mosaic-op kernels
+      (exactly);
   (d) serving: CubeNET-64 answering two full-resolution 608x968x238 bf16 cubes
       through the folded, kernel-routed model, with the launch count read
       around that run and the
@@ -27,7 +31,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
       call of a training step and of a serving forward beside its bound, its
       plain version and one library call; the serving forward and the training
       step with kernels on and off; peak memory of a step; the element probe
-      beside one PyTorch op;
+      beside one PyTorch op; the kernels on no model path (the weight
+      gradient's fold mode at the step's conv3x3_wgrad calls, the shift conv
+      at its conv3x3_bias_act calls, bf16 and float32; the dh-fold probe's two
+      kernels; the eight Mosaic-op kernels);
+  (l) the fold mode against today's route at each conv3x3_wgrad call of one
+      bf16 product-loop step and one CubeNET-64 float32 step, in turns: g_eff
+      materialized, then dW and db, against dW and db from the raw cotangent
+      in one kernel, with and without the g_eff pass the adjoint conv still
+      needs; summed per step;
   (g) a torch.profiler breakdown of one kernel-route training step;
   (h) the product loop: a synthetic experiment tree of 608x968 cubes with 299
       stored bands, train_net in bf16 for three epochs of one batch-2 step
@@ -49,7 +61,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (i) the CLI's kfold_train --validate at its default precision, fp32, as two
       subprocesses: --dataset RGB (UNET) and no flag (CubeNET on HSI), with
       the route each took and its float32 kernel launches.
-The phases run in the order a-g, j, k, h, i. In (c) the framed modes read
+The phases run in the order a-f, l, g, j, k, h, i. In (c) the framed modes read
 buffers whose frames hold NaN. The script's elapsed seconds and the card's
 name and power limit come next; the line before
 the last is the kernel summary as JSON; the last line is
@@ -94,6 +106,10 @@ TIMING_REPS = 10
 RAGGED_CONV = [((1, 37, 53, 238), 48), ((2, 29, 71, 238), 128), ((1, 17, 33, 61), 64),
                ((1, 37, 53, 238), 96), ((2, 29, 71, 64), 256), ((1, 17, 33, 61), 131)]
 RAGGED_POOL = [(1, 10, 14, 238), (1, 6, 8, 7), (2, 16, 24, 64)]
+# The fold mode of conv3x3_wgrad in each framing the non-fold mode takes, at
+# RAGGED_FRAMED's shapes; framed g and y sit on NaN frames.
+FOLD_FRAMED = [("fold", ("pre_padded",)), ("fold", ("arena_g",)),
+               ("fold+prologue", ("arena_in",)), ("fold+prologue", ("arena_in", "arena_g"))]
 # Framed modes at ragged shapes: the ingest buffer at C = 238 (16-byte loads
 # through the 256-channel pitch) and C = 61, arenas at O = 20 and 24 (pitch 24:
 # channels not a multiple of 8), as the JAX package's tests/test_arena.py and
@@ -417,6 +433,24 @@ class Case:
         self.flops = 2.0 * pixels * 9 * c * o
         if flags:
             self.kwargs["logical_hw"] = (h, w)
+        if kernel == "conv3x3_wgrad_fold":
+            self._init_fold(mode, shape, o, flags, gen, dt, esize)
+            return
+        if kernel == "conv3x3_bias_act_shift":
+            from hyperpri_tpu_torch.ops.kernels import conv3x3_shift
+
+            x, wk, b = conv_inputs(shape, o, gen, dt)
+            self.fn = conv3x3_shift.conv3x3_bias_act_shift
+            self.ref = conv3x3_shift.conv3x3_bias_act_shift_reference
+            self.args, self.kwargs = (x, wk, b), dict(relu=mode == "relu")
+            w_oihw = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            x_cl, b_dt = x.permute(0, 3, 1, 2), b.to(dt)
+            self.library = lambda: F.conv2d(x_cl, w_oihw, b_dt, padding=1)
+            if dt == torch.float32:
+                self.library_tf32 = with_tf32(self.library)
+            # the function's bytes: x read once (the kernel reads it three times)
+            self.nbytes = esize * pixels * (c + o) + esize * 9 * c * o + 4.0 * o
+            return
         if kernel == "conv3x3_wgrad":
             x = torch.randn(shape, generator=gen, device="cuda").to(dt)
             g = torch.randn((n, h, w, o), generator=gen, device="cuda").to(dt)
@@ -481,6 +515,64 @@ class Case:
         self.kwargs.update(relu=mode == "relu", with_stats=mode.startswith("stats"))
         self.args = (x, wk, b, pa, pb) + ((r,) if packed else ())
 
+    def _init_fold(self, mode, shape, o, flags, gen, dt, esize):
+        """conv3x3_wgrad in fold mode: raw gy and the statistics conv's
+        output y (framed alike with arena_g), gsum and gsumsq; no single
+        PyTorch call computes (dW, db) of g_eff, so no library time."""
+        from hyperpri_tpu_torch.ops.kernels import conv3x3_grad
+
+        n, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        gy, y = (torch.randn((n, h, w, o), generator=gen, device="cuda").to(dt)
+                 for _ in range(2))
+        gsum = torch.randn((o,), generator=gen, device="cuda")
+        gsumsq = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+        pa, pb = affine_inputs(c, gen) if "prologue" in mode else (None, None)
+        self.logical = dict(x=x, gy=gy, y=y, gsum=gsum, gsumsq=gsumsq, pa=pa, pb=pb)
+        self.fn, self.ref = conv3x3_grad.conv3x3_wgrad, conv3x3_grad.conv3x3_wgrad_reference
+        self.materialized_kwargs = {}
+        if "pre_padded" in flags:
+            x = framed_copy(x, 1)
+            self.kwargs["pre_padded_c"] = self.materialized_kwargs["pre_padded_c"] = c
+        if "arena_in" in flags:
+            x = framed_copy(x, 8)
+            self.kwargs["arena_in"] = self.materialized_kwargs["arena_in"] = True
+        if "arena_g" in flags:
+            gy, y = framed_copy(gy, 8), framed_copy(y, 8)
+            self.kwargs["arena_g"] = True
+        self.args = (x, gy, pa, pb)
+        self.kwargs.update(y=y, gsum=gsum, gsumsq=gsumsq)
+        self.library = None
+        pixels = n * h * w
+        self.flops += 5.0 * pixels * o        # g_eff (4) and its column sum (1)
+        self.nbytes = esize * pixels * (c + 2 * o) + 4.0 * (9 * c * o + o) + 8.0 * o
+
+    def verify_fold(self):
+        """Fold mode against its plain version: dW and db within SUM_REL of
+        their absolute terms, the same bits twice, and dW bit-equal to the
+        non-fold kernel on the materialized g_eff (the same rounded tile)."""
+        from hyperpri_tpu_torch.ops.kernels import _plain
+
+        (dw, db), (rdw, rdb) = self.run(), self.plain()
+        dw2, db2 = self.run()
+        lg = self.logical
+        g_eff = _plain.fold_stats_cotangent(lg["gy"], lg["gsum"], lg["gsumsq"], lg["y"],
+                                            self.dtype)
+        materialized = self.fn(self.args[0], g_eff, lg["pa"], lg["pb"],
+                               **self.materialized_kwargs)
+        z = _plain.prologue_act(lg["x"], lg["pa"], lg["pb"])
+        scale = self.ref(z.abs(), g_eff.abs())
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(dw).all()) and bool(torch.isfinite(db).all()),
+              f"{self.label()}: non-finite dW or db")
+        check(torch.equal(dw, dw2) and torch.equal(db, db2), f"{self.label()}: two runs differ")
+        check(torch.equal(dw, materialized),
+              f"{self.label()}: dW differs from the non-fold kernel on the materialized g_eff")
+        rel = max(sum_error(dw, rdw, scale),
+                  sum_error(db, rdb, g_eff.float().abs().sum(dim=(0, 1, 2))))
+        check(rel <= SUM_REL, f"{self.label()}: dW or db off by {rel} of its absolute sum")
+        return max((dw - rdw).abs().max().item(), (db - rdb).abs().max().item()), rel
+
     def run(self):
         return self.fn(*self.args, **self.kwargs)
 
@@ -491,6 +583,9 @@ class Case:
         """The plain version on the absolute values of the inputs (a
         prologue's relu(pa*x + pb) is non-negative already): per output, the
         sum of the absolute values of its terms."""
+        if self.call["kernel"] == "conv3x3_bias_act_shift":
+            x, wk, b = self.args
+            return self.ref(x.abs(), wk.abs(), b.abs(), relu=False)
         x, wk, b, pa, pb = self.args[:5]
         prologue = pa is not None and self.call["mode"] != "bwd_x"
         out = self.ref(x if prologue else x.abs(), wk.abs(), b.abs(), pa, pb, *self.args[5:],
@@ -511,6 +606,8 @@ class Case:
         -> (max abs error of the main output, the largest error against the
         absolute terms: of the sums, and in float32 of the outputs too)."""
         kernel, mode = self.call["kernel"], self.call["mode"]
+        if kernel == "conv3x3_wgrad_fold":
+            return self.verify_fold()
         out, ref = self.run(), self.plain()
         torch.cuda.synchronize()
         if kernel == "max_pool_2x2_bwd":
@@ -623,6 +720,15 @@ def phase_kernel_check(calls):
                for s in RAGGED_POOL]
     ragged += [dict(kernel=kernel, mode=mode, framing=flags, shape=shape, o=o)
                for shape, o in RAGGED_FRAMED for kernel, mode, flags in FRAMED_MODES]
+    # kernels on no model path: the fold mode of the weight gradient at its
+    # ragged shapes, unframed and in each framing, and the shift conv at
+    # kernel 2's ragged shapes
+    ragged += [dict(kernel="conv3x3_wgrad_fold", mode=mode, shape=shape, o=o)
+               for shape, o in RAGGED_CONV for mode in ("fold", "fold+prologue")]
+    ragged += [dict(kernel="conv3x3_wgrad_fold", mode=mode, framing=flags, shape=shape, o=o)
+               for shape, o in RAGGED_FRAMED for mode, flags in FOLD_FRAMED]
+    ragged += [dict(kernel="conv3x3_bias_act_shift", mode=mode, shape=shape, o=o)
+               for shape, o in RAGGED_CONV for mode in ("relu", "conv")]
     errors = {}   # {(kernel, dtype): [max abs error, max sums rel error]}
     for call in distinct(calls) + [dict(c, path="ragged", layer="ragged", dtype=dtype)
                                    for dtype in DTYPES for c in ragged]:
@@ -635,6 +741,8 @@ def phase_kernel_check(calls):
     for dtype in DTYPES:
         check_pool_ties(DTYPES[dtype])
     errors["probe_element_out", "f32"] = [check_element_out(), 0.0]
+    errors.update(check_dh_fold())
+    errors["probe_mosaic_ops", "f32"] = [check_mosaic_ops(), 0.0]
     torch.cuda.empty_cache()
     for (kernel, dtype), (abs_err, rel) in errors.items():
         print(f"worst {kernel} {dtype}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e} "
@@ -643,6 +751,47 @@ def phase_kernel_check(calls):
 
 
 ELEMENT_OUT_SHAPES = [(2, H, W, 64), (1, 13, 21, 5), (1, 16, 24, 128)]
+
+
+def check_dh_fold():
+    """Both dh-fold probe kernels at the probe's shapes (2x610x1032 buffers)
+    against their plain versions, within one bf16 ulp; and against each
+    other (the TPU probe's max |cur - folded|)."""
+    from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
+
+    (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=2, h=H, w=W, device="cuda")
+    out_shape = (2, H // 8 * 8, -(-W // 64) * 64, 64)
+    errors = {}
+    outs = {}
+    for name, fn, ref, args in (("current", cur, probe_dh_fold.current_reference, a_cur),
+                                ("folded", fold, probe_dh_fold.folded_reference, a_fold)):
+        out = outs[name] = fn(*args)
+        expect = ref(*args)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == out_shape, f"dh-fold {name}: {tuple(out.shape)}")
+        ulps, abs_err = bf16_ulp_error(out, expect)
+        check(ulps <= 1.0, f"dh-fold {name}: {ulps} bf16 ulp > 1")
+        print(f"probe_dh_fold      {name:7s} {tuple(args[0].shape)} -> {tuple(out.shape)}: "
+              f"max abs {abs_err:.3e} ({ulps:.2f} bf16 ulp)")
+        errors[f"probe_dh_fold_{name}", "bf16"] = [abs_err, 0.0]
+    diff = (outs["current"].float() - outs["folded"].float()).abs().max().item()
+    print(f"probe_dh_fold      max |cur - folded| = {diff:.3e}")
+    return errors
+
+
+def check_mosaic_ops() -> float:
+    """The eight Mosaic-op probe kernels exactly (inf-aware) against their
+    PyTorch ops."""
+    from hyperpri_tpu_torch.ops.kernels import probe_mosaic_ops
+
+    x = probe_mosaic_ops.probe_input("cuda")
+    for name in probe_mosaic_ops.OPS:
+        out = probe_mosaic_ops.run_case(name, x)
+        torch.cuda.synchronize()
+        check(torch.equal(out, probe_mosaic_ops.run_case_reference(name, x)),
+              f"mosaic op {name}: differs from the PyTorch op")
+        print(f"probe_mosaic_ops   {name:20s} OK (exact)")
+    return 0.0
 
 
 def check_element_out() -> float:
@@ -702,16 +851,36 @@ def kernel_wrappers():
     return training_kernels()
 
 
+def unrouted_wrappers():
+    """The wrappers of the kernels no model path launches, by name: the shift
+    conv and the probes (the fold mode is counted by conv3x3_wgrad's
+    launches_by_mode)."""
+    from hyperpri_tpu_torch.ops.kernels import probe_dh_fold, probe_mosaic_ops
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import conv3x3_bias_act_shift
+    from hyperpri_tpu_torch.ops.kernels.probe_element_out import element_out
+
+    return {"conv3x3_bias_act_shift": conv3x3_bias_act_shift,
+            "probe_dh_fold_current": probe_dh_fold.current,
+            "probe_dh_fold_folded": probe_dh_fold.folded,
+            "probe_mosaic_ops": probe_mosaic_ops.run_case, "probe_element_out": element_out}
+
+
 def zero_launches():
-    for fn in kernel_wrappers().values():
+    for fn in list(kernel_wrappers().values()) + list(unrouted_wrappers().values()):
         fn.launches = 0
-        fn.launches_by_dtype.clear()
-        if hasattr(fn, "launches_by_framing"):
-            fn.launches_by_framing.clear()
+        for counter in ("launches_by_dtype", "launches_by_framing", "launches_by_mode"):
+            if hasattr(fn, counter):
+                getattr(fn, counter).clear()
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Launches since zero_launches() of every kernel: the training kernels,
+    the fold mode and the kernels no model path routes to."""
+    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    counts["conv3x3_wgrad_fold"] = kernel_wrappers()["conv3x3_wgrad"].launches_by_mode.get(
+        "fold", 0)
+    counts.update({name: fn.launches for name, fn in unrouted_wrappers().items()})
+    return counts
 
 
 def read_framings():
@@ -729,8 +898,10 @@ def check_launches(label, calls, times):
     for name, count in launches.items():
         check(count == times * expected.get(name, 0),
               f"{label}: {count} {name} launches, predicted {expected.get(name, 0)} a pass")
-        by_dtype = {k: v for k, v in kernel_wrappers()[name].launches_by_dtype.items() if v}
-        check(set(by_dtype) <= dtypes, f"{label}: {name} launched in {by_dtype}, not {dtypes}")
+        if name in kernel_wrappers():
+            by_dtype = {k: v for k, v in kernel_wrappers()[name].launches_by_dtype.items() if v}
+            check(set(by_dtype) <= dtypes,
+                  f"{label}: {name} launched in {by_dtype}, not {dtypes}")
     framings = read_framings()
     for name, by in count_by_framing(calls).items():
         want = {k: times * v for k, v in by.items()}
@@ -1032,7 +1203,7 @@ def phase_times(calls, card):
         case = Case(call, gen)
         ms = cuda_ms(case.run)
         plain_ms = cuda_ms(case.plain, reps=3, warmup=1)
-        library_ms = cuda_ms(case.library)
+        library_ms = cuda_ms(case.library) if case.library is not None else None
         library_tf32_ms = cuda_ms(case.library_tf32) if case.library_tf32 else None
         bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
         n, h, w, c = call["shape"]
@@ -1042,17 +1213,180 @@ def phase_times(calls, card):
                      "o": call["o"], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "library_tf32_ms": library_tf32_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
+        if call["kernel"] == "conv3x3_bias_act_shift":
+            # the halo kernel (kernel 2) on the same inputs in the same mode
+            from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act
+
+            rows[-1]["halo_ms"] = cuda_ms(lambda: conv3x3_bias_act(*case.args, **case.kwargs))
+            print(f"  the halo kernel on the same inputs: {rows[-1]['halo_ms']:.4f} ms")
         rate = (f"{case.flops / ms / 1e9:6.1f} TFLOP/s" if call["kernel"] != "max_pool_2x2_bwd"
                 else f"{case.nbytes / ms / 1e9:6.3f} TB/s")
         tf32 = (f", library with TF32 {library_tf32_ms:.4f} ms" if library_tf32_ms is not None
                 else "")
+        library = f"{library_ms:.4f} ms" if library_ms is not None else "none (no one call)"
         print(f"{case.label()} x{call['count']} ({call['path']}): kernel {ms:.4f} ms ({rate}), "
               f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
-              f"library {library_ms:.4f} ms{tf32}")
+              f"library {library}{tf32}")
         del case
     rows.append(time_element_out())
+    rows += time_dh_fold()
+    rows.append(time_mosaic_ops())
     torch.cuda.empty_cache()
     return rows
+
+
+def unrouted_calls(calls):
+    """The calls of kernels on no model path, at the shapes of the step's
+    calls they stand beside: the fold mode at every conv3x3_wgrad call, the
+    shift conv at every conv3x3_bias_act call (all without ReLU there)."""
+    out = []
+    for call in calls:
+        if call["kernel"] == "conv3x3_wgrad":
+            mode = "fold+prologue" if call["mode"] == "prologue" else "fold"
+            out.append(dict(call, kernel="conv3x3_wgrad_fold", mode=mode))
+        elif call["kernel"] == "conv3x3_bias_act":
+            out.append(dict(call, kernel="conv3x3_bias_act_shift",
+                            mode="relu" if call["mode"] == "relu" else "conv", framing=()))
+    return out
+
+
+def time_dh_fold():
+    """Both dh-fold probe kernels at the probe's shapes, one call each,
+    beside one cuDNN call of the same function (a VALID 3x3 conv of the
+    64 real lanes, cut to the output's 1024 columns). Bound: the function's
+    operations (64 real input channels) and each kernel's own bytes."""
+    from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
+
+    (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=2, h=H, w=W, device="cuda")
+    x64, w01, w2 = a_fold
+    n, hp, wp, _ = x64.shape
+    ho, wo = hp - 2, wp - 8
+    # W[dh][c, dw*64 + o] -> OIHW weights of the real 64 lanes
+    w_full = a_cur[1][:, :64].reshape(3, 64, 3, 64).permute(3, 1, 0, 2)
+    w_oihw = w_full.contiguous(memory_format=torch.channels_last)
+    x_cl = x64.permute(0, 3, 1, 2)[..., :wo + 2]
+    library = lambda: F.conv2d(x_cl, w_oihw)   # noqa: E731
+    y_lib, y_cur = library().permute(0, 2, 3, 1).float(), cur(*a_cur).float()
+    check(float((y_lib - y_cur).norm() / y_cur.norm()) <= 1e-2,
+          "dh-fold: cuDNN's conv is not the probe's function")
+    flops = 2.0 * n * ho * wo * 64 * 9 * 64
+    out_bytes = 2.0 * n * ho * wo * 64
+    rows = []
+    for name, fn, ref, args in (("current", cur, probe_dh_fold.current_reference, a_cur),
+                                ("folded", fold, probe_dh_fold.folded_reference, a_fold)):
+        ms = cuda_ms(lambda: fn(*args))
+        plain_ms = cuda_ms(lambda: ref(*args), reps=3, warmup=1)
+        library_ms = cuda_ms(library)
+        nbytes = sum(2.0 * t.numel() for t in args) + out_bytes
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"probe_dh_fold {name:7s} {tuple(args[0].shape)}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s of the 64-lane function), bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.3f} ms, library (cuDNN VALID conv) "
+              f"{library_ms:.4f} ms")
+        rows.append({"kernel": f"probe_dh_fold_{name}", "dtype": "bf16", "path": "probe",
+                     "mode": name, "framing": [], "library_tf32_ms": None, "layers": [],
+                     "count": 1, "shape": list(args[0].shape), "o": 64, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "flops": flops, "bytes": nbytes})
+    return rows
+
+
+def time_mosaic_ops():
+    """The eight Mosaic-op kernels, one call each, summed; their plain
+    versions are the PyTorch ops themselves, so the library time is the
+    plain time. Each moves 8x16x128 float32 in and out (bytes; at this size
+    the launch is the time)."""
+    from hyperpri_tpu_torch.ops.kernels import probe_mosaic_ops
+
+    x = probe_mosaic_ops.probe_input("cuda")
+    ms = plain_ms = 0.0
+    for name in probe_mosaic_ops.OPS:
+        ms += cuda_ms(lambda: probe_mosaic_ops.run_case(name, x))
+        plain_ms += cuda_ms(lambda: probe_mosaic_ops.run_case_reference(name, x))
+    n_ops = len(probe_mosaic_ops.OPS)
+    nbytes = n_ops * 8.0 * x.numel()
+    bound_ms, bound_by = bound(n_ops * float(x.numel()), nbytes, PEAK_F32_FLOPS)
+    print(f"probe_mosaic_ops {n_ops} ops on {tuple(x.shape)}: kernels {ms:.4f} ms in all, bound "
+          f"{bound_ms:.6f} ms ({bound_by}), plain (the PyTorch ops) {plain_ms:.4f} ms")
+    return {"kernel": "probe_mosaic_ops", "dtype": "f32", "path": "probe", "mode": "8 ops",
+            "framing": [], "library_tf32_ms": None, "layers": [], "count": 1,
+            "shape": list(x.shape), "o": x.shape[-1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": n_ops * float(x.numel()), "bytes": nbytes}
+
+
+def phase_fold_ab(calls_by_dtype):
+    """(l) The fold mode against today's route at each conv3x3_wgrad call of
+    one step, in turns on one card (a, b, c, c, b, a):
+      a) today's route: g_eff = fold_stats_cotangent(gy, gsum, gsumsq, y) in
+         float32 rounded to the compute dtype, conv3x3_wgrad on it, db = its
+         float32 sum;
+      b) conv3x3_wgrad in fold mode: (dW, db) from the raw gy and y;
+      c) b plus the g_eff pass the adjoint conv still reads (none for the
+         network's first conv, which has no adjoint);
+      d) conv3x3_wgrad alone on the materialized g_eff (a's kernel), the
+         yardstick of the fold mode's own cost.
+    Also holds b's dW bit-equal to a's and its db within SUM_REL. Summed per
+    step: ms of a, b, c and d."""
+    phase("(l) the weight gradient's fold mode against today's route, per step")
+    from hyperpri_tpu_torch.ops.kernels import _plain
+
+    results = {}
+    for dtype, calls in calls_by_dtype.items():
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        sums = {"a": 0.0, "b": 0.0, "c": 0.0, "d": 0.0}
+        for call in distinct([c for c in unrouted_calls(calls)
+                              if c["kernel"] == "conv3x3_wgrad_fold"]):
+            case = Case(call, gen)
+            (x, gy, pa, pb), kw = case.args, case.kwargs
+            lg = case.logical
+            wgrad = case.fn
+            first = "pre_padded" in call.get("framing", ())
+
+            def today():
+                g_eff = _plain.fold_stats_cotangent(gy, kw["gsum"], kw["gsumsq"], kw["y"],
+                                                    case.dtype)
+                dw = wgrad(x, g_eff, pa, pb, **case.materialized_kwargs)
+                return dw, g_eff.float().sum(dim=(0, 1, 2))
+
+            def fold():
+                return case.run()
+
+            g_mat = _plain.fold_stats_cotangent(gy, kw["gsum"], kw["gsumsq"], kw["y"], case.dtype)
+
+            def kernel_only():
+                return wgrad(x, g_mat, pa, pb, **case.materialized_kwargs)
+
+            def fold_and_adjoint_pass():
+                out = case.run()
+                if not first:
+                    _plain.fold_stats_cotangent(gy, kw["gsum"], kw["gsumsq"], kw["y"],
+                                                case.dtype)
+                return out
+
+            (dw_a, db_a), (dw_b, db_b) = today(), fold()
+            torch.cuda.synchronize()
+            check(torch.equal(dw_a, dw_b), f"{case.label()}: fold dW differs from today's route")
+            g_abs = _plain.fold_stats_cotangent(lg["gy"], lg["gsum"], lg["gsumsq"], lg["y"],
+                                                case.dtype).float().abs().sum(dim=(0, 1, 2))
+            check(sum_error(db_b, db_a, g_abs) <= SUM_REL, f"{case.label()}: fold db off")
+            times = {"a": [], "b": [], "c": [], "d": []}
+            for key in ("a", "b", "c", "d", "d", "c", "b", "a"):
+                fn = {"a": today, "b": fold, "c": fold_and_adjoint_pass, "d": kernel_only}[key]
+                times[key].append(cuda_ms(fn))
+            ms = {k: mean(v) for k, v in times.items()}
+            for k in sums:
+                sums[k] += ms[k] * call["count"]
+            print(f"{case.label()} x{call['count']}: a (today) {ms['a']:.4f} ms, b (fold) "
+                  f"{ms['b']:.4f} ms, c (fold + adjoint's g_eff) {ms['c']:.4f} ms"
+                  + (" (no adjoint)" if first else "") + f", d (wgrad alone) {ms['d']:.4f} ms")
+            del case, g_mat
+        print(f"{dtype} step: a {sums['a']:.4f} ms, b {sums['b']:.4f} ms, c {sums['c']:.4f} ms, "
+              f"d {sums['d']:.4f} ms per step (a - c = {sums['a'] - sums['c']:.4f} ms, "
+              f"b / d = {sums['b'] / sums['d']:.3f})")
+        results[dtype] = sums
+        torch.cuda.empty_cache()
+    return results
 
 
 def time_element_out():
@@ -1342,7 +1676,19 @@ REPLACES = {
                          "hyperpri_tpu/ops/pallas/pool_bwd.py:82"),
     "probe_element_out": ("hyperpri_tpu_torch/csrc/probe_element_out.cu",
                           "scripts/probe_element_out.py:29"),
+    "conv3x3_wgrad_fold": ("hyperpri_tpu_torch/csrc/conv3x3_grad.cu",
+                           "hyperpri_tpu/ops/pallas/conv3x3_grad.py:184"),
+    "conv3x3_bias_act_shift": ("hyperpri_tpu_torch/csrc/conv3x3_shift.cu",
+                               "hyperpri_tpu/ops/pallas/conv3x3_shift.py:53"),
+    "probe_dh_fold_current": ("hyperpri_tpu_torch/csrc/probe_dh_fold.cu",
+                              "scripts/probe_dh_fold.py:44"),
+    "probe_dh_fold_folded": ("hyperpri_tpu_torch/csrc/probe_dh_fold.cu",
+                             "scripts/probe_dh_fold.py:61"),
+    "probe_mosaic_ops": ("hyperpri_tpu_torch/csrc/probe_mosaic_ops.cu",
+                         "scripts/probe_mosaic_ops.py:24"),
 }
+# Kernels whose bound takes the float32 rate outside the tensor cores.
+SIMT_KERNELS = ("max_pool_2x2_bwd", "probe_element_out", "probe_mosaic_ops")
 
 
 def kernel_summary(rows, errors, launches_by_path, framings_by_path):
@@ -1352,8 +1698,14 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     product-loop training step; float32: one UNET step and one CubeNET-64
     step); launches are those counted during the paths' runs, by path and,
     for the framed kernels, by framing. The float32 bound takes the TF32
-    tensor rate. The element probe is no part of a path (its launches are 0);
-    its numbers are one call at 2x608x968x64."""
+    tensor rate. The fold mode of the weight gradient and the shift conv are
+    on no path (launches 0): their numbers are summed over the conv3x3_wgrad
+    and conv3x3_bias_act calls of one product-loop step (bf16) and of one
+    CubeNET-64 float32 step, and no single PyTorch call computes the fold
+    mode's (dW, db). The probes are no part of a path either (launches 0):
+    the element probe is one call at 2x608x968x64, each dh-fold kernel one
+    call at the probe's 2x610x1032 buffers, the Mosaic ops one call of each
+    of the eight."""
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         for dtype in DTYPES:
@@ -1362,13 +1714,25 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                 continue
             flops = sum(r["flops"] * r["count"] for r in mine)
             nbytes = sum(r["bytes"] * r["count"] for r in mine)
-            peak = (PEAK_F32_FLOPS if name in ("max_pool_2x2_bwd", "probe_element_out")
+            peak = (PEAK_F32_FLOPS if name in SIMT_KERNELS
                     else PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS)
             bound_ms, bound_by = bound(flops, nbytes, peak)
             by_path = {path: counts.get(name, 0) for path, counts in
                        launches_by_path[dtype].items()}
             library = [r["library_ms"] for r in mine]
             tf32 = [r["library_tf32_ms"] for r in mine]
+            times_by_path = {}
+            for r in mine:
+                one = times_by_path.setdefault(r["path"], {"ms": 0.0, "plain_ms": 0.0,
+                                                           "library_ms": 0.0,
+                                                           "library_tf32_ms": 0.0})
+                for key in one:
+                    one[key] = (None if one[key] is None or r[key] is None
+                                else one[key] + r[key] * r["count"])
+            for path, one in times_by_path.items():
+                on_path = [r for r in mine if r["path"] == path]
+                one["bound_ms"] = bound(sum(r["flops"] * r["count"] for r in on_path),
+                                        sum(r["bytes"] * r["count"] for r in on_path), peak)[0]
             kernels.append({
                 "name": name, "dtype": dtype, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -1383,7 +1747,7 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                                else sum(ms * r["count"] for ms, r in zip(library, mine))),
                 "library_tf32_ms": (None if None in tf32
                                     else sum(ms * r["count"] for ms, r in zip(tf32, mine))),
-                "calls": mine,
+                "times_by_path": times_by_path, "calls": mine,
             })
     return kernels
 
@@ -1409,7 +1773,9 @@ def main():
     serving_launches, serving_framings, serving_ms = phase_serving(serve_calls)
     training_launches, training_framings, step_ms, peak, step, batch = phase_training(
         train_calls)
-    rows = phase_times(serve_calls + loop_calls + unet_calls + cube32_calls, card)
+    rows = phase_times(serve_calls + loop_calls + unet_calls + cube32_calls
+                       + unrouted_calls(loop_calls) + unrouted_calls(cube32_calls), card)
+    fold_ab = phase_fold_ab({"bf16": loop_calls, "f32": cube32_calls})
     phase_profile(step, batch)
     del step, batch
     torch.cuda.empty_cache()
@@ -1437,7 +1803,7 @@ def main():
     print(card)
     print(json.dumps({"kernels": kernels, "serving_ms_per_cube": serving_ms,
                       "training_ms_per_step": step_ms, "training_peak_gib": peak,
-                      "unet_f32": unet, "cubenet_f32": cube32,
+                      "fold_ab_ms_per_step": fold_ab, "unet_f32": unet, "cubenet_f32": cube32,
                       "product_loop": loop, "cli": cli}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,18 @@
 // arena_g): the host pre-padded ingest buffer and arena buffers are read in
 // place, and only their logical regions are staged (zero elsewhere, by select).
 //
+// Fold mode (the JAX kernel's y/gsum/gsumsq, conv3x3_grad.py:101-118): g is the
+// raw cotangent gy of a statistics conv and y its saved output, framed alike.
+// While the g tile is staged, both are masked to zero outside the logical
+// image (a frame may hold NaN), then g_eff = (gy + gsum) + (2y)*gsumsq is
+// formed in float32 and rounded to T, and the products read that tile. In
+// the blocks of C tile 0 each thread also adds the rounded values it stages
+// (always the same few channels) into its own db sums in shared memory; at
+// the end they are added per channel in a fixed thread order into a
+// per-split partial beside dW's, reduced over the splits like dW: no float
+// atomics, two runs give the same bits. Its cost against the plain mode is
+// the second load and the arithmetic of the synchronous g stage (PERF.md).
+//
 // Bound. 2*N*H*W*9*C*O FLOP against x and g read once and dW written (f32):
 // with ~1.18 M pixels at full resolution that is 9*C*O/(C+O) FLOP per bf16
 // byte again (454 at 238x64), above the ~295 FLOP/byte ridge of an H100:
@@ -49,18 +61,124 @@ constexpr int CT = 64;       // input channels per block
 constexpr int OT = 64;       // output channels per block
 constexpr int WS = CT + 8;   // shared row stride in elements (no bank conflicts)
 
-template <typename T>
+// The staged x halo and g tile; in fold mode also the block's gsum and gsumsq
+// (2 x OT floats) and one slot of per-channel db sums per thread.
+template <typename T, bool FOLD>
 constexpr int wgrad_smem_bytes() {
-  return (HALO_PIX + TH * TW) * WS * static_cast<int>(sizeof(T));
+  return (HALO_PIX + TH * TW) * WS * static_cast<int>(sizeof(T)) +
+         (FOLD ? (2 * OT + THREADS * Elem<T>::VEC_MAX) * 4 : 0);
+}
+
+// The raw bits of one element of T, for the 16-byte loads of the fold mode.
+template <typename T>
+using Bits = typename std::conditional<is_f32<T>, uint32_t, uint16_t>::type;
+
+template <typename T>
+__device__ __forceinline__ float bits_to_f32(Bits<T> b) {
+  if constexpr (is_f32<T>) return __uint_as_float(b);
+  else return __uint_as_float(static_cast<uint32_t>(b) << 16);
 }
 
 template <typename T>
+__device__ __forceinline__ Bits<T> f32_to_bits(float v) {
+  if constexpr (is_f32<T>) return __float_as_uint(v);
+  else return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Fold mode's g stage: the (TH, TW, OT) tile of g_eff = (gy + gsum) + (2y)*gsumsq
+// at logical (h0, w0, o0) into dst[pixel][WS], computed in float32 from the
+// raw gy and y (one framed view: rows row_pitch apart, pixels pitch apart)
+// and rounded to T; zero outside the image and past O, where nothing is
+// read, so NaN in a frame never reaches the sum. fold_s holds the block's
+// gsum and gsumsq (OT each, zero past O). A thread always stages the same VEC
+// channels (THREADS is a multiple of OT / VEC), so it keeps their gsum and
+// gsumsq in registers for the tile and, when db_slot is not null, adds the
+// rounded values it stages into its VEC db sums there. VEC elements per load
+// (see load_width); four loads of each operand in flight per thread.
+template <typename T, int VEC>
+__device__ __forceinline__ void stage_fold(T* __restrict__ dst, const T* __restrict__ gy,
+                                           const T* __restrict__ y, int row_pitch, int pitch,
+                                           int H, int W, int O, int h0, int w0, int o0,
+                                           const float* __restrict__ fold_s,
+                                           float* __restrict__ db_slot) {
+  using P = typename Packed<VEC * static_cast<int>(sizeof(T))>::type;
+  union U {
+    P p;
+    Bits<T> e[VEC];
+  };
+  constexpr int GROUPS = OT / VEC;
+  static_assert(THREADS % GROUPS == 0, "a thread's channels must not change between loads");
+  constexpr int ITERS = TH * TW * GROUPS / THREADS;
+  constexpr int BATCH = ITERS < 4 ? ITERS : 4;
+  const int grp = threadIdx.x % GROUPS;
+  const int c = o0 + grp * VEC;
+  float gsv[VEC], gssv[VEC], dbt[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    gsv[e] = fold_s[grp * VEC + e];
+    gssv[e] = fold_s[OT + grp * VEC + e];
+    dbt[e] = 0.0f;
+  }
+  const P* __restrict__ gin = reinterpret_cast<const P*>(gy);
+  const P* __restrict__ yin = reinterpret_cast<const P*>(y);
+#pragma unroll 1
+  for (int it0 = 0; it0 < ITERS; it0 += BATCH) {
+    U gv[BATCH], yv[BATCH];
+    bool inside[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int px = ((it0 + k) * THREADS + threadIdx.x) / GROUPS;
+      const int hh = h0 + px / TW;
+      const int ww = w0 + px % TW;
+      inside[k] = hh < H && ww < W && c < O;
+      gv[k].p = P();
+      yv[k].p = P();
+      if (inside[k]) {
+        const int at = (hh * row_pitch + ww * pitch + c) / VEC;
+        gv[k].p = gin[at];
+        yv[k].p = yin[at];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int px = ((it0 + k) * THREADS + threadIdx.x) / GROUPS;
+      U out;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = 0.0f;
+        if (inside[k] && c + e < O) {
+          const float yy = 2.0f * bits_to_f32<T>(yv[k].e[e]);
+          v = __fadd_rn(__fadd_rn(bits_to_f32<T>(gv[k].e[e]), gsv[e]), __fmul_rn(yy, gssv[e]));
+        }
+        out.e[e] = f32_to_bits<T>(v);
+        dbt[e] += bits_to_f32<T>(out.e[e]);
+      }
+      *reinterpret_cast<P*>(dst + px * WS + grp * VEC) = out.p;
+    }
+  }
+  if (db_slot != nullptr) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) db_slot[e] += dbt[e];
+  }
+}
+
+// One launch's operands beyond x and g: the fold mode's y (framed like g),
+// gsum and gsumsq, all null without it.
+template <typename T>
+struct Fold {
+  const T* y;
+  const float* gsum;
+  const float* gsumsq;
+};
+
+template <typename T, bool FOLD>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                      const float* __restrict__ pa, const float* __restrict__ pb,
-                     float* __restrict__ partial, const Frame fx, const Frame fg, int N, int H,
-                     int W, int C, int O, int tiles_h, int tiles_w, int tiles_per_split,
-                     int xvec, int gvec) {
+                     const T* __restrict__ y, const float* __restrict__ gsum,
+                     const float* __restrict__ gsumsq, float* __restrict__ partial,
+                     const Frame fx, const Frame fg, int N, int H, int W, int C, int O,
+                     int tiles_h, int tiles_w, int tiles_per_split, int xvec, int gvec) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* hs = reinterpret_cast<T*>(smem);
   T* gs = hs + HALO_PIX * WS;
@@ -74,6 +192,19 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int n_tiles = N * tiles_h * tiles_w;
   const int t_begin = blockIdx.x * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  // Fold mode: the block's gsum and gsumsq, and in the blocks of C tile 0
+  // (which add db) each thread's slot of db sums, zeroed; the tile loop's
+  // first barrier orders this before any use.
+  const bool db_block = FOLD && blockIdx.y == 0;
+  float* fold_s = reinterpret_cast<float*>(gs + TH * TW * WS);
+  float* db_s = fold_s + 2 * OT;
+  if constexpr (FOLD) {
+    for (int i = threadIdx.x; i < 2 * OT; i += THREADS) {
+      const int o = o0 + i % OT;
+      fold_s[i] = o < O ? __ldg((i < OT ? gsum : gsumsq) + o) : 0.0f;
+    }
+    for (int i = threadIdx.x; i < THREADS * Elem<T>::VEC_MAX; i += THREADS) db_s[i] = 0.0f;
+  }
 
   float acc[9][4][4];
 #pragma unroll
@@ -92,8 +223,21 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
     __syncthreads();  // the previous tile's reads are done
     stage_any<T, CT, WS, TH + 2, HALO_W>(xvec, hs, x + image_offset(fx, n), fx.cols * fx.pitch,
                                          fx.pitch, H, W, C, h0 - 1, w0 - 1, c0, pa, pb);
-    stage_any<T, OT, WS, TH, TW>(gvec, gs, g + image_offset(fg, n), fg.cols * fg.pitch,
-                                 fg.pitch, H, W, O, h0, w0, o0, nullptr, nullptr);
+    if constexpr (FOLD) {
+      constexpr int V = Elem<T>::VEC_MAX;
+      const size_t at = image_offset(fg, n);
+      const int rp = fg.cols * fg.pitch;
+      float* slot = db_block ? db_s + threadIdx.x * gvec : nullptr;
+      if (gvec == V)
+        stage_fold<T, V>(gs, g + at, y + at, rp, fg.pitch, H, W, O, h0, w0, o0, fold_s, slot);
+      else if (gvec == 2)
+        stage_fold<T, 2>(gs, g + at, y + at, rp, fg.pitch, H, W, O, h0, w0, o0, fold_s, slot);
+      else
+        stage_fold<T, 1>(gs, g + at, y + at, rp, fg.pitch, H, W, O, h0, w0, o0, fold_s, slot);
+    } else {
+      stage_any<T, OT, WS, TH, TW>(gvec, gs, g + image_offset(fg, n), fg.cols * fg.pitch,
+                                   fg.pitch, H, W, O, h0, w0, o0, nullptr, nullptr);
+    }
     __syncthreads();
 
     if constexpr (is_f32<T>) {
@@ -164,7 +308,20 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   // Accumulator element r of (tap, nb) is input channel c0 + wm*16 + lane/4 +
   // 8*(r/2), output channel o0 + wn*32 + nb*8 + 2*(lane%4) + r%2 (the same in
   // the m16n8k16 bf16 and m16n8k8 tf32 layouts).
-  float* out = partial + static_cast<size_t>(blockIdx.x) * 9 * C * O;
+  const size_t row = static_cast<size_t>(9) * C * O + (FOLD ? O : 0);
+  float* out = partial + blockIdx.x * row;
+  if (db_block) {
+    // Channel ch's sums sit in the slots of the threads that staged it,
+    // threads grp, grp + OT/gvec, ... with grp = ch / gvec: added in order.
+    __syncthreads();
+    const int ch = threadIdx.x;
+    if (ch < OT && o0 + ch < O) {
+      const int groups = OT / gvec;
+      float total = 0.0f;
+      for (int k = ch / gvec; k < THREADS; k += groups) total += db_s[k * gvec + ch % gvec];
+      out[static_cast<size_t>(9) * C * O + o0 + ch] = total;
+    }
+  }
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
 #pragma unroll
@@ -180,11 +337,13 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 template <typename T>
-int wgrad_impl(const void* x, const void* g, const void* pa, const void* pb, void* partial,
-               void* dw, const int* frames, int N, int H, int W, int C, int O, int splits,
-               int x_lanes_zero, void* stream) {
+int wgrad_impl(const void* x, const void* g, const void* pa, const void* pb, const Fold<T>& fold,
+               void* partial, void* out, const int* frames, int N, int H, int W, int C, int O,
+               int splits, int x_lanes_zero, void* stream) {
+  const bool folded = fold.y != nullptr;
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 || frames == nullptr ||
-      (pa == nullptr) != (pb == nullptr) || (x_lanes_zero && pa != nullptr))
+      (pa == nullptr) != (pb == nullptr) || (x_lanes_zero && pa != nullptr) ||
+      folded != (fold.gsum != nullptr) || folded != (fold.gsumsq != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
   const Frame fg{frames[5], frames[6], frames[7], frames[8], frames[9]};
@@ -195,25 +354,32 @@ int wgrad_impl(const void* x, const void* g, const void* pa, const void* pb, voi
   const long long n_tiles = static_cast<long long>(N) * tiles_h * tiles_w;
   const int c_tiles = (C + CT - 1) / CT;
   const int o_tiles = (O + OT - 1) / OT;
-  if (n_tiles > 0x7fffffffLL || c_tiles > 65535 || o_tiles > 65535 ||
-      static_cast<long long>(9) * C * O > 0x7fffffffLL)
+  const long long cols = static_cast<long long>(9) * C * O + (folded ? O : 0);
+  if (n_tiles > 0x7fffffffLL || c_tiles > 65535 || o_tiles > 65535 || cols > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_per_split = static_cast<int>((n_tiles + splits - 1) / splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int smem = wgrad_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = folded ? conv3x3_wgrad_kernel<T, true> : conv3x3_wgrad_kernel<T, false>;
+  const int smem = folded ? wgrad_smem_bytes<T, true>() : wgrad_smem_bytes<T, false>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  int gvec = load_width<T>(g, O, fg.pitch, false);
+  if (folded) {
+    const int yvec = load_width<T>(fold.y, O, fg.pitch, false);
+    gvec = yvec < gvec ? yvec : gvec;
+  }
   const dim3 grid(splits, c_tiles, o_tiles);
-  conv3x3_wgrad_kernel<T><<<grid, THREADS, smem, s>>>(
+  kernel<<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(pa),
-      static_cast<const float*>(pb), static_cast<float*>(partial), fx, fg, N, H, W, C, O,
-      tiles_h, tiles_w, tiles_per_split, load_width<T>(x, C, fx.pitch, x_lanes_zero != 0),
-      load_width<T>(g, O, fg.pitch, false));
+      static_cast<const float*>(pb), fold.y, fold.gsum, fold.gsumsq,
+      static_cast<float*>(partial), fx, fg, N, H, W, C, O, tiles_h, tiles_w, tiles_per_split,
+      load_width<T>(x, C, fx.pitch, x_lanes_zero != 0), gvec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_rows(static_cast<const float*>(partial),
-                                      static_cast<float*>(dw), splits, 9 * C * O, s));
+                                      static_cast<float*>(out), splits, static_cast<int>(cols),
+                                      s));
 }
 
 }  // namespace
@@ -221,21 +387,31 @@ int wgrad_impl(const void* x, const void* g, const void* pa, const void* pb, voi
 // x: logical (N, H, W, C); g: logical (N, H, W, O) of x's type; frames: 10
 // ints, the views {rows, cols, pitch, r0, c0} of x and g (Frame,
 // conv3x3_common.cuh); x_lanes_zero: x's buffer holds zeros from channel C to
-// its pitch. pa, pb: null or the (C,) f32 prologue affine; partial: (splits, 9,
-// C, O) f32 scratch; dw: (9, C, O) f32, tap = 3*dh + dw. _bf16 takes bf16
-// tensors, _f32 float32 ones. Returns the cudaError_t of the launches.
-extern "C" int conv3x3_wgrad_bf16(const void* x, const void* g, const void* pa,
-                                  const void* pb, void* partial, void* dw, const int* frames,
+// its pitch. pa, pb: null or the (C,) f32 prologue affine. Fold mode: y, the
+// statistics conv's output framed like g, and gsum, gsumsq, (O,) f32; all
+// three null without it. partial: (splits, cols) f32 scratch; out: (cols,) f32,
+// dW (9, C, O) with tap = 3*dh + dw, then in fold mode db (O,): cols = 9*C*O,
+// plus O in fold mode. _bf16 takes bf16 tensors, _f32 float32 ones. Returns
+// the cudaError_t of the launches.
+extern "C" int conv3x3_wgrad_bf16(const void* x, const void* g, const void* y,
+                                  const void* gsum, const void* gsumsq, const void* pa,
+                                  const void* pb, void* partial, void* out, const int* frames,
                                   int N, int H, int W, int C, int O, int splits,
                                   int x_lanes_zero, void* stream) {
-  return wgrad_impl<__nv_bfloat16>(x, g, pa, pb, partial, dw, frames, N, H, W, C, O, splits,
-                                   x_lanes_zero, stream);
+  using T = __nv_bfloat16;
+  const Fold<T> fold{static_cast<const T*>(y), static_cast<const float*>(gsum),
+                     static_cast<const float*>(gsumsq)};
+  return wgrad_impl<T>(x, g, pa, pb, fold, partial, out, frames, N, H, W, C, O, splits,
+                       x_lanes_zero, stream);
 }
 
-extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, const void* pa,
-                                 const void* pb, void* partial, void* dw, const int* frames,
+extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, const void* y,
+                                 const void* gsum, const void* gsumsq, const void* pa,
+                                 const void* pb, void* partial, void* out, const int* frames,
                                  int N, int H, int W, int C, int O, int splits,
                                  int x_lanes_zero, void* stream) {
-  return wgrad_impl<float>(x, g, pa, pb, partial, dw, frames, N, H, W, C, O, splits,
+  const Fold<float> fold{static_cast<const float*>(y), static_cast<const float*>(gsum),
+                         static_cast<const float*>(gsumsq)};
+  return wgrad_impl<float>(x, g, pa, pb, fold, partial, out, frames, N, H, W, C, O, splits,
                            x_lanes_zero, stream);
 }

@@ -24,7 +24,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # Every kernel library of the port: csrc/<name>.cu for each name.
-LIBRARIES = ("conv3x3_packed", "conv3x3", "conv3x3_grad", "pool_bwd", "probe_element_out")
+LIBRARIES = ("conv3x3_packed", "conv3x3", "conv3x3_grad", "pool_bwd", "probe_element_out",
+             "conv3x3_shift", "probe_dh_fold", "probe_mosaic_ops")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -62,6 +62,18 @@ def conv3x3_modes_reference(x, w, b, pa=None, pb=None, *, relu: bool, with_stats
     return out
 
 
+def fold_stats_cotangent(gy, gsum, gsumsq, y, dtype):
+    """g_eff = (g_y + g_sum) + (2*y)*g_sumsq in float32, rounded to `dtype`: the
+    effective cotangent of a statistics conv's output y (conv_train.py:195-199
+    of the JAX package). A missing cotangent is zero."""
+    g = gy.float() if gy is not None else torch.zeros_like(y, dtype=torch.float32)
+    if gsum is not None:
+        g = g + gsum.float()
+    if gsumsq is not None:
+        g = g + 2.0 * y.float() * gsumsq.float()
+    return g.to(dtype).contiguous()
+
+
 def first_max_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Backward of a 2x2, stride-2 VALID max pool in tensor ops (port of
     hyperpri_tpu/ops/pool.py:70-86): the cotangent g (N, H//2, W//2, C) goes

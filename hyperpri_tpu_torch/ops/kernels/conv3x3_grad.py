@@ -25,6 +25,16 @@ Logical (h, w) come from g, or from `logical_hw` when g is framed. Only the
 logical regions are read. The JAX kernel's `pad_w_to` has no counterpart: it
 names the width of a pad pass the CUDA kernel never makes.
 
+Fold mode (`y`, `gsum`, `gsumsq` together; conv3x3_grad.py:101-118 of the
+JAX package): g is the raw cotangent gy of a statistics conv, y its saved
+output (g's shape and dtype, and with `arena_g` framed alike), gsum and
+gsumsq the (O,) cotangents of its statistics. The effective cotangent
+g_eff = (gy + gsum) + (2y)*gsumsq is formed in float32 on the logical
+region, rounded to g's dtype, and the call returns (dW of g_eff,
+db = sum of the rounded g_eff in float32). With `arena_g`, O is gsum's
+length. No model path calls it: conv_train.py materializes g_eff, which the
+adjoint conv reads too.
+
 `conv3x3_wgrad` runs the plain version, `conv3x3_wgrad_reference`, only for
 tensors on the CPU. For CUDA tensors it launches the kernel or raises.
 """
@@ -44,9 +54,10 @@ _TARGET_BLOCKS = 2 * 132  # about two blocks per SM of an H100
 _MAX_PARTIAL_BYTES = 1 << 28
 
 
-def _resolve(x, g, pa, arena_in, arena_g, logical_hw, pre_padded_c):
+def _resolve(x, g, pa, arena_in, arena_g, logical_hw, pre_padded_c, fold_o=None):
     """(n, h, w, c, o, frame of x, frame of g, framing names); raises on what
-    the kernel does not take (the JAX kernel's rules, conv3x3_grad.py:260-330)."""
+    the kernel does not take (the JAX kernel's rules, conv3x3_grad.py:243-330).
+    `fold_o`: gsum's length in fold mode, which is O under `arena_g`."""
     if x.dim() != 4 or g.dim() != 4 or x.shape[0] != g.shape[0]:
         raise ValueError(f"need x (N,H,W,C) and g (N,H,W,O); got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}")
@@ -65,7 +76,7 @@ def _resolve(x, g, pa, arena_in, arena_g, logical_hw, pre_padded_c):
         if logical_hw is not None and tuple(logical_hw) != (h, width):
             raise ValueError(f"logical_hw {tuple(logical_hw)} != g's {(h, width)}")
         fg = Frame.of(g)
-    o = g.shape[-1]
+    o = fold_o if arena_g and fold_o is not None else g.shape[-1]
     if arena_in:
         c, fx = pa.shape[0], Frame.of(x, framing.ARENA_OFFSET)
     elif pre_padded_c is not None:
@@ -81,17 +92,25 @@ def _resolve(x, g, pa, arena_in, arena_g, logical_hw, pre_padded_c):
     return x.shape[0], h, width, c, o, fx, fg, names or ("unframed",)
 
 
-def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
-                            pa: Optional[torch.Tensor] = None,
-                            pb: Optional[torch.Tensor] = None, *, arena_in: bool = False,
-                            arena_g: bool = False, logical_hw=None,
-                            pre_padded_c: Optional[int] = None) -> torch.Tensor:
-    """Plain version: for each tap, the float32 product of the shifted,
-    zero-padded input (C, N*H*W) with the cotangent (N*H*W, O), on the
-    logical views of framed operands."""
-    _, h, width, c, o, fx, fg, _ = _resolve(x, g, pa, arena_in, arena_g, logical_hw,
-                                            pre_padded_c)
-    x, g = fx.logical(x, h, width, c), fg.logical(g, h, width, o)
+def _check_fold(g, y, gsum, gsumsq):
+    """Fold mode's operands come together, y like g, the statistics' cotangents
+    of one length (conv3x3_grad.py:243-247). Returns whether the call folds."""
+    given = [t is not None for t in (y, gsum, gsumsq)]
+    if any(given) and not all(given):
+        raise ValueError("fold mode needs y, gsum and gsumsq together")
+    if not all(given):
+        return False
+    if y.shape != g.shape or y.dtype != g.dtype:
+        raise ValueError(f"y {tuple(y.shape)} {y.dtype} must match g {tuple(g.shape)} {g.dtype}")
+    if gsum.dim() != 1 or gsum.shape != gsumsq.shape:
+        raise ValueError(f"gsum, gsumsq must be (O,), got {tuple(gsum.shape)}, "
+                         f"{tuple(gsumsq.shape)}")
+    return True
+
+
+def _wgrad_plain(x, g, pa, pb, h, width, c, o):
+    """Per tap, the float32 product of the shifted, zero-padded input
+    (C, N*H*W) with the cotangent (N*H*W, O), on logical views."""
     zp = _plain.pad_same(_plain.prologue_act(x, pa, pb))
     g2 = g.float().reshape(-1, o)
     dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
@@ -101,9 +120,30 @@ def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
     return dw
 
 
+def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
+                            pa: Optional[torch.Tensor] = None,
+                            pb: Optional[torch.Tensor] = None, *,
+                            y: Optional[torch.Tensor] = None,
+                            gsum: Optional[torch.Tensor] = None,
+                            gsumsq: Optional[torch.Tensor] = None, arena_in: bool = False,
+                            arena_g: bool = False, logical_hw=None,
+                            pre_padded_c: Optional[int] = None):
+    """Plain version: dW as float32 products of the logical views; in fold
+    mode g_eff first (conv_train's arithmetic, _plain.fold_stats_cotangent),
+    then (dW of g_eff, sum of g_eff)."""
+    fold = _check_fold(g, y, gsum, gsumsq)
+    _, h, width, c, o, fx, fg, _ = _resolve(x, g, pa, arena_in, arena_g, logical_hw,
+                                            pre_padded_c, gsum.shape[0] if fold else None)
+    x, g = fx.logical(x, h, width, c), fg.logical(g, h, width, o)
+    if not fold:
+        return _wgrad_plain(x, g, pa, pb, h, width, c, o)
+    g_eff = _plain.fold_stats_cotangent(g, gsum, gsumsq, fg.logical(y, h, width, o), g.dtype)
+    return _wgrad_plain(x, g_eff, pa, pb, h, width, c, o), g_eff.float().sum(dim=(0, 1, 2))
+
+
 def _lib(suffix: str):
     return _plain.bind("conv3x3_grad", f"conv3x3_wgrad_{suffix}",
-                       [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
+                       [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
@@ -117,50 +157,61 @@ def _splits(n: int, h: int, width: int, c: int, o: int) -> int:
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] = None,
-                  pb: Optional[torch.Tensor] = None, *, arena_in: bool = False,
-                  arena_g: bool = False, logical_hw=None,
-                  pre_padded_c: Optional[int] = None) -> torch.Tensor:
-    """dW (3, 3, C, O) float32; see the module docstring.
+                  pb: Optional[torch.Tensor] = None, *, y: Optional[torch.Tensor] = None,
+                  gsum: Optional[torch.Tensor] = None, gsumsq: Optional[torch.Tensor] = None,
+                  arena_in: bool = False, arena_g: bool = False, logical_hw=None,
+                  pre_padded_c: Optional[int] = None):
+    """dW (3, 3, C, O) float32, or in fold mode (dW, db (O,) float32); see the
+    module docstring.
 
     `conv3x3_wgrad.calls` counts every call; `conv3x3_wgrad.launches` counts
     launches of the CUDA kernel only, `calls_by_framing` /
-    `launches_by_framing` count them by framing ("unframed" without one) and
-    `launches_by_dtype` by the activations' type ("bf16", "f32")."""
+    `launches_by_framing` count them by framing ("unframed" without one),
+    `launches_by_dtype` by the activations' type ("bf16", "f32") and
+    `launches_by_mode` by mode ("dw", "fold")."""
     if g.dtype != x.dtype:
         raise TypeError(f"x and g must share a dtype, got {x.dtype} and {g.dtype}")
     if (pa is None) != (pb is None):
         raise ValueError("pa and pb come together")
+    fold = _check_fold(g, y, gsum, gsumsq)
     flags = dict(arena_in=arena_in, arena_g=arena_g, logical_hw=logical_hw,
                  pre_padded_c=pre_padded_c)
     n, h, width, c, o, fx, fg, names = _resolve(x, g, pa, arena_in, arena_g, logical_hw,
-                                                pre_padded_c)
+                                                pre_padded_c, gsum.shape[0] if fold else None)
     if pa is not None and (tuple(pa.shape) != (c,) or tuple(pb.shape) != (c,)):
         raise ValueError(f"pa, pb must be ({c},), got {tuple(pa.shape)}, {tuple(pb.shape)}")
+    if fold and gsum.shape[0] != o:
+        raise ValueError(f"gsum, gsumsq must be ({o},), got {tuple(gsum.shape)}")
     conv3x3_wgrad.calls += 1
     _plain.count(conv3x3_wgrad.calls_by_framing, names)
     if x.device.type == "cpu":
-        return conv3x3_wgrad_reference(x, g, pa, pb, **flags)
-    suffix = _plain.require_cuda("conv3x3_wgrad", x, g, pa, pb)
-    if not g.is_contiguous():
-        raise ValueError("conv3x3_wgrad: g must be a contiguous NHWC tensor")
+        return conv3x3_wgrad_reference(x, g, pa, pb, y=y, gsum=gsum, gsumsq=gsumsq, **flags)
+    suffix = _plain.require_cuda("conv3x3_wgrad", x, g, pa, pb, y, gsum, gsumsq)
+    if not g.is_contiguous() or (fold and not y.is_contiguous()):
+        raise ValueError("conv3x3_wgrad: g and y must be contiguous NHWC tensors")
     if n * h * width == 0:
         raise ValueError("conv3x3_wgrad: empty input")
     splits = _splits(n, h, width, c, o)
     paf, pbf = _plain.f32_vector(pa), _plain.f32_vector(pb)
-    partial = torch.empty((splits, 9, c, o), dtype=torch.float32, device=x.device)
-    dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
+    gsf, gssf = _plain.f32_vector(gsum), _plain.f32_vector(gsumsq)
+    cols = 9 * c * o + (o if fold else 0)
+    partial = torch.empty((splits, cols), dtype=torch.float32, device=x.device)
+    out = torch.empty((cols,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib(suffix)(
-            x.data_ptr(), g.data_ptr(), _plain.ptr(paf), _plain.ptr(pbf),
-            partial.data_ptr(), dw.data_ptr(), framing.frames_arg(fx, fg), n, h, width, c, o,
-            splits, int(pre_padded_c is not None), torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), g.data_ptr(), _plain.ptr(y), _plain.ptr(gsf), _plain.ptr(gssf),
+            _plain.ptr(paf), _plain.ptr(pbf), partial.data_ptr(), out.data_ptr(),
+            framing.frames_arg(fx, fg), n, h, width, c, o, splits,
+            int(pre_padded_c is not None), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv3x3_wgrad kernel launch failed: cudaError_t {err}")
     conv3x3_wgrad.launches += 1
     _plain.count(conv3x3_wgrad.launches_by_framing, names)
     _plain.count(conv3x3_wgrad.launches_by_dtype, (suffix,))
-    return dw
+    _plain.count(conv3x3_wgrad.launches_by_mode, ("fold" if fold else "dw",))
+    dw = out[:9 * c * o].view(3, 3, c, o)
+    return (dw, out[9 * c * o:]) if fold else dw
 
 
 conv3x3_wgrad.calls = 0
@@ -168,3 +219,4 @@ conv3x3_wgrad.launches = 0
 conv3x3_wgrad.calls_by_framing = {}
 conv3x3_wgrad.launches_by_framing = {}
 conv3x3_wgrad.launches_by_dtype = {}
+conv3x3_wgrad.launches_by_mode = {}

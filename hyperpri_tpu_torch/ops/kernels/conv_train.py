@@ -14,7 +14,10 @@ the float32 parameter, so that autograd's cast node carries dW back), b (O,)
 float32, pa/pb (C,) float32. Backward:
   - the cotangent of y is cast to x's dtype; the statistics' cotangents fold
     into it, g_eff = g_y + g_sum[c] + 2*y*g_sumsq[c], computed in float32 from
-    the saved rounded y and rounded to the compute dtype;
+    the saved rounded y and rounded to the compute dtype. This pass stays
+    here, as in the reference: the adjoint conv reads g_eff too, and
+    conv3x3_wgrad's fold mode (g_eff and db formed in the weight gradient)
+    is ported but not wired, pending a measured gain (PERF.md §6);
   - dx = conv3x3_SAME(g_eff, W') with W'[dh,dw,o,c] = W[2-dh,2-dw,c,o] and a
     zero bias, skipped when x needs no gradient;
   - dW from conv3x3_wgrad in float32, rounded to w's dtype; db = sum g_eff in
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from hyperpri_tpu_torch.ops.kernels._plain import fold_stats_cotangent
 from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act
 from hyperpri_tpu_torch.ops.kernels.conv3x3_grad import conv3x3_wgrad
 from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import conv3x3_packed
@@ -77,17 +81,6 @@ def _zero_bias(w):
     return torch.zeros((w.shape[2],), dtype=torch.float32, device=w.device)
 
 
-def _fold_stats_cotangent(gy, gsum, gsumsq, y, dtype):
-    """g_eff = g_y + g_sum + 2*y*g_sumsq in float32, rounded to `dtype`
-    (conv_train.py:195-199). A missing cotangent is zero."""
-    g = gy.float() if gy is not None else torch.zeros_like(y, dtype=torch.float32)
-    if gsum is not None:
-        g = g + gsum.float()
-    if gsumsq is not None:
-        g = g + 2.0 * y.float() * gsumsq.float()
-    return g.to(dtype).contiguous()
-
-
 class _BiasTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b):
@@ -117,7 +110,7 @@ class _BiasStatsTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gsum, gsumsq):
         x, w, y = ctx.saved_tensors
-        g_eff = _fold_stats_cotangent(gy, gsum, gsumsq, y, x.dtype)
+        g_eff = fold_stats_cotangent(gy, gsum, gsumsq, y, x.dtype)
         if ctx.pre_padded_hw is not None:
             # the ingest buffer is leaf data: no dx (conv_train.py:204-211)
             dw = _wgrad(x, g_eff, w.dtype, pre_padded_c=w.shape[2])
@@ -145,7 +138,7 @@ class _BnactStatsTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gsum, gsumsq):
         x, pa, pb, w, y = ctx.saved_tensors
-        g_eff = _fold_stats_cotangent(gy, gsum, gsumsq, y, x.dtype)
+        g_eff = fold_stats_cotangent(gy, gsum, gsumsq, y, x.dtype)
         dx = dpa = dpb = None
         if any(ctx.needs_input_grad[:3]):
             wt, zero = _adjoint_weights(w), _zero_bias(w)

@@ -439,3 +439,136 @@ def test_element_out_probe_matches_plain_exactly(cuda_device, shape):
     y = element_out(x)
     assert element_out.launches == launches + 1
     assert torch.equal(y, element_out_reference(x))
+
+
+def _fold_operands(rng, device, shape, o, dtype):
+    """gy, y (N, H, W, O) of the activations' dtype and the statistics'
+    cotangents gsum, gsumsq (O,) float32."""
+    n, h, w, _ = shape
+    gy, y = (torch.from_numpy(rng.normal(size=(n, h, w, o)).astype(np.float32)).to(device, dtype)
+             for _ in range(2))
+    gs = torch.from_numpy(rng.normal(size=(o,)).astype(np.float32)).to(device)
+    gss = torch.from_numpy((0.1 * rng.normal(size=(o,))).astype(np.float32)).to(device)
+    return gy, y, gs, gss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o", [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 64),
+                                     ((1, 17, 33, 61), 131), ((1, 13, 21, 61), 24)])
+@pytest.mark.parametrize("mode", ["unframed", "prologue", "pre_padded", "arena_g",
+                                  "arena_in+arena_g"])
+def test_conv3x3_wgrad_fold_matches_plain(cuda_device, shape, o, mode, dtype):
+    """Fold mode (g_eff and db formed in the kernel from the raw gy and y) on
+    NaN-framed buffers: dW and db within the sums' limit of their absolute
+    terms, the same bits twice, and dW bit-equal to the non-fold kernel on
+    the materialized g_eff."""
+    from hyperpri_tpu_torch.ops.kernels import _plain
+
+    x, _, _, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
+    gy, y, gs, gss = _fold_operands(rng, cuda_device, shape, o, dtype)
+    h, wd, c = shape[1], shape[2], shape[3]
+    pa = pb = None
+    kw, plain_kw = {}, {}
+    xk, gk, yk = x, gy, y
+    if mode in ("prologue", "arena_in+arena_g"):
+        pa, pb = _affine(rng, cuda_device, c)
+    if mode == "pre_padded":
+        xk = _framed(x, 1)
+        kw["pre_padded_c"] = plain_kw["pre_padded_c"] = c
+    if "arena_in" in mode:
+        xk = _framed(x, 8)
+        kw["arena_in"] = plain_kw["arena_in"] = True
+    if "arena_g" in mode:
+        gk, yk = _framed(gy, 8), _framed(y, 8)
+        kw.update(arena_g=True, logical_hw=(h, wd))
+    launches = conv3x3_wgrad.launches_by_mode.get("fold", 0)
+    (dw, db), (dw2, db2) = (conv3x3_wgrad(xk, gk, pa, pb, y=yk, gsum=gs, gsumsq=gss, **kw)
+                            for _ in range(2))
+    assert conv3x3_wgrad.launches_by_mode["fold"] == launches + 2
+    rdw, rdb = conv3x3_wgrad_reference(xk, gk, pa, pb, y=yk, gsum=gs, gsumsq=gss, **kw)
+    g_eff = _plain.fold_stats_cotangent(gy, gs, gss, y, dtype)
+    z = _plain.prologue_act(x, pa, pb)
+    scale = conv3x3_wgrad_reference(z.abs(), g_eff.abs())
+    materialized = conv3x3_wgrad(xk, g_eff, pa, pb, **plain_kw)
+    torch.cuda.synchronize()
+    rel = SUM_REL if dtype == torch.bfloat16 else F32_REL
+    assert dw.shape == (3, 3, c, o) and db.shape == (o,)
+    assert bool(torch.isfinite(dw).all()) and bool(torch.isfinite(db).all())
+    _assert_sums_close(dw, rdw, scale, rel)
+    _assert_sums_close(db, rdb, g_eff.float().abs().sum(dim=(0, 1, 2)), rel)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert torch.equal(dw, materialized)
+
+
+_SHIFT_CASES = [((1, 37, 53, 238), 48, False), ((2, 29, 71, 64), 64, True),
+                ((1, 17, 33, 61), 131, True), ((2, 29, 71, 64), 256, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o,relu", _SHIFT_CASES)
+def test_conv3x3_bias_act_shift_matches_plain(cuda_device, shape, o, relu, dtype):
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import (
+        conv3x3_bias_act_shift,
+        conv3x3_bias_act_shift_reference,
+    )
+
+    x, w, b, _ = _conv_inputs(cuda_device, shape, o, dtype=dtype)
+    launches = conv3x3_bias_act_shift.launches
+    out = conv3x3_bias_act_shift(x, w, b, relu=relu)
+    assert conv3x3_bias_act_shift.launches == launches + 1
+    ref = conv3x3_bias_act_shift_reference(x, w, b, relu=relu)
+    terms = conv3x3_bias_act_shift_reference(x.abs(), w.abs(), b.abs(), relu=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _assert_out_close(out, ref, terms)
+
+
+@pytest.mark.cuda
+def test_conv3x3_bias_act_shift_float32_out_from_bf16(cuda_device):
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import (
+        conv3x3_bias_act_shift,
+        conv3x3_bias_act_shift_reference,
+    )
+
+    x, w, b, _ = _conv_inputs(cuda_device, (1, 17, 33, 64), 96)
+    out = conv3x3_bias_act_shift(x, w, b, out_dtype=torch.float32)
+    ref = conv3x3_bias_act_shift_reference(x, w, b, out_dtype=torch.float32)
+    terms = conv3x3_bias_act_shift_reference(x.abs(), w.abs(), b.abs(), relu=False,
+                                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    _assert_sums_close(out, ref, terms, F32_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["current", "folded"])
+def test_dh_fold_probe_matches_plain(cuda_device, kernel):
+    from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
+
+    (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=1, h=64, w=200, device=cuda_device)
+    fn, args = (cur, a_cur) if kernel == "current" else (fold, a_fold)
+    ref = (probe_dh_fold.current_reference(*a_cur) if kernel == "current"
+           else probe_dh_fold.folded_reference(*a_fold))
+    launches = fn.launches
+    out = fn(*args)
+    assert fn.launches == launches + 1
+    torch.cuda.synchronize()
+    assert out.shape == (1, 64, 256, 64) and bool(torch.isfinite(out.float()).all())
+    assert _bf16_ulp_error(out, ref) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["roll_axis0", "roll_axis1", "repeat_axis0", "repeat_axis1",
+                                  "neg_inf_where", "stride2_axis0", "stack_reshape_axis0",
+                                  "bcast_reshape_axis1"])
+def test_mosaic_op_probe_matches_plain_exactly(cuda_device, name):
+    from hyperpri_tpu_torch.ops.kernels import probe_mosaic_ops
+
+    x = probe_mosaic_ops.probe_input(cuda_device)
+    launches = probe_mosaic_ops.run_case.launches
+    out = probe_mosaic_ops.run_case(name, x)
+    assert probe_mosaic_ops.run_case.launches == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, probe_mosaic_ops.run_case_reference(name, x))

@@ -47,6 +47,9 @@ import hyperpri_tpu_torch.data.synthetic
 import hyperpri_tpu_torch.models.registry
 import hyperpri_tpu_torch.ops.kernels.framing
 import hyperpri_tpu_torch.ops.kernels.probe_element_out
+import hyperpri_tpu_torch.ops.kernels.conv3x3_shift
+import hyperpri_tpu_torch.ops.kernels.probe_dh_fold
+import hyperpri_tpu_torch.ops.kernels.probe_mosaic_ops
 import hyperpri_tpu_torch.train.checkpoint
 import hyperpri_tpu_torch.train.evaluate
 import hyperpri_tpu_torch.train.trainer
@@ -107,6 +110,40 @@ def test_every_csrc_file_rebuilds_every_library(tmp_path, monkeypatch):
     assert len(runs) == 2
     built = _build.build_all(("a", "b"), force=True)
     assert sorted(built) == ["a", "b"] and len(runs) == 4
+
+
+@pytest.mark.parametrize("name", ["conv3x3_packed", "conv3x3", "conv3x3_grad", "pool_bwd",
+                                  "probe_element_out", "conv3x3_shift", "probe_dh_fold",
+                                  "probe_mosaic_ops"])
+def test_each_library_rebuilds_on_any_csrc_change(name, tmp_path, monkeypatch):
+    """Every kernel library of the port is in LIBRARIES, built from its own
+    csrc/<name>.cu, and stale once any file under csrc/ (a shared header) is
+    newer (nvcc is replaced by a recorder here)."""
+    from hyperpri_tpu_torch.ops.kernels import _build
+
+    assert name in _build.LIBRARIES and (_build.CSRC / f"{name}.cu").is_file()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    runs = []
+
+    def fake_run(cmd, **kwargs):
+        runs.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"lib")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    _build.build(name)
+    _build.build(name)
+    assert len(runs) == 1 and runs[0][-1] == str(csrc / f"{name}.cu")
+    newer = (tmp_path / "build" / f"lib{name}.so").stat().st_mtime + 10
+    os.utime(csrc / "conv3x3_common.cuh", (newer, newer))
+    _build.build(name)
+    assert len(runs) == 2
 
 
 def test_chip_smoke_fails_without_cuda():
