@@ -9,9 +9,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (c) each kernel and each of its modes and framings, in bf16 and in float32,
       against its plain PyTorch version on the card (TF32 off), at the shapes
       the main paths give it and at ragged ones; every reducing kernel twice,
-      for identical bits; the kernels on no model path too: the weight
+      for identical bits (the bf16 calls of conv3x3_bias_act and conv3x3_wgrad
+      take their Hopper kernels, "sm90": TMA staging and wgmma; float32 and
+      bf16 layouts TMA cannot address take the synchronous ones, "legacy");
+      the kernels on no model path too: the weight
       gradient's fold mode (every framing, its dW bit-equal to the non-fold
-      kernel on the materialized g_eff), the shift conv, the dh-fold probe's
+      synchronous kernel on the materialized g_eff), the shift conv, the dh-fold probe's
       two kernels at the probe's shapes and the eight Mosaic-op kernels
       (exactly);
   (d) serving: CubeNET-64 answering two full-resolution 608x968x238 bf16 cubes
@@ -23,13 +26,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
       compute, float32 parameters, masked BCE, Adam(1e-3), through the
       trainable kernel convs and the pool-backward kernel, with the launch
       counts read around those steps and held against the counts the routing
-      predicts (derived by walking the model), the loss finite and falling on
+      predicts (derived by walking the model) and, for conv3x3_bias_act and
+      conv3x3_wgrad, by kernel body as their plans choose it, the loss finite and falling on
       a repeated batch, the BatchNorm running statistics moving, and step 1's
       loss, logits and gradients held against the same model on cuDNN and
       autograd in bf16 and in float32;
   (f) times (CUDA events, median of repeated runs after warm-up): every kernel
       call of a training step and of a serving forward beside its bound, its
-      plain version and one library call; the serving forward and the training
+      plain version and one library call (float32 convs also with cuDNN's TF32
+      on, and with cudnn.benchmark on, labelled); the serving forward and the training
       step with kernels on and off; peak memory of a step; the element probe
       beside one PyTorch op; the kernels on no model path (the weight
       gradient's fold mode at the step's conv3x3_wgrad calls, the shift conv
@@ -39,12 +44,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
       bf16 product-loop step and one CubeNET-64 float32 step, in turns: g_eff
       materialized, then dW and db, against dW and db from the raw cotangent
       in one kernel, with and without the g_eff pass the adjoint conv still
-      needs; summed per step;
+      needs; summed per step; both routes' dW held against float64;
   (g) a torch.profiler breakdown of one kernel-route training step;
   (h) the product loop: a synthetic experiment tree of 608x968 cubes with 299
       stored bands, train_net in bf16 for three epochs of one batch-2 step
       (the first conv reads the host pre-padded buffer; launches by framing
-      held against the routing), a resumed fourth epoch held bit-equal to an
+      held against the routing; every conv3x3_bias_act and conv3x3_wgrad call,
+      12 and 11 a step, on the Hopper kernels), a resumed fourth epoch held bit-equal to an
       uninterrupted run, validate_net and test_net, with seconds per epoch,
       steps per second, the device idle share of a profiled epoch, the host
       seconds per batch, and each framed kernel mode at the main path's
@@ -104,7 +110,9 @@ TIMING_REPS = 10
 # Ragged conv shapes: odd H/W, C=238 (4-byte loads), C not a multiple of 8
 # (element loads), O = 48 / 96 / 128 / 256 and an odd O.
 RAGGED_CONV = [((1, 37, 53, 238), 48), ((2, 29, 71, 238), 128), ((1, 17, 33, 61), 64),
-               ((1, 37, 53, 238), 96), ((2, 29, 71, 64), 256), ((1, 17, 33, 61), 131)]
+               ((1, 37, 53, 238), 96), ((2, 29, 71, 64), 256), ((1, 17, 33, 61), 131),
+               ((1, 13, 37, 64), 128), ((1, 13, 37, 128), 256)]
+# (the last two: the Hopper kernels' TMA box and pixel tile overhang every edge)
 RAGGED_POOL = [(1, 10, 14, 238), (1, 6, 8, 7), (2, 16, 24, 64)]
 # The fold mode of conv3x3_wgrad in each framing the non-fold mode takes, at
 # RAGGED_FRAMED's shapes; framed g and y sit on NaN frames.
@@ -338,6 +346,31 @@ def count_by_framing(calls):
     return counts
 
 
+def count_by_body(calls):
+    """{kernel: {"sm90" or "legacy": count}} for conv3x3_bias_act and
+    conv3x3_wgrad: the body each call's plan (ops/kernels/sm90_plan.py) takes.
+    bf16 takes the Hopper kernels wherever TMA can address the views; the one
+    bf16 exception on a path is the unframed first conv's weight gradient in
+    phase e (C = 238: 476-byte pixels), which the product loop's ingest buffer
+    (channel pitch 256) avoids."""
+    from hyperpri_tpu_torch.ops.kernels import framing, sm90_plan
+
+    counts = {"conv3x3_bias_act": {}, "conv3x3_wgrad": {}}
+    for call in calls:
+        n, h, w, c = call["shape"]
+        o, dtype = call["o"], DTYPES[call["dtype"]]
+        if call["kernel"] == "conv3x3_bias_act":
+            body = sm90_plan.bias_act_plan(n, h, w, c, o, dtype).path
+        elif call["kernel"] == "conv3x3_wgrad":
+            pitch = (framing.ingest_spec(h, w, c)[0][2] if "pre_padded" in call["framing"]
+                     else c)
+            body = sm90_plan.wgrad_plan(n, h, w, c, o, dtype, pitch, o).path
+        else:
+            continue
+        counts[call["kernel"]][body] = counts[call["kernel"]].get(body, 0) + 1
+    return counts
+
+
 def count_by_kernel(calls):
     counts = {}
     for call in calls:
@@ -392,6 +425,30 @@ def with_tf32(fn):
             return fn()
         finally:
             torch.backends.cudnn.allow_tf32 = before
+    return run
+
+
+def wgrad_f64(z, g):
+    """dW of a 3x3 SAME conv in float64 from the conv's input z (a prologue,
+    if any, already applied) and its cotangent g, both NHWC."""
+    _, h, w, c = z.shape
+    zp = F.pad(z.double(), (0, 0, 1, 1, 1, 1))
+    g2 = g.double().reshape(-1, g.shape[-1])
+    return torch.stack([zp[:, dh:dh + h, dw:dw + w, :].reshape(-1, c).t() @ g2
+                        for dh in range(3) for dw in range(3)]).reshape(3, 3, c, -1)
+
+
+def with_cudnn_benchmark(fn):
+    """fn with cudnn.benchmark on (cuDNN times its algorithms and keeps the
+    fastest; the warm-up calls pay for that), for the labelled library time
+    that no heuristic pick distorts."""
+    def run():
+        before = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.benchmark = before
     return run
 
 
@@ -550,7 +607,8 @@ class Case:
     def verify_fold(self):
         """Fold mode against its plain version: dW and db within SUM_REL of
         their absolute terms, the same bits twice, and dW bit-equal to the
-        non-fold kernel on the materialized g_eff (the same rounded tile)."""
+        non-fold synchronous kernel on the materialized g_eff (the same
+        rounded tile, summed in the same order)."""
         from hyperpri_tpu_torch.ops.kernels import _plain
 
         (dw, db), (rdw, rdb) = self.run(), self.plain()
@@ -558,7 +616,7 @@ class Case:
         lg = self.logical
         g_eff = _plain.fold_stats_cotangent(lg["gy"], lg["gsum"], lg["gsumsq"], lg["y"],
                                             self.dtype)
-        materialized = self.fn(self.args[0], g_eff, lg["pa"], lg["pb"],
+        materialized = self.fn(self.args[0], g_eff, lg["pa"], lg["pb"], _legacy=True,
                                **self.materialized_kwargs)
         z = _plain.prologue_act(lg["x"], lg["pa"], lg["pb"])
         scale = self.ref(z.abs(), g_eff.abs())
@@ -868,7 +926,8 @@ def unrouted_wrappers():
 def zero_launches():
     for fn in list(kernel_wrappers().values()) + list(unrouted_wrappers().values()):
         fn.launches = 0
-        for counter in ("launches_by_dtype", "launches_by_framing", "launches_by_mode"):
+        for counter in ("launches_by_dtype", "launches_by_framing", "launches_by_mode",
+                        "launches_by_path"):
             if hasattr(fn, counter):
                 getattr(fn, counter).clear()
 
@@ -907,8 +966,15 @@ def check_launches(label, calls, times):
         want = {k: times * v for k, v in by.items()}
         check(framings.get(name, {}) == want,
               f"{label}: {name} launches by framing {framings.get(name)}, predicted {want}")
-    print(f"{label}: launches {launches}, by framing {framings} = {times} x the routing's "
-          f"prediction")
+    # kernel bodies of these two, as their plans choose them for each call
+    bodies = {}
+    for name, want in count_by_body(calls).items():
+        by_path = {k: v for k, v in kernel_wrappers()[name].launches_by_path.items() if v}
+        want = {k: times * v for k, v in want.items()}
+        check(by_path == want, f"{label}: {name} launches by body {by_path}, predicted {want}")
+        bodies[name] = by_path
+    print(f"{label}: launches {launches}, by framing {framings}, by body {bodies} = {times} x "
+          f"the routing's prediction")
     return launches, framings
 
 
@@ -1205,13 +1271,17 @@ def phase_times(calls, card):
         plain_ms = cuda_ms(case.plain, reps=3, warmup=1)
         library_ms = cuda_ms(case.library) if case.library is not None else None
         library_tf32_ms = cuda_ms(case.library_tf32) if case.library_tf32 else None
+        # float32 convs: the same library call with cudnn.benchmark on
+        library_bench_ms = (cuda_ms(with_cudnn_benchmark(case.library))
+                            if case.library_tf32 else None)
         bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
         n, h, w, c = call["shape"]
         rows.append({"kernel": call["kernel"], "dtype": call["dtype"], "path": call["path"],
                      "mode": call["mode"], "framing": list(call.get("framing", ())),
                      "layers": call["layers"], "count": call["count"], "shape": [n, h, w, c],
                      "o": call["o"], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_tf32_ms": library_tf32_ms, "bound_ms": bound_ms,
+                     "library_tf32_ms": library_tf32_ms,
+                     "library_benchmark_ms": library_bench_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
         if call["kernel"] == "conv3x3_bias_act_shift":
             # the halo kernel (kernel 2) on the same inputs in the same mode
@@ -1221,8 +1291,8 @@ def phase_times(calls, card):
             print(f"  the halo kernel on the same inputs: {rows[-1]['halo_ms']:.4f} ms")
         rate = (f"{case.flops / ms / 1e9:6.1f} TFLOP/s" if call["kernel"] != "max_pool_2x2_bwd"
                 else f"{case.nbytes / ms / 1e9:6.3f} TB/s")
-        tf32 = (f", library with TF32 {library_tf32_ms:.4f} ms" if library_tf32_ms is not None
-                else "")
+        tf32 = (f", library with TF32 {library_tf32_ms:.4f} ms, with cudnn.benchmark "
+                f"{library_bench_ms:.4f} ms" if library_tf32_ms is not None else "")
         library = f"{library_ms:.4f} ms" if library_ms is not None else "none (no one call)"
         print(f"{case.label()} x{call['count']} ({call['path']}): kernel {ms:.4f} ms ({rate}), "
               f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
@@ -1326,8 +1396,12 @@ def phase_fold_ab(calls_by_dtype):
          network's first conv, which has no adjoint);
       d) conv3x3_wgrad alone on the materialized g_eff (a's kernel), the
          yardstick of the fold mode's own cost.
-    Also holds b's dW bit-equal to a's and its db within SUM_REL. Summed per
-    step: ms of a, b, c and d."""
+    Also holds b's dW bit-equal to the synchronous kernel's on the
+    materialized g_eff (the fold mode's own body and summation order), a's
+    dW (the Hopper kernel's in bf16) and b's each within SUM_REL of a float64
+    evaluation (g_eff has a per-channel offset: one-signed terms, where
+    float32 chains show), and b's db within SUM_REL of a's.
+    Summed per step: ms of a, b, c and d."""
     phase("(l) the weight gradient's fold mode against today's route, per step")
     from hyperpri_tpu_torch.ops.kernels import _plain
 
@@ -1365,11 +1439,26 @@ def phase_fold_ab(calls_by_dtype):
                 return out
 
             (dw_a, db_a), (dw_b, db_b) = today(), fold()
+            dw_sync = wgrad(x, g_mat, pa, pb, _legacy=True, **case.materialized_kwargs)
             torch.cuda.synchronize()
-            check(torch.equal(dw_a, dw_b), f"{case.label()}: fold dW differs from today's route")
-            g_abs = _plain.fold_stats_cotangent(lg["gy"], lg["gsum"], lg["gsumsq"], lg["y"],
-                                                case.dtype).float().abs().sum(dim=(0, 1, 2))
+            check(torch.equal(dw_sync, dw_b),
+                  f"{case.label()}: fold dW differs from the synchronous kernel on g_eff")
+            g_log = _plain.fold_stats_cotangent(lg["gy"], lg["gsum"], lg["gsumsq"], lg["y"],
+                                                case.dtype)
+            z = _plain.prologue_act(lg["x"], lg["pa"], lg["pb"])
+            exact, scale = wgrad_f64(z, g_log), wgrad_f64(z.abs(), g_log.abs())
+            rels = {}
+            for label, dw in (("today's route", dw_a), ("the fold mode", dw_b)):
+                rel = rels[label] = sum_error(dw, exact, scale)
+                check(rel <= SUM_REL, f"{case.label()}: dW of {label} off by {rel} of its "
+                                      f"absolute terms (float64)")
+            rel_a, rel_b = rels["today's route"], rels["the fold mode"]
+            print(f"{case.label()}: dW off float64 by, of its absolute terms: today's route "
+                  f"{rel_a:.3e}, the fold mode (synchronous body) {rel_b:.3e}; limit "
+                  f"{SUM_REL:.0e}")
+            g_abs = g_log.float().abs().sum(dim=(0, 1, 2))
             check(sum_error(db_b, db_a, g_abs) <= SUM_REL, f"{case.label()}: fold db off")
+            del g_log, z, exact, scale
             times = {"a": [], "b": [], "c": [], "d": []}
             for key in ("a", "b", "c", "d", "d", "c", "b", "a"):
                 fn = {"a": today, "b": fold, "c": fold_and_adjoint_pass, "d": kernel_only}[key]
@@ -1564,6 +1653,10 @@ def phase_product_loop(tree, calls, card):
     steps = sum(h["steps"] for h in fit.history)
     check(steps == LOOP_EPOCHS, f"{steps} steps in {LOOP_EPOCHS} epochs of one batch")
     launches, framings = check_launches(f"product loop, {steps} steps", calls, steps)
+    for name, count in (("conv3x3_bias_act", 12), ("conv3x3_wgrad", 11)):
+        by_path = kernel_wrappers()[name].launches_by_path
+        check(by_path.get("sm90", 0) == count * steps and not by_path.get("legacy"),
+              f"product loop: {name} by body {by_path}, not {count} Hopper launches a step")
     check(framings["conv3x3_packed"].get("pre_padded") == steps,
           f"the ingest conv launched {framings['conv3x3_packed'].get('pre_padded')} times in "
           f"{steps} steps")
@@ -1693,7 +1786,8 @@ SIMT_KERNELS = ("max_pool_2x2_bwd", "probe_element_out", "probe_mosaic_ops")
 
 def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     """One entry per kernel and dtype. ms, plain_ms, library_ms (TF32 off),
-    library_tf32_ms and bound_ms are sums over the kernel's calls in one pass
+    library_tf32_ms, library_benchmark_ms (float32 convs, cudnn.benchmark on,
+    TF32 off) and bound_ms are sums over the kernel's calls in one pass
     of each main path of that dtype (bf16: one serving forward and one
     product-loop training step; float32: one UNET step and one CubeNET-64
     step); launches are those counted during the paths' runs, by path and,
@@ -1721,13 +1815,15 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                        launches_by_path[dtype].items()}
             library = [r["library_ms"] for r in mine]
             tf32 = [r["library_tf32_ms"] for r in mine]
+            bench = [r.get("library_benchmark_ms") for r in mine]
             times_by_path = {}
             for r in mine:
                 one = times_by_path.setdefault(r["path"], {"ms": 0.0, "plain_ms": 0.0,
                                                            "library_ms": 0.0,
-                                                           "library_tf32_ms": 0.0})
+                                                           "library_tf32_ms": 0.0,
+                                                           "library_benchmark_ms": 0.0})
                 for key in one:
-                    one[key] = (None if one[key] is None or r[key] is None
+                    one[key] = (None if one[key] is None or r.get(key) is None
                                 else one[key] + r[key] * r["count"])
             for path, one in times_by_path.items():
                 on_path = [r for r in mine if r["path"] == path]
@@ -1747,6 +1843,8 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                                else sum(ms * r["count"] for ms, r in zip(library, mine))),
                 "library_tf32_ms": (None if None in tf32
                                     else sum(ms * r["count"] for ms, r in zip(tf32, mine))),
+                "library_benchmark_ms": (None if None in bench else
+                                         sum(ms * r["count"] for ms, r in zip(bench, mine))),
                 "times_by_path": times_by_path, "calls": mine,
             })
     return kernels

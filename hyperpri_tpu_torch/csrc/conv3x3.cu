@@ -18,21 +18,359 @@
 // 256->256, all above the ~295 FLOP/byte ridge of an H100: bound by operations.
 // In float32 (half the FLOP per byte, against TF32's ridge of ~148) too.
 //
-// Design: the direct implicit GEMM of conv3x3_common.cuh (bf16 products, or
-// 3xTF32 for float32) with the output channels tiled over the grid. A block
-// computes an 8x32 pixel tile by 128 output channels (64 when O <= 64);
-// blockIdx.z walks images and output tiles,
-// so every output tile stages the input halo again (10x34-pixel chunks of 64
-// bytes of channels, from L2 after the first tile). The weights arrive
-// pre-packed as wp[tap][o][c] in x's type with O zero-padded to whole tiles
-// and C to a whole chunk (32 bf16 or 16 float32 channels).
-// The per-channel sums are per-block partials added in a fixed order by a
-// second kernel, never float atomics. Not yet done: sharing one staged halo
-// between output tiles, cp.async/TMA staging and wgmma.
+// Two kernel bodies; the wrapper picks one by dtype and layout before the
+// launch (ops/kernels/sm90_plan.py), never on a failure.
+//
+// conv3x3_sm90_kernel (bf16 whose channels TMA can address: C % 8 == 0 and
+// C <= 256; every bf16 call of a training step). An implicit GEMM, M = output
+// pixels, N = output channels, K = 9*C, on the Hopper pieces of
+// conv3x3_sm90.cuh:
+//   - a block owns an 8x32 pixel tile of one image and ALL output channels:
+//     two consumer warpgroups (warp r computes output row r, 2 x 16 pixels)
+//     and a producer warpgroup, one warp of which issues the loads (its
+//     registers go to the consumers: setmaxnreg 40 / 232). The whole (8+2)x(32+2) input halo, every
+//     64-channel chunk of it, is loaded once by TMA (the SAME border and the
+//     image edges zero-filled) and stays resident while the block walks its
+//     O tiles of 128, so at O = 256 one staged halo feeds both output tiles;
+//   - the weights are read in place, w (3, 3, C, O) HWIO with the outputs
+//     contiguous (no packing pass; TMA zero-fills past C and O), and stream
+//     through a ring of 16 KiB stages, one (O tile, chunk, tap) slice of 64
+//     inputs x 128 outputs each (two boxes of 64 x 64), filled by TMA and
+//     completed on mbarriers: while the consumers compute on one stage the
+//     next ones are in flight;
+//   - the products are wgmma m64n128k16, A = the tap-shifted halo pixels from
+//     registers (ldmatrix from the swizzled halo), B = the weight slice from
+//     shared memory (N-major), float32 accumulators in registers (2 x 64 a
+//     thread);
+//   - the prologue is applied to each halo chunk once it has landed, in place,
+//     in-image pixels and channels below C only, by affine_relu, by the
+//     producer warpgroup's three idle warps while the consumers compute on
+//     the chunks before it (a second barrier per chunk says it is done);
+//   - the epilogue stores y and, for the statistics, sums each thread's
+//     pixels, the lanes by shuffles and the eight warps in order into one
+//     partial row per block, added over the blocks in a fixed order by
+//     reduce_rows_kernel: no float atomics, two runs give the same bits.
+//   Bytes staged per MMA (bf16 halo and weight bytes per FLOP of a block).
+//   The synchronous kernel: (340 + 9*128) rows of 64 bytes per
+//   2*256*128*9*32 FLOP = 5.06e-3 B/FLOP at every width (77% of it weights;
+//   the halo staged again per output tile). This kernel: at O = 128 the
+//   same, (340 + 9*128) rows of 128 bytes per 2*256*128*9*64 FLOP =
+//   5.06e-3, since an 8x32 tile still reads every weight slice from L2; at
+//   O = 256, one halo for both output tiles, (340 + 2*9*128)*128 bytes per
+//   twice those FLOP = 4.48e-3. Not yet done: fewer weight bytes per MMA at
+//   O = 128 (a larger pixel tile per weight slice, or persistent blocks
+//   that keep two tiles' halos resident; ROADMAP queue 2b).
+//
+// conv3x3_kernel<T, NP, VEC> (float32, and bf16 whose channels TMA cannot
+// address): the synchronous direct implicit GEMM of conv3x3_common.cuh
+// (bf16 mma.sync products, or 3xTF32 for float32) with the output channels
+// tiled over the grid. A block computes an 8x32 pixel tile by 128 output
+// channels (64 when O <= 64); blockIdx.z walks images and output tiles, so
+// every output tile stages the input halo again (10x34-pixel chunks of 64
+// bytes of channels, from L2 after the first tile). The weights arrive packed
+// as wp[tap][o][c] in x's type with O zero-padded to whole tiles and C to a
+// whole chunk (32 bf16 or 16 float32 channels). The per-channel sums are
+// per-block partials added in a fixed order by a second kernel. Not yet done:
+// TMA staging and wgmma for float32 (3xTF32 needs hi/lo split operands in
+// shared memory, ROADMAP queue 2b).
 
 #include "conv3x3_common.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
+
+using conv3x3::sm90::HALO_BYTES;
+using conv3x3::sm90::HALO_SLOT;
+
+constexpr int K2_CONSUMERS = 256;              // two warpgroups, warp r: output row r
+constexpr int K2_THREADS = K2_CONSUMERS + 128;  // and the producer warpgroup
+constexpr int K2_PRODUCER_REGS = 40;           // setmaxnreg: 128*40 + 256*232 <= 64K
+constexpr int K2_CONSUMER_REGS = 232;
+constexpr int K2_PROLOGUE_THREADS = 96;        // the producer warpgroup's other warps
+constexpr int K2_N = 128;                      // output channels of one pass (O tile)
+constexpr int K2_WSTAGE = conv3x3::sm90::CHUNK * 2 * K2_N;  // one (O tile, chunk, tap) slice
+constexpr int K2_WBOX = K2_WSTAGE / 2;  // its TMA box: 64 input x 64 output channels
+constexpr int K2_MAX_CHUNKS = 4;               // C <= 256: the halo stays resident
+constexpr int K2_RED_FLOATS = conv3x3::TH * K2_N;  // one statistic of the 8 warps
+static_assert(K2_RED_FLOATS >= 2 * K2_MAX_CHUNKS * 64, "the affine fits the statistics buffer");
+
+struct Sm90Dims {
+  int H, W, C, O, OP, n_chunks, n_otiles, relu, mode, stages;  // OP = n_otiles * K2_N
+};
+
+// Shared memory of one block: the resident halo chunks, the weight ring, the
+// statistics' cross-warp buffer and the barriers (ops/kernels/sm90_plan.py
+// mirrors this).
+constexpr int k2_smem_bytes(int n_chunks, int stages) {
+  return conv3x3::sm90::ALIGN_SLACK + n_chunks * HALO_SLOT + stages * K2_WSTAGE +
+         K2_RED_FLOATS * 4 + (2 * K2_MAX_CHUNKS + 2 * stages) * 8;
+}
+
+// The bf16 forward conv on Hopper (see the note at the top).
+__global__ void __launch_bounds__(K2_THREADS, 1)
+conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                    __nv_bfloat16* __restrict__ y, const float* __restrict__ pa,
+                    const float* __restrict__ pb, float* __restrict__ partial,
+                    const Sm90Dims d) {
+  using namespace conv3x3;
+  using namespace conv3x3::sm90;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);
+  const uint32_t ring = base + d.n_chunks * HALO_SLOT;
+  float* const red = reinterpret_cast<float*>(smem + d.n_chunks * HALO_SLOT + d.stages * K2_WSTAGE);
+  const uint32_t bars = ring + d.stages * K2_WSTAGE + K2_RED_FLOATS * 4;
+  auto halo_full = [&](int ch) { return bars + 8 * ch; };                  // TMA landed
+  auto halo_ready = [&](int ch) { return bars + 8 * (K2_MAX_CHUNKS + ch); };  // prologue done
+  auto w_full = [&](int s) { return bars + 8 * (2 * K2_MAX_CHUNKS + s); };
+  auto w_empty = [&](int s) { return bars + 8 * (2 * K2_MAX_CHUNKS + d.stages + s); };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int w0 = blockIdx.x * TW;
+  const int h0 = blockIdx.y * TH;
+  const int n = blockIdx.z;
+
+  if (threadIdx.x == 0) {
+    for (int ch = 0; ch < d.n_chunks; ++ch) {
+      mbar_init(halo_full(ch), 1);
+      mbar_init(halo_ready(ch), K2_PROLOGUE_THREADS);
+    }
+    for (int s = 0; s < d.stages; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), K2_CONSUMERS / 32);  // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  // The prologue's affine for every channel, until the epilogue (which runs
+  // after the last chunk's prologue) takes the buffer for the statistics.
+  float* const pas = red;
+  float* const pbs = red + K2_MAX_CHUNKS * CHUNK;
+  load_affine(pas, pbs, pa, pb, 0, d.n_chunks * CHUNK, d.C, threadIdx.x, K2_THREADS);
+  __syncthreads();
+
+  const int per_otile = d.n_chunks * 9;
+  const int total = d.n_otiles * per_otile;
+  const bool prologue = pa != nullptr;
+  if (warp >= K2_CONSUMERS / 32) {
+    // Producer warpgroup. One thread issues the loads: halo chunk 0, then the
+    // weight slices in the consumers' order (O tile, chunk, tap), each halo
+    // chunk one chunk ahead of use. With the prologue, the other three warps
+    // apply it to each halo chunk once it has landed, while the consumers
+    // compute on the chunks before it.
+    setmaxnreg_dec<K2_PRODUCER_REGS>();
+    if (warp > K2_CONSUMERS / 32 && prologue) {
+      const int tid = threadIdx.x - K2_CONSUMERS - 32;
+      for (int ch = 0; ch < d.n_chunks; ++ch) {
+        mbar_wait(halo_full(ch), 0);
+        prologue_box(reinterpret_cast<__nv_bfloat16*>(smem + ch * HALO_SLOT), HALO_PIX, HALO_W,
+                     h0 - 1, w0 - 1, d.H, d.W, pas + ch * CHUNK, pbs + ch * CHUNK, tid,
+                     K2_PROLOGUE_THREADS);
+        fence_proxy_async();
+        mbar_arrive(halo_ready(ch));
+      }
+    }
+    if (warp == K2_CONSUMERS / 32 && lane == 0) {
+      mbar_expect_tx(halo_full(0), HALO_BYTES);
+      tma_load_4d(base, &xmap, halo_full(0), 0, w0 - 1, h0 - 1, n);
+      for (int it = 0; it < total; ++it) {
+        const int ot = it / per_otile;
+        const int ch = (it % per_otile) / 9;
+        const int tap = it % 9;
+        if (ot == 0 && tap == 0 && ch + 1 < d.n_chunks) {
+          mbar_expect_tx(halo_full(ch + 1), HALO_BYTES);
+          tma_load_4d(base + (ch + 1) * HALO_SLOT, &xmap, halo_full(ch + 1), (ch + 1) * CHUNK,
+                      w0 - 1, h0 - 1, n);
+        }
+        const int s = it % d.stages;
+        mbar_wait(w_empty(s), ((it / d.stages) & 1) ^ 1);
+        mbar_expect_tx(w_full(s), K2_WSTAGE);
+        // w[tap][c][o]: 64 rows (c) of 64 outputs per box, two boxes a slice
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          tma_load_3d(ring + s * K2_WSTAGE + half * K2_WBOX, &wmap, w_full(s),
+                      ot * K2_N + half * (K2_N / 2), ch * CHUNK, tap);
+      }
+    }
+  } else {
+    setmaxnreg_inc<K2_CONSUMER_REGS>();
+    const int wrow = warp;  // output row h0 + wrow; warpgroup warp / 4
+    const int oh = h0 + wrow;
+    const int g = lane >> 2;
+    const int q = lane & 3;
+    float acc[2][64];
+    int it = 0;
+    for (int ot = 0; ot < d.n_otiles; ++ot) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[mt][i] = 0.0f;
+      for (int ch = 0; ch < d.n_chunks; ++ch) {
+        const uint32_t halo = base + ch * HALO_SLOT;
+        if (ot == 0) mbar_wait(prologue ? halo_ready(ch) : halo_full(ch), 0);
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap, ++it) {
+          const int dh = tap / 3;
+          const int dw = tap % 3;
+          const int s = it % d.stages;
+          // A: the 16 pixels of this warp's row in each 16-column half,
+          // shifted by the tap, 64 channels as four k16 steps.
+          uint32_t a[2][4][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int p = (wrow + dh) * HALO_W + mt * 16 + dw + (lane & 15);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[mt][kk], swizzled(halo, p, kk * 2 + (lane >> 4)));
+          }
+          mbar_wait(w_full(s), (it / d.stages) & 1);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            // B: 16 rows (c) of the slice's two 64-output boxes
+            const uint64_t desc = desc_sw128(ring + s * K2_WSTAGE + kk * 16 * BOX_ROW, K2_WBOX,
+                                             1024);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) wgmma_m64n128k16_rs_tb(acc[mt], a[mt][kk], desc);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            fence_regs(acc[mt]);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) fence_regs(a[mt][kk]);
+          }
+          if (lane == 0) mbar_arrive(w_empty(s));
+        }
+      }
+
+      // Epilogue of O tile ot. Accumulator element i of m-tile mt is pixel
+      // column w0 + mt*16 + g + 8*((i%4)/2) of row oh, output channel
+      // o0 + 8*(i/4) + 2q + i%2 (the m16n8 layout of each 8-column block).
+      const int o0 = ot * K2_N;
+      const bool pairs = (d.O & 1) == 0;
+      __nv_bfloat16* const yn = y + static_cast<size_t>(n) * d.H * d.W * d.O;
+      if (oh < d.H) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int ow = w0 + mt * 16 + g + half * 8;
+            if (ow >= d.W) continue;
+            __nv_bfloat16* yp = yn + static_cast<size_t>(oh * d.W + ow) * d.O;
+#pragma unroll
+            for (int nb = 0; nb < K2_N / 8; ++nb) {
+              const int o = o0 + nb * 8 + 2 * q;
+              if (o >= d.O) continue;
+              float v0 = acc[mt][nb * 4 + half * 2] + bias[o];
+              if (d.relu) v0 = fmaxf(v0, 0.0f);
+              if (pairs) {
+                float v1 = acc[mt][nb * 4 + half * 2 + 1] + bias[o + 1];
+                if (d.relu) v1 = fmaxf(v1, 0.0f);
+                store_pair(yp + o, v0, v1);
+              } else {
+                yp[o] = __float2bfloat16_rn(v0);
+                if (o + 1 < d.O) {
+                  float v1 = acc[mt][nb * 4 + half * 2 + 1] + bias[o + 1];
+                  if (d.relu) v1 = fmaxf(v1, 0.0f);
+                  yp[o + 1] = __float2bfloat16_rn(v1);
+                }
+              }
+            }
+          }
+        }
+      }
+      if (d.mode == MODE_STATS) {
+        // sum(v) then sum(v*v), v = acc + bias unrounded: each thread's four
+        // pixels, the eight lanes of a channel pair by shuffles, the eight
+        // warps in order; one partial row (2, OP) per block.
+        const size_t block_lin =
+            (static_cast<size_t>(n) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+#pragma unroll 1
+        for (int st = 0; st < 2; ++st) {
+#pragma unroll
+          for (int nb = 0; nb < K2_N / 8; ++nb) {
+            const int o = o0 + nb * 8 + 2 * q;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float s = 0.0f;
+              if (o + e < d.O && oh < d.H) {
+                const float bo = bias[o + e];
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+                  for (int half = 0; half < 2; ++half) {
+                    if (w0 + mt * 16 + g + half * 8 >= d.W) continue;
+                    const float v = acc[mt][nb * 4 + half * 2 + e] + bo;
+                    s += st == 0 ? v : v * v;
+                  }
+                }
+              }
+              s += __shfl_xor_sync(0xffffffffu, s, 4);
+              s += __shfl_xor_sync(0xffffffffu, s, 8);
+              s += __shfl_xor_sync(0xffffffffu, s, 16);
+              if (lane < 4) red[wrow * K2_N + nb * 8 + lane * 2 + e] = s;
+            }
+          }
+          consumer_sync<K2_CONSUMERS>();
+          if (threadIdx.x < K2_N) {
+            float total_s = 0.0f;
+#pragma unroll
+            for (int wq = 0; wq < TH; ++wq) total_s += red[wq * K2_N + threadIdx.x];
+            partial[(block_lin * 2 + st) * d.OP + o0 + threadIdx.x] = total_s;
+          }
+          consumer_sync<K2_CONSUMERS>();
+        }
+      }
+    }
+  }
+}
+
+int bias_act_sm90(const void* x, const void* w, const void* b, void* y, const void* pa,
+                  const void* pb, void* partial, void* sums, int N, int H, int W, int C, int O,
+                  int relu, int mode, int stages, int partial_rows, void* stream) {
+  using namespace conv3x3;
+  const int n_chunks = (C + sm90::CHUNK - 1) / sm90::CHUNK;
+  const int n_otiles = (O + K2_N - 1) / K2_N;
+  const int OP = n_otiles * K2_N;
+  if (N < 1 || H < 1 || W < 1 || C < 1 || C % 8 != 0 || n_chunks > K2_MAX_CHUNKS || O < 1 ||
+      O % 8 != 0 || (mode != MODE_PLAIN && mode != MODE_STATS) ||
+      (pa == nullptr) != (pb == nullptr) ||
+      (mode == MODE_STATS && relu) || stages < 2 ||
+      k2_smem_bytes(n_chunks, stages) > sm90::SMEM_LIMIT || !frame_ok(unframed(H, W, C), H, W, C))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
+  const long long rows = static_cast<long long>(grid.x) * grid.y * grid.z;
+  if (grid.y > 65535 || grid.z > 65535 ||
+      (mode == MODE_STATS && (partial_rows != rows || partial == nullptr || sums == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  // w (3, 3, C, O) as dims (O, C, 9): the output channels contiguous, zero
+  // past O and C
+  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(O), static_cast<cuuint64_t>(C), 9};
+  const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(O) * 2,
+                                  static_cast<cuuint64_t>(O) * C * 2};
+  const cuuint32_t wbox[3] = {K2_N / 2, static_cast<cuuint32_t>(sm90::CHUNK), 1};
+  if (!sm90::nhwc_map(&xmap, x, unframed(H, W, C), N, H, W, C, HALO_W, TH + 2) ||
+      !sm90::encode_bf16(&wmap, w, 3, wdims, wstrides, wbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sm90Dims d{H, W, C, O, OP, n_chunks, n_otiles, relu, mode, stages};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* part = static_cast<float*>(partial);
+  const int smem = k2_smem_bytes(n_chunks, stages);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_sm90_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv3x3_sm90_kernel<<<grid, K2_THREADS, smem, s>>>(
+      xmap, wmap, static_cast<const float*>(b), static_cast<__nv_bfloat16*>(y),
+      static_cast<const float*>(pa), static_cast<const float*>(pb), part, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || mode == MODE_PLAIN) return static_cast<int>(err);
+  return static_cast<int>(reduce_rows(part, static_cast<float*>(sums), static_cast<int>(rows),
+                                      2 * OP, s));
+}
 
 template <typename T>
 int bias_act_impl(const void* x, const void* wp, const void* b, void* y, const void* pa,
@@ -82,4 +420,18 @@ extern "C" int conv3x3_bias_act_f32(const void* x, const void* wp, const void* b
                                     void* stream) {
   return bias_act_impl<float>(x, wp, b, y, pa, pb, partial, sums, N, H, W, C, Cp, O, OP, NP,
                               relu, mode, partial_rows, stream);
+}
+
+// The Hopper kernel (bf16): x (N, H, W, C) with C % 8 == 0 and C <= 256; w:
+// (3, 3, C, O) bf16 HWIO weights, read in place, with O % 8 == 0; b, y, pa,
+// pb as above; partial: (partial_rows, 2, OP) and sums: (2, OP) with OP = O
+// rounded up to 128, partial_rows = N * ceil(H/8) * ceil(W/32); stages:
+// weight ring depth.
+extern "C" int conv3x3_bias_act_sm90_bf16(const void* x, const void* w, const void* b, void* y,
+                                          const void* pa, const void* pb, void* partial,
+                                          void* sums, int N, int H, int W, int C, int O,
+                                          int relu, int mode, int stages, int partial_rows,
+                                          void* stream) {
+  return bias_act_sm90(x, w, b, y, pa, pb, partial, sums, N, H, W, C, O, relu, mode, stages,
+                       partial_rows, stream);
 }

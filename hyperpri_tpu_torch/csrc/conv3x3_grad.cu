@@ -32,26 +32,64 @@
 // Design. For each tap this is a GEMM with M = C, N = O and the pixels as the
 // reduction axis K, which here is the long one. The TPU kernel keeps all of dW
 // resident while a sequential grid walks the image; blocks on a GPU run in no
-// order, so the reduction is split:
-//   - blockIdx = (pixel split, C tile of 64, O tile of 64). A block walks the
-//     8x32 pixel tiles of its split; for each it stages the (8+2)x(32+2)x64
-//     halo of z and the 8x32x64 tile of g in shared memory (zero outside the
-//     image and past C or O, so the loops have no masks);
+// order, so the reduction is split: blockIdx = (pixel split, C tile of 64, O
+// tile of 64), a block walks the 8x32 pixel tiles of its split and writes its
+// (9, 64, 64) partial to partial[split], and reduce_rows_kernel adds the
+// splits in a fixed order: no float atomics, two runs give the same bits.
+// Two kernel bodies; the wrapper picks one by dtype, mode and layout before
+// the launch (ops/kernels/sm90_plan.py), never on a failure.
+//
+// conv3x3_wgrad_sm90_kernel (bf16 without the fold mode, every view with a
+// channel pitch that is a multiple of 8: every bf16 call of a training step,
+// the ingest buffer's 256-channel pitch included). On the Hopper pieces of
+// conv3x3_sm90.cuh:
+//   - TMA loads of whole pixel tiles stay in flight: the (8+2)x(32+2) halo of
+//     x and the 8x32 tile of g, 64 channels each, into a ring of 3 stages (75
+//     KiB each), completed on mbarriers; the tensor maps cover the logical
+//     regions of the framed views, so TMA's zero fill gives the SAME border
+//     and frames (which may hold NaN) are never read. Thread 0 issues them,
+//     each stage's refill as soon as every warp has released the stage;
+//   - three warpgroups, one per tap row dh, each holding the accumulators of
+//     its three taps for the block's 64 x 64 channels: 3 x 32 floats a
+//     thread, 96 in all, where the synchronous kernel's warps held 144 and
+//     one block of 8 warps filled an SM. No producer warpgroup: with 512
+//     threads ptxas starts a thread at 128 registers and, even with
+//     setmaxnreg handing the consumers 152, serialized the MMAs (C7512) and
+//     spilled; with 384 it allocates 150, spills nothing and pipelines them;
+//   - the products are wgmma m64n64k16: A = z^T, the tap-shifted halo pixels
+//     of 16 output pixels, from registers by ldmatrix.trans of the swizzled
+//     halo; B = the g tile from shared memory (N-major, 128-byte swizzle),
+//     one descriptor for the nine taps;
+//   - the prologue z = relu(pa*x + pb) is applied to each landed halo in
+//     place (in-image pixels and channels below C only, by affine_relu) by
+//     all 384 threads, from a shared-memory copy of the C tile's pa, pb;
+//   - one block per SM (3 x 75 KiB of shared memory). A block's float32
+//     accumulators chain the K steps of all its pixel tiles, and on
+//     one-signed terms (a training step's cotangents) dW's rounding grows
+//     with that chain, so the wrapper gives no split more than 19 pixel
+//     tiles (sm90_plan.K3_MAX_CHAIN, which bounds the synchronous kernel's
+//     splits too), then as many splits as fill the waves of blocks those
+//     need (PERF.md §6).
+//   Staged bytes per FLOP: (340 + 256) pixels of 128 bytes per
+//   2*256*64*64*9 FLOP = 4.04e-3, as in the synchronous kernel; what changed
+//   is that the staging of the next tiles overlaps the products.
+//
+// conv3x3_wgrad_kernel<T, FOLD> (float32, the fold mode, and bf16 views whose
+// pitch TMA cannot take, e.g. C = 238 unframed): synchronous staging.
+//   - for each pixel tile the block stages the (8+2)x(32+2)x64 halo of z and
+//     the 8x32x64 tile of g in shared memory (zero outside the image and past
+//     C or O, so the loops have no masks);
 //   - each of the 8 warps owns 16 input channels by 32 output channels for all
 //     nine taps (144 f32 accumulators a thread). Both operands are stored
 //     pixel-major. In bf16, ldmatrix.trans builds the m16n8k16 fragments: A =
 //     z^T from the tap-shifted halo rows, B = g, shared by the nine taps. In
 //     float32 (3xTF32 on m16n8k8) there is no transposing ldmatrix for 32-bit
 //     elements: each thread loads its fragment words itself, from rows padded
-//     to 72 floats, so the 32 lanes' words fall in 32 distinct banks;
-//   - the block writes its (9, 64, 64) partial to partial[split], and
-//     reduce_rows_kernel adds the splits in a fixed order: no float atomics,
-//     two runs give the same bits.
-// The wrapper picks the number of splits so that the grid is about two blocks
-// per SM. Not yet done: cp.async/TMA staging that overlaps the loads with the
-// products, wgmma, and sharing B fragments across the dw taps.
+//     to 72 floats, so the 32 lanes' words fall in 32 distinct banks.
+//   Not yet done: TMA staging and wgmma for float32 (ROADMAP queue 2b).
 
 #include "conv3x3_common.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
@@ -336,6 +374,184 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+using sm90::HALO_BYTES;
+using sm90::HALO_SLOT;
+using sm90::TILE_BYTES;
+
+constexpr int K3_CONSUMERS = 384;              // three warpgroups: tap row dh each
+constexpr int K3_THREADS = K3_CONSUMERS;       // thread 0 also issues the loads
+constexpr int K3_STAGE = HALO_SLOT + TILE_BYTES;  // one pixel tile: x halo and g tile
+
+// Shared memory of one block: the ring of stages and their barriers
+// (ops/kernels/sm90_plan.py mirrors this).
+constexpr int k3_smem_bytes(int stages) {
+  return sm90::ALIGN_SLACK + stages * K3_STAGE + 2 * sm90::CHUNK * 4 + 2 * stages * 8;
+}
+
+// The bf16 weight gradient on Hopper (see the note at the top). blockIdx =
+// (pixel split, C tile of 64, O tile of 64); warpgroup dh holds the
+// accumulators of taps (dh, 0..2): 3 x 32 floats a thread.
+__global__ void __launch_bounds__(K3_THREADS, 1)
+conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap gmap,
+                          const float* __restrict__ pa, const float* __restrict__ pb,
+                          float* __restrict__ partial, int N, int H, int W, int C, int O,
+                          int tiles_h, int tiles_w, int tiles_per_split, int stages) {
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);
+  float* const pas = reinterpret_cast<float*>(smem + stages * K3_STAGE);  // the C tile's affine
+  float* const pbs = pas + CHUNK;
+  const uint32_t bars = base + stages * K3_STAGE + 2 * CHUNK * 4;
+  auto full = [&](int s) { return bars + 8 * s; };  // TMA landed
+  auto empty = [&](int s) { return bars + 8 * (stages + s); };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c0 = blockIdx.y * CHUNK;
+  const int o0 = blockIdx.z * CHUNK;
+  const int n_tiles = N * tiles_h * tiles_w;
+  const int t_begin = blockIdx.x * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), K3_CONSUMERS / 32);  // every warp
+    }
+    fence_barrier_init();
+  }
+  load_affine(pas, pbs, pa, pb, c0, CHUNK, C, threadIdx.x, K3_THREADS);
+  __syncthreads();
+
+  // Thread 0 issues the loads of pixel tile i into stage i % stages: the
+  // (8+2)x(32+2) halo of x at (h0-1, w0-1) and the 8x32 tile of g, zero
+  // outside the logical images.
+  auto issue = [&](int i) {
+    const int t = t_begin + i;
+    const int s = i % stages;
+    const int tx = t % tiles_w;
+    const int ty = (t / tiles_w) % tiles_h;
+    const int n = t / (tiles_w * tiles_h);
+    mbar_expect_tx(full(s), HALO_BYTES + TILE_BYTES);
+    const uint32_t stage = base + s * K3_STAGE;
+    tma_load_4d(stage, &xmap, full(s), c0, tx * TW - 1, ty * TH - 1, n);
+    tma_load_4d(stage + HALO_SLOT, &gmap, full(s), o0, tx * TW, ty * TH, n);
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < stages && t_begin + i < t_end; ++i) issue(i);
+
+  {
+    const int dh = warp >> 2;  // tap row of this warpgroup
+    const int wq = warp & 3;   // 16-channel row block of the warpgroup's 64 channels
+    float acc[3][32];
+#pragma unroll
+    for (int dw = 0; dw < 3; ++dw)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[dw][i] = 0.0f;
+    uint32_t a[3][4];  // A operands of one K step (16 pixels), one per tap dw
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int i = t - t_begin;
+      const int s = i % stages;
+      // Refill the previous tile's stage with tile i - 1 + stages once every
+      // warp has released it.
+      if (threadIdx.x == 0 && i >= 1 && i - 1 + stages < t_end - t_begin) {
+        mbar_wait(empty((i - 1) % stages), ((i - 1) / stages) & 1);
+        issue(i - 1 + stages);
+      }
+      const uint32_t halo = base + s * K3_STAGE;
+      const uint32_t gt = halo + HALO_SLOT;
+      mbar_wait(full(s), (i / stages) & 1);
+      if (pa != nullptr) {
+        const int tx = t % tiles_w;
+        const int ty = (t / tiles_w) % tiles_h;
+        prologue_box(reinterpret_cast<__nv_bfloat16*>(smem + s * K3_STAGE), HALO_PIX, HALO_W,
+                     ty * TH - 1, tx * TW - 1, H, W, pas, pbs, threadIdx.x, K3_CONSUMERS);
+        fence_proxy_async();
+        consumer_sync<K3_CONSUMERS>();
+      }
+#pragma unroll 1
+      for (int row = 0; row < TH; ++row) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+          for (int dw = 0; dw < 3; ++dw) {
+            const int p = (row + dh) * HALO_W + kk * 16 + dw + (lane & 7) + ((lane >> 4) << 3);
+            ldsm_x4_trans(a[dw], swizzled(halo, p, 2 * wq + ((lane >> 3) & 1)));
+          }
+          wgmma_fence();
+          const uint64_t desc = desc_sw128(gt + (row * TW + kk * 16) * BOX_ROW, 16, 1024);
+#pragma unroll
+          for (int dw = 0; dw < 3; ++dw) wgmma_m64n64k16_rs_tb(acc[dw], a[dw], desc);
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int dw = 0; dw < 3; ++dw) {
+            fence_regs(acc[dw]);
+            fence_regs(a[dw]);
+          }
+        }
+      }
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // Accumulator element i of tap (dh, dw) is input channel c0 + 16*wq +
+    // lane/4 + 8*((i%4)/2), output channel o0 + 8*(i/4) + 2*(lane%4) + i%2.
+    float* out = partial + static_cast<size_t>(blockIdx.x) * 9 * C * O;
+#pragma unroll
+    for (int dw = 0; dw < 3; ++dw) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = c0 + 16 * wq + (lane >> 2) + 8 * ((i & 3) >> 1);
+        const int o = o0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (c < C && o < O) out[(static_cast<size_t>(3 * dh + dw) * C + c) * O + o] = acc[dw][i];
+      }
+    }
+  }
+}
+
+int wgrad_sm90(const void* x, const void* g, const void* pa, const void* pb, void* partial,
+               void* out, const int* frames, int N, int H, int W, int C, int O, int splits,
+               int stages, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 || frames == nullptr ||
+      (pa == nullptr) != (pb == nullptr) || stages < 2 ||
+      k3_smem_bytes(stages) > sm90::SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
+  const Frame fg{frames[5], frames[6], frames[7], frames[8], frames[9]};
+  if (!frame_ok(fx, H, W, C) || !frame_ok(fg, H, W, O))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_w = (W + TW - 1) / TW;
+  const long long n_tiles = static_cast<long long>(N) * tiles_h * tiles_w;
+  const int c_tiles = (C + sm90::CHUNK - 1) / sm90::CHUNK;
+  const int o_tiles = (O + sm90::CHUNK - 1) / sm90::CHUNK;
+  const long long cols = static_cast<long long>(9) * C * O;
+  if (n_tiles > 0x7fffffffLL || c_tiles > 65535 || o_tiles > 65535 || cols > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, gmap;
+  if (!sm90::nhwc_map(&xmap, x, fx, N, H, W, C, HALO_W, TH + 2) ||
+      !sm90::nhwc_map(&gmap, g, fg, N, H, W, O, TW, TH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_per_split = static_cast<int>((n_tiles + splits - 1) / splits);
+  const int smem = k3_smem_bytes(stages);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgrad_sm90_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  conv3x3_wgrad_sm90_kernel<<<dim3(splits, c_tiles, o_tiles), K3_THREADS, smem, s>>>(
+      xmap, gmap, static_cast<const float*>(pa), static_cast<const float*>(pb),
+      static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w, tiles_per_split, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_rows(static_cast<const float*>(partial),
+                                      static_cast<float*>(out), splits, static_cast<int>(cols),
+                                      s));
+}
+
 template <typename T>
 int wgrad_impl(const void* x, const void* g, const void* pa, const void* pb, const Fold<T>& fold,
                void* partial, void* out, const int* frames, int N, int H, int W, int C, int O,
@@ -414,4 +630,15 @@ extern "C" int conv3x3_wgrad_f32(const void* x, const void* g, const void* y,
                          static_cast<const float*>(gsumsq)};
   return wgrad_impl<float>(x, g, pa, pb, fold, partial, out, frames, N, H, W, C, O, splits,
                            x_lanes_zero, stream);
+}
+
+// The Hopper kernel (bf16, no fold mode): x, g, pa, pb, frames, out as above,
+// every view with a channel pitch that is a multiple of 8 and a 16-byte
+// aligned logical origin (TMA's stride and address rules); partial: (splits,
+// 9*C*O) f32; stages: depth of the ring of pixel tiles (2 or 3).
+extern "C" int conv3x3_wgrad_sm90_bf16(const void* x, const void* g, const void* pa,
+                                       const void* pb, void* partial, void* out,
+                                       const int* frames, int N, int H, int W, int C, int O,
+                                       int splits, int stages, void* stream) {
+  return wgrad_sm90(x, g, pa, pb, partial, out, frames, N, H, W, C, O, splits, stages, stream);
 }

@@ -16,8 +16,16 @@ It is the route of forward convs wider than 64 outputs and of adjoint convs
 wider than conv3x3_packed takes. The source note in the .cu file gives the
 kernel's bound and design.
 
+On the card the call takes one of two kernel bodies, chosen before the launch
+by sm90_plan.bias_act_plan from its dtype and layout: "sm90", the Hopper
+kernel (TMA staging, wgmma; bf16 with C and O multiples of 8 and C <= 256,
+every bf16 call of a training step; it reads w in place), or "legacy", the
+synchronous mma.sync kernel on packed weights (float32, other bf16 layouts).
+The private keyword `_legacy=True` takes the synchronous body whatever the
+layout, to hold the two bodies against each other.
+
 `conv3x3_bias_act` runs the plain version, `conv3x3_bias_act_reference`, only
-for tensors on the CPU. For CUDA tensors it launches the kernel or raises.
+for tensors on the CPU. For CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,9 +35,7 @@ from typing import Optional
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _plain
-
-_TH, _TW = 8, 32  # the kernel's pixel tile: one row of partial sums per tile
+from hyperpri_tpu_torch.ops.kernels import _plain, sm90_plan
 
 
 def conv3x3_bias_act_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -48,14 +54,20 @@ def _lib(suffix: str):
                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
+def _lib_sm90():
+    return _plain.bind("conv3x3", "conv3x3_bias_act_sm90_bf16",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
 def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      pa: Optional[torch.Tensor] = None, pb: Optional[torch.Tensor] = None,
-                     *, relu: bool = True, with_stats: bool = False):
+                     *, relu: bool = True, with_stats: bool = False, _legacy: bool = False):
     """y or (y, (sum, sumsq)); see the module docstring.
 
     `conv3x3_bias_act.calls` counts every call; `conv3x3_bias_act.launches`
-    counts launches of the CUDA kernel only, and `launches_by_dtype` by the
-    activations' type ("bf16", "f32")."""
+    counts launches of the CUDA kernels only, `launches_by_dtype` by the
+    activations' type ("bf16", "f32") and `launches_by_path` by kernel body
+    ("sm90", "legacy")."""
     _plain.check_conv_args("conv3x3_bias_act", x, w, b, pa, pb)
     if with_stats and relu:
         raise ValueError("with_stats needs relu=False")
@@ -70,26 +82,36 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((n, h, width, o), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         raise ValueError("conv3x3_bias_act: empty input")
-    np_ = 64 if o <= 64 else 128
-    wp = _plain.pack_weights(w, np_, x.dtype)
-    op = wp.shape[1]
+    w_bf16 = w.to(x.dtype).contiguous() if x.dtype == torch.bfloat16 else w
+    aligned = x.data_ptr() % 16 == 0 and w_bf16.data_ptr() % 16 == 0
+    plan = sm90_plan.bias_act_plan(n, h, width, c, o, x.dtype, aligned, sm90=not _legacy)
+    # the Hopper kernel reads w in place; the synchronous one packed weights
+    op = -(-o // plan.tile_o) * plan.tile_o
     bf, paf, pbf = _plain.f32_vector(b), _plain.f32_vector(pa), _plain.f32_vector(pb)
-    rows = n * -(-h // _TH) * -(-width // _TW)
     partial = sums = None
     if with_stats:
-        partial = torch.empty((rows, 2, op), dtype=torch.float32, device=x.device)
+        partial = torch.empty((plan.partial_rows, 2, op), dtype=torch.float32, device=x.device)
         sums = torch.empty((2, op), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib(suffix)(
-            x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
-            _plain.ptr(pbf), _plain.ptr(partial), _plain.ptr(sums),
-            n, h, width, c, wp.shape[2], o, op, np_, int(relu), int(with_stats), rows,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.path == "sm90":
+            err = _lib_sm90()(
+                x.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
+                _plain.ptr(pbf), _plain.ptr(partial), _plain.ptr(sums), n, h, width, c, o,
+                int(relu), int(with_stats), plan.stages, plan.partial_rows, stream)
+        else:
+            wp = _plain.pack_weights(w, plan.tile_o, x.dtype)
+            err = _lib(suffix)(
+                x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
+                _plain.ptr(pbf), _plain.ptr(partial), _plain.ptr(sums), n, h, width, c,
+                wp.shape[2], o, op, plan.tile_o, int(relu), int(with_stats), plan.partial_rows,
+                stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_bias_act kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"conv3x3_bias_act kernel launch failed ({plan.path}): "
+                           f"cudaError_t {err}")
     conv3x3_bias_act.launches += 1
     _plain.count(conv3x3_bias_act.launches_by_dtype, (suffix,))
+    _plain.count(conv3x3_bias_act.launches_by_path, (plan.path,))
     if with_stats:
         return y, (sums[0, :o], sums[1, :o])
     return y
@@ -98,3 +120,4 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 conv3x3_bias_act.calls = 0
 conv3x3_bias_act.launches = 0
 conv3x3_bias_act.launches_by_dtype = {}
+conv3x3_bias_act.launches_by_path = {}

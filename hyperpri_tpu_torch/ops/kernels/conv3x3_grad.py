@@ -35,8 +35,17 @@ db = sum of the rounded g_eff in float32). With `arena_g`, O is gsum's
 length. No model path calls it: conv_train.py materializes g_eff, which the
 adjoint conv reads too.
 
+On the card the call takes one of two kernel bodies, chosen before the launch
+by sm90_plan.wgrad_plan from its dtype, mode and layout: "sm90", the Hopper
+kernel (TMA staging, wgmma; bf16 without the fold mode, views whose channel
+pitch is a multiple of 8: every bf16 call of a training step, the ingest
+buffer included), or "legacy", the synchronous mma.sync kernel (float32, the
+fold mode, other bf16 layouts such as C = 238 unframed). The private keyword
+`_legacy=True` takes the synchronous body whatever the layout: the fold mode
+is held bit for bit against it, and the two bodies against each other.
+
 `conv3x3_wgrad` runs the plain version, `conv3x3_wgrad_reference`, only for
-tensors on the CPU. For CUDA tensors it launches the kernel or raises.
+tensors on the CPU. For CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -46,13 +55,8 @@ from typing import Optional
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _plain, framing
+from hyperpri_tpu_torch.ops.kernels import _plain, framing, sm90_plan
 from hyperpri_tpu_torch.ops.kernels.framing import Frame
-
-_TH, _TW, _CT, _OT = 8, 32, 64, 64  # the kernel's pixel, C and O tiles
-_TARGET_BLOCKS = 2 * 132  # about two blocks per SM of an H100
-_MAX_PARTIAL_BYTES = 1 << 28
-
 
 def _resolve(x, g, pa, arena_in, arena_g, logical_hw, pre_padded_c, fold_o=None):
     """(n, h, w, c, o, frame of x, frame of g, framing names); raises on what
@@ -147,28 +151,26 @@ def _lib(suffix: str):
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
-def _splits(n: int, h: int, width: int, c: int, o: int) -> int:
-    """Blocks along the pixel axis: enough to fill the card with the C and O
-    tiles, no more than there are pixel tiles, and a bounded partial buffer."""
-    tiles = n * -(-h // _TH) * -(-width // _TW)
-    co_blocks = -(-c // _CT) * -(-o // _OT)
-    by_memory = max(1, _MAX_PARTIAL_BYTES // (36 * c * o))
-    return max(1, min(tiles, -(-_TARGET_BLOCKS // co_blocks), by_memory))
+def _lib_sm90():
+    return _plain.bind("conv3x3_grad", "conv3x3_wgrad_sm90_bf16",
+                       [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] = None,
                   pb: Optional[torch.Tensor] = None, *, y: Optional[torch.Tensor] = None,
                   gsum: Optional[torch.Tensor] = None, gsumsq: Optional[torch.Tensor] = None,
                   arena_in: bool = False, arena_g: bool = False, logical_hw=None,
-                  pre_padded_c: Optional[int] = None):
+                  pre_padded_c: Optional[int] = None, _legacy: bool = False):
     """dW (3, 3, C, O) float32, or in fold mode (dW, db (O,) float32); see the
     module docstring.
 
     `conv3x3_wgrad.calls` counts every call; `conv3x3_wgrad.launches` counts
     launches of the CUDA kernel only, `calls_by_framing` /
     `launches_by_framing` count them by framing ("unframed" without one),
-    `launches_by_dtype` by the activations' type ("bf16", "f32") and
-    `launches_by_mode` by mode ("dw", "fold")."""
+    `launches_by_dtype` by the activations' type ("bf16", "f32"),
+    `launches_by_mode` by mode ("dw", "fold") and `launches_by_path` by
+    kernel body ("sm90", "legacy")."""
     if g.dtype != x.dtype:
         raise TypeError(f"x and g must share a dtype, got {x.dtype} and {g.dtype}")
     if (pa is None) != (pb is None):
@@ -191,25 +193,35 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
         raise ValueError("conv3x3_wgrad: g and y must be contiguous NHWC tensors")
     if n * h * width == 0:
         raise ValueError("conv3x3_wgrad: empty input")
-    splits = _splits(n, h, width, c, o)
+    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    plan = sm90_plan.wgrad_plan(n, h, width, c, o, x.dtype, fx.pitch, fg.pitch, fold, aligned,
+                                sm90=not _legacy)
     paf, pbf = _plain.f32_vector(pa), _plain.f32_vector(pb)
     gsf, gssf = _plain.f32_vector(gsum), _plain.f32_vector(gsumsq)
     cols = 9 * c * o + (o if fold else 0)
-    partial = torch.empty((splits, cols), dtype=torch.float32, device=x.device)
+    partial = torch.empty((plan.splits, cols), dtype=torch.float32, device=x.device)
     out = torch.empty((cols,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib(suffix)(
-            x.data_ptr(), g.data_ptr(), _plain.ptr(y), _plain.ptr(gsf), _plain.ptr(gssf),
-            _plain.ptr(paf), _plain.ptr(pbf), partial.data_ptr(), out.data_ptr(),
-            framing.frames_arg(fx, fg), n, h, width, c, o, splits,
-            int(pre_padded_c is not None), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.path == "sm90":
+            err = _lib_sm90()(
+                x.data_ptr(), g.data_ptr(), _plain.ptr(paf), _plain.ptr(pbf), partial.data_ptr(),
+                out.data_ptr(), framing.frames_arg(fx, fg), n, h, width, c, o, plan.splits,
+                plan.stages, stream)
+        else:
+            err = _lib(suffix)(
+                x.data_ptr(), g.data_ptr(), _plain.ptr(y), _plain.ptr(gsf), _plain.ptr(gssf),
+                _plain.ptr(paf), _plain.ptr(pbf), partial.data_ptr(), out.data_ptr(),
+                framing.frames_arg(fx, fg), n, h, width, c, o, plan.splits,
+                int(pre_padded_c is not None), stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"conv3x3_wgrad kernel launch failed ({plan.path}): "
+                           f"cudaError_t {err}")
     conv3x3_wgrad.launches += 1
     _plain.count(conv3x3_wgrad.launches_by_framing, names)
     _plain.count(conv3x3_wgrad.launches_by_dtype, (suffix,))
     _plain.count(conv3x3_wgrad.launches_by_mode, ("fold" if fold else "dw",))
+    _plain.count(conv3x3_wgrad.launches_by_path, (plan.path,))
     dw = out[:9 * c * o].view(3, 3, c, o)
     return (dw, out[9 * c * o:]) if fold else dw
 
@@ -220,3 +232,4 @@ conv3x3_wgrad.calls_by_framing = {}
 conv3x3_wgrad.launches_by_framing = {}
 conv3x3_wgrad.launches_by_dtype = {}
 conv3x3_wgrad.launches_by_mode = {}
+conv3x3_wgrad.launches_by_path = {}

@@ -1,0 +1,156 @@
+"""How a conv3x3_bias_act or conv3x3_wgrad call runs on the card: which kernel
+body, with which tiling, ring depth and pixel splits.
+
+Each plan is a pure function of the call's shape, dtype, mode and layout
+(frames, strides, alignment), so that the CPU tests can hold it without a
+card, and the wrappers choose before the launch, never on a failure.
+
+  - "sm90": the Hopper kernels (csrc/conv3x3_sm90.cuh; conv3x3_sm90_kernel in
+    csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel in csrc/conv3x3_grad.cu): TMA
+    staging into an mbarrier ring and wgmma products. They take bf16 views
+    that TMA can address: every stride a multiple of 16 bytes (a channel
+    pitch that is a multiple of 8) and a 16-byte aligned logical origin.
+  - "legacy": the synchronous mma.sync kernels (conv3x3_common.cuh), for
+    float32, the weight gradient's fold mode, and bf16 layouts TMA cannot
+    take (e.g. C = 238 unframed: 476-byte pixels).
+
+The shared-memory sums mirror the kernels' (k2_smem_bytes in conv3x3.cu,
+k3_smem_bytes in conv3x3_grad.cu); each plan's must fit an H100 block.
+`sm90=False` sends a call to the synchronous kernels whatever its layout:
+the wrappers pass it for their private `_legacy` keyword, with which the
+fold mode (which has no Hopper body) is compared bit for bit with the
+synchronous body, and the two bodies with each other.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+SMEM_LIMIT = 232_448   # dynamic shared memory one H100 block may use
+SMS = 132              # streaming multiprocessors of an H100 SXM
+ALIGN_SLACK = 1024     # the kernels round their shared base up to 1 KiB
+TH, TW = 8, 32         # output pixel tile of every conv kernel here
+CHUNK = 64             # channels of one staged TMA box row (128 bytes of bf16)
+BOX_ROW = 2 * CHUNK
+HALO_BYTES = (TH + 2) * (TW + 2) * BOX_ROW
+HALO_SLOT = -(-HALO_BYTES // 1024) * 1024
+TILE_BYTES = TH * TW * BOX_ROW
+
+# conv3x3_sm90_kernel: O tiles of 128 walked inside the block, the whole halo
+# resident (at most 4 chunks: C <= 256), weight slices of 16 KiB in a ring of
+# 2-4 stages.
+K2_N = 128
+K2_WSTAGE = K2_N * BOX_ROW
+K2_MAX_CHUNKS = 4
+K2_MAX_STAGES = 4
+K2_RED_BYTES = TH * K2_N * 4
+# conv3x3_wgrad_sm90_kernel: a ring of whole pixel tiles (x halo + g tile).
+# In both weight-gradient kernels a split's float32 accumulators chain the K
+# steps of its pixel tiles, and on one-signed terms (a step's cotangents)
+# dW's rounding grows about linearly with that chain: no split takes more
+# than K3_MAX_CHAIN tiles (256 pixels each), where the float64 check keeps a
+# margin of 1.5 (PERF.md §6; 37 tiles missed it).
+K3_STAGE = HALO_SLOT + TILE_BYTES
+K3_MAX_STAGES = 3
+K3_MAX_CHAIN = 19
+# the synchronous kernels
+LEGACY_ROW_BYTES = 80
+LEGACY_HALO_PIX = (TH + 2) * (TW + 2)
+LEGACY_WGRAD_ROW = 72          # elements a staged row: 64 channels + 8
+LEGACY_TARGET_BLOCKS = 2 * SMS
+MAX_PARTIAL_BYTES = 1 << 28
+
+
+class BiasActPlan(NamedTuple):
+    path: str                     # "sm90" or "legacy"
+    tile_o: int                   # output channels of one pass (NP)
+    stages: int                   # weight ring depth (sm90), 0 for legacy
+    grid: Tuple[int, int, int]
+    partial_rows: int             # rows of the statistics' partial buffer
+    smem: int                     # dynamic shared memory of a block
+
+
+class WgradPlan(NamedTuple):
+    path: str                     # "sm90" or "legacy"
+    splits: int                   # blocks along the pixel axis
+    tiles: int                    # 8x32 pixel tiles of the call
+    tiles_per_split: int
+    stages: int                   # ring depth (sm90), 0 for legacy
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k2_smem_bytes(n_chunks: int, stages: int) -> int:
+    return (ALIGN_SLACK + n_chunks * HALO_SLOT + stages * K2_WSTAGE + K2_RED_BYTES
+            + (2 * K2_MAX_CHUNKS + 2 * stages) * 8)
+
+
+def k3_smem_bytes(stages: int) -> int:
+    return ALIGN_SLACK + stages * K3_STAGE + 2 * CHUNK * 4 + 2 * stages * 8
+
+
+def tma_view_ok(pitch: int, aligned: bool) -> bool:
+    """A bf16 NHWC view TMA can address: pixel stride (pitch * 2 bytes) a
+    multiple of 16, so every row and image stride and, with the buffer's base
+    16-byte aligned (`aligned`), the logical origin are too."""
+    return pitch % 8 == 0 and aligned
+
+
+def bias_act_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,
+                  aligned: bool = True, sm90: bool = True) -> BiasActPlan:
+    """The plan of conv3x3_bias_act on an unframed (n, h, w, c) x with o
+    outputs; `aligned`: the data pointers of x and of the (3, 3, c, o)
+    weights, which the Hopper kernel reads in place, are 16-byte aligned."""
+    tiles_h, tiles_w = _cdiv(h, TH), _cdiv(w, TW)
+    n_chunks = _cdiv(c, CHUNK)
+    if (sm90 and dtype == torch.bfloat16 and n_chunks <= K2_MAX_CHUNKS
+            and tma_view_ok(c, aligned) and tma_view_ok(o, aligned)):
+        stages = max(s for s in range(2, K2_MAX_STAGES + 1)
+                     if s == 2 or k2_smem_bytes(n_chunks, s) <= SMEM_LIMIT)
+        return BiasActPlan("sm90", K2_N, stages, (tiles_w, tiles_h, n),
+                           n * tiles_h * tiles_w, k2_smem_bytes(n_chunks, stages))
+    tile_o = 64 if o <= 64 else 128
+    return BiasActPlan("legacy", tile_o, 0, (tiles_w, tiles_h, n * _cdiv(o, tile_o)),
+                       n * tiles_h * tiles_w,
+                       (LEGACY_HALO_PIX + 9 * tile_o) * LEGACY_ROW_BYTES)
+
+
+def wgrad_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pitch: int,
+               g_pitch: int, fold: bool = False, aligned: bool = True,
+               sm90: bool = True) -> WgradPlan:
+    """The plan of conv3x3_wgrad for logical (n, h, w) images of c input and o
+    output channels, x and g in views of channel pitch x_pitch and g_pitch
+    (their frames'); `aligned`: both buffers' data pointers are 16-byte
+    aligned. The splits: at least enough that none chains more than
+    K3_MAX_CHAIN pixel tiles; beyond that the synchronous kernel aims at two
+    blocks per SM, and the sm90 kernel, one block per SM (its ring fills the
+    shared memory), fills the waves of blocks over the (C tile, O tile)
+    pairs that the least count needs; both no more than there are pixel
+    tiles and within a bounded partial buffer (for sm90 every split has
+    tiles)."""
+    tiles = n * _cdiv(h, TH) * _cdiv(w, TW)
+    co_blocks = _cdiv(c, CHUNK) * _cdiv(o, CHUNK)
+    by_memory = max(1, MAX_PARTIAL_BYTES // (36 * c * o))
+    least = _cdiv(tiles, K3_MAX_CHAIN)
+    sm90 = (sm90 and dtype == torch.bfloat16 and not fold and tma_view_ok(x_pitch, aligned)
+            and tma_view_ok(g_pitch, aligned))
+    if sm90:
+        stages = max(s for s in range(2, K3_MAX_STAGES + 1)
+                     if s == 2 or k3_smem_bytes(s) <= SMEM_LIMIT)
+        waves = _cdiv(least * co_blocks, SMS)
+        target, smem = waves * SMS // co_blocks, k3_smem_bytes(stages)
+    else:
+        stages, target = 0, max(least, _cdiv(LEGACY_TARGET_BLOCKS, co_blocks))
+        esize = torch.empty((), dtype=dtype).element_size()
+        smem = ((LEGACY_HALO_PIX + TH * TW) * LEGACY_WGRAD_ROW * esize
+                + ((2 * CHUNK + 256 * (16 // esize)) * 4 if fold else 0))
+    splits = max(1, min(tiles, target, by_memory))
+    per_split = _cdiv(tiles, splits)
+    if sm90:
+        splits = _cdiv(tiles, per_split)   # no split without a tile
+    return WgradPlan("sm90" if sm90 else "legacy", splits, tiles, per_split, stages, smem)

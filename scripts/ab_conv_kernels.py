@@ -1,4 +1,4 @@
-"""Time the port's conv kernels at CubeNET-64's training-step shapes for one
+"""Time the port's 3x3 conv kernels at the bf16 training step's calls for one
 source tree, to compare two commits of hyperpri_tpu_torch on the same card
 within one job:
 
@@ -9,11 +9,15 @@ within one job:
     python3 scripts/ab_conv_kernels.py build/parent
 
 Each run imports hyperpri_tpu_torch from the given tree (building its kernels
-there) and calls the unframed modes both trees have, on seeded bf16 inputs at
-batch 2 (batch 1 for the serving call): per call it prints the median
-wrapper time by CUDA events (20 timed calls after 3 warm-ups) and the device
-time of the call's kernels from torch.profiler over 10 calls. Needs a CUDA
-device; imports no JAX.
+there) and calls, on seeded inputs at batch 2: every distinct bf16 call of
+conv3x3_bias_act (12 a CubeNET-64 step) and conv3x3_wgrad (11, the first
+reading the host pre-padded ingest buffer) with its multiplicity in a step;
+as controls, one float32 call of each and the four conv3x3_packed calls of
+the step at 608x968. Per call it prints the median wrapper time by CUDA
+events (20 timed calls after 3 warm-ups) and the device time of the call's
+kernels from torch.profiler over 10 calls; then, per kernel and dtype, the
+sums over the step's calls (time x multiplicity). The card's name and power
+limit come first. Needs a CUDA device; imports no JAX.
 """
 
 import os
@@ -24,17 +28,33 @@ import sys
 import torch
 
 H, W = 608, 968
-CALLS = [  # (label, kernel, shape (N, H, W, C), O, mode)
-    ("first_conv stats", "packed", (2, H, W, 238), 64, "stats"),
-    ("inc2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue"),
-    ("inc2 bwd_x", "packed", (2, H, W, 64), 64, "bwd_x"),
-    ("up4.conv1 stats", "packed", (2, H, W, 128), 64, "stats"),
-    ("serving 64->64 relu", "packed", (1, H, W, 64), 64, "relu"),
-    ("down1.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue"),
-    ("down1.conv1 stats", "halo", (2, 304, 484, 64), 128, "stats"),
-    ("first_conv wgrad", "wgrad", (2, H, W, 238), 64, "plain"),
-    ("inc2 wgrad prologue", "wgrad", (2, H, W, 64), 64, "prologue"),
+# (label, kernel, shape (N, H, W, C), O, mode, dtype, calls in a step)
+CALLS = [
+    ("down1.conv1 stats", "halo", (2, 304, 484, 64), 128, "stats", "bf16", 1),
+    ("down1/up3.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "bf16", 2),
+    ("down1/up3.conv2 adjoint", "halo", (2, 304, 484, 128), 128, "adjoint", "bf16", 2),
+    ("up3.conv1 stats", "halo", (2, 304, 484, 256), 128, "stats", "bf16", 1),
+    ("up3.conv1 adjoint", "halo", (2, 304, 484, 128), 256, "adjoint", "bf16", 1),
+    ("down2.conv1 stats", "halo", (2, 152, 242, 128), 256, "stats", "bf16", 1),
+    ("down2/up2.conv2 stats+prologue", "halo", (2, 152, 242, 256), 256, "prologue", "bf16", 2),
+    ("down2/up2.conv2 adjoint", "halo", (2, 152, 242, 256), 256, "adjoint", "bf16", 2),
+    ("first_conv wgrad pre-padded", "wgrad", (2, H, W, 238), 64, "pre_padded", "bf16", 1),
+    ("inc2/up4.conv2 wgrad prologue", "wgrad", (2, H, W, 64), 64, "prologue", "bf16", 2),
+    ("up4.conv1 wgrad", "wgrad", (2, H, W, 128), 64, "plain", "bf16", 1),
+    ("down1.conv1 wgrad", "wgrad", (2, 304, 484, 64), 128, "plain", "bf16", 1),
+    ("down1/up3.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "bf16", 2),
+    ("up3.conv1 wgrad", "wgrad", (2, 304, 484, 256), 128, "plain", "bf16", 1),
+    ("down2.conv1 wgrad", "wgrad", (2, 152, 242, 128), 256, "plain", "bf16", 1),
+    ("down2/up2.conv2 wgrad prologue", "wgrad", (2, 152, 242, 256), 256, "prologue", "bf16", 2),
+    # controls: kernels and forms this comparison does not target
+    ("f32 down1.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "f32", 1),
+    ("f32 down1.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "f32", 1),
+    ("packed first_conv stats", "packed", (2, H, W, 238), 64, "stats", "bf16", 1),
+    ("packed inc2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue", "bf16", 1),
+    ("packed inc2 bwd_x", "packed", (2, H, W, 64), 64, "bwd_x", "bf16", 1),
+    ("packed up4.conv1 stats", "packed", (2, H, W, 128), 64, "stats", "bf16", 1),
 ]
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -65,22 +85,33 @@ def device_ms(fn, reps=10):
                if e.device_type == DeviceType.CUDA and "conv3x3" in e.key) / reps / 1e3
 
 
-def make_call(kernels, kernel, shape, o, mode, gen):
+def ingest_buffer(x):
+    """x (N, H, W, C) inside the host pre-padded ingest buffer: logical (0, 0)
+    at (1, 1), channel pitch rounded up to 32, zeros around."""
+    n, h, w, c = x.shape
+    buf = torch.zeros((n, h + 2, w + 2, -(-c // 32) * 32), dtype=x.dtype, device=x.device)
+    buf[:, 1:1 + h, 1:1 + w, :c] = x
+    return buf
+
+
+def make_call(kernels, kernel, shape, o, mode, dtype, gen):
     conv3x3_packed, conv3x3_bias_act, conv3x3_wgrad = kernels
     n, h, w, c = shape
 
     def rand(*s):
-        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
 
     x = rand(n, h, w, c)
     pa = 0.5 + torch.rand((c,), generator=gen, device="cuda")
     pb = 0.5 * torch.randn((c,), generator=gen, device="cuda")
     if kernel == "wgrad":
         g = rand(n, h, w, o)
+        if mode == "pre_padded":
+            xb = ingest_buffer(x)
+            return lambda: conv3x3_wgrad(xb, g, pre_padded_c=c)
         return (lambda: conv3x3_wgrad(x, g, pa, pb)) if mode == "prologue" else (
             lambda: conv3x3_wgrad(x, g))
-    wk = (torch.randn((3, 3, c, o), generator=gen, device="cuda") / (9 * c) ** 0.5).to(
-        torch.bfloat16)
+    wk = (torch.randn((3, 3, c, o), generator=gen, device="cuda") / (9 * c) ** 0.5).to(dtype)
     b = 0.1 * torch.randn((o,), generator=gen, device="cuda")
     fn = conv3x3_packed if kernel == "packed" else conv3x3_bias_act
     if mode == "bwd_x":
@@ -88,18 +119,20 @@ def make_call(kernels, kernel, shape, o, mode, gen):
         qa = 0.5 + torch.rand((o,), generator=gen, device="cuda")
         qb = 0.5 * torch.randn((o,), generator=gen, device="cuda")
         return lambda: fn(x, wk, torch.zeros_like(b), qa, qb, r, relu=False)
-    if mode == "relu":
-        return lambda: fn(x, wk, b, relu=True)
+    if mode == "adjoint":
+        zero = torch.zeros_like(b)
+        return lambda: fn(x, wk, zero, relu=False)
     if mode == "prologue":
         return lambda: fn(x, wk, b, pa, pb, relu=False, with_stats=True)
     return lambda: fn(x, wk, b, relu=False, with_stats=True)
 
 
 def main():
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
-    root = os.path.abspath(sys.argv[1])
+    root = os.path.abspath(args[0])
     sys.path.insert(0, root)
     os.chdir(root)
     from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act
@@ -111,13 +144,22 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(3)
     kernels = (conv3x3_packed, conv3x3_bias_act, conv3x3_wgrad)
-    print(f"{sys.argv[1]} on {card}", flush=True)
-    for label, kernel, shape, o, mode in CALLS:
-        fn = make_call(kernels, kernel, shape, o, mode, gen)
-        print(f"  {label:28s} wrapper {cuda_ms(fn):.4f} ms, device {device_ms(fn):.4f} ms",
+    print(f"{args[0]} on {card}", flush=True)
+    sums = {}
+    for label, kernel, shape, o, mode, dtype, count in CALLS:
+        fn = make_call(kernels, kernel, shape, o, mode, DTYPES[dtype], gen)
+        ms, dev = cuda_ms(fn), device_ms(fn)
+        key = f"{kernel} {dtype}"
+        total = sums.setdefault(key, [0.0, 0.0, 0])
+        total[0] += ms * count
+        total[1] += dev * count
+        total[2] += count
+        print(f"  {label:32s} {dtype:4s} x{count} wrapper {ms:.4f} ms, device {dev:.4f} ms",
               flush=True)
         del fn
         torch.cuda.empty_cache()
+    for key, (ms, dev, count) in sums.items():
+        print(f"  sum {key:12s} over {count:2d} calls: wrapper {ms:.4f} ms, device {dev:.4f} ms")
     return 0
 
 

@@ -198,10 +198,16 @@ def test_prologue_border_is_zero(cuda_device, dtype):
     pa = torch.ones(c, device=cuda_device)
     pb = torch.full((c,), 0.5, device=cuda_device)
     for fn in (conv3x3_packed, conv3x3_bias_act):
+        paths = dict(getattr(fn, "launches_by_path", {}))
         y = fn(x, w, b, pa, pb, relu=False)
         assert float(y[0, 0, 0, 0]) == 4 * c * 0.5
         assert float(y[0, 4, 4, 0]) == 9 * c * 0.5
         assert float(y[0, 0, 4, 0]) == 6 * c * 0.5
+        if fn is conv3x3_bias_act:
+            # bf16 takes the Hopper kernel (prologue on the landed TMA box),
+            # float32 the synchronous one
+            path = "sm90" if dtype == torch.bfloat16 else "legacy"
+            assert fn.launches_by_path.get(path, 0) == paths.get(path, 0) + 1
 
 
 def _assert_bwd_close(g, wt, zero, pa, pb, r, dx, dpa, dpb, rdx, rdpa, rdpb, logical, **kw):
@@ -462,7 +468,9 @@ def test_conv3x3_wgrad_fold_matches_plain(cuda_device, shape, o, mode, dtype):
     """Fold mode (g_eff and db formed in the kernel from the raw gy and y) on
     NaN-framed buffers: dW and db within the sums' limit of their absolute
     terms, the same bits twice, and dW bit-equal to the non-fold kernel on
-    the materialized g_eff."""
+    the materialized g_eff: the synchronous kernel, the fold mode's own body
+    (bf16 non-fold calls otherwise take the Hopper kernel, which sums in
+    another order)."""
     from hyperpri_tpu_torch.ops.kernels import _plain
 
     x, _, _, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
@@ -490,7 +498,7 @@ def test_conv3x3_wgrad_fold_matches_plain(cuda_device, shape, o, mode, dtype):
     g_eff = _plain.fold_stats_cotangent(gy, gs, gss, y, dtype)
     z = _plain.prologue_act(x, pa, pb)
     scale = conv3x3_wgrad_reference(z.abs(), g_eff.abs())
-    materialized = conv3x3_wgrad(xk, g_eff, pa, pb, **plain_kw)
+    materialized = conv3x3_wgrad(xk, g_eff, pa, pb, _legacy=True, **plain_kw)
     torch.cuda.synchronize()
     rel = SUM_REL if dtype == torch.bfloat16 else F32_REL
     assert dw.shape == (3, 3, c, o) and db.shape == (o,)
@@ -572,3 +580,143 @@ def test_mosaic_op_probe_matches_plain_exactly(cuda_device, name):
     assert probe_mosaic_ops.run_case.launches == launches + 1
     torch.cuda.synchronize()
     assert torch.equal(out, probe_mosaic_ops.run_case_reference(name, x))
+
+
+# The Hopper kernels ("sm90": TMA staging, wgmma) of conv3x3_bias_act and
+# conv3x3_wgrad in bf16, at the limits of PERF.md section 2: outputs within
+# one bf16 ulp; the sums and dW within SM90_SUM_REL of the sum of the absolute
+# values of their terms; every reducing call twice with identical bits.
+SM90_SUM_REL = 2e-5
+# Every distinct bf16 call of a training step (CubeNET-64 and UNET make the
+# same ones; batch 2), then ragged small ones where the TMA box and the pixel
+# tile overhang every edge.
+_SM90_BIAS_ACT = [
+    ((2, 304, 484, 64), 128, "stats"),
+    ((2, 304, 484, 128), 128, "stats+prologue"),
+    ((2, 304, 484, 256), 128, "stats"),
+    ((2, 152, 242, 128), 256, "stats"),
+    ((2, 152, 242, 256), 256, "stats+prologue"),
+    ((2, 304, 484, 128), 128, "adjoint"),
+    ((2, 304, 484, 128), 256, "adjoint"),
+    ((2, 152, 242, 256), 256, "adjoint"),
+] + [((1, 13, 37, c), o, mode) for c, o in ((64, 128), (128, 256))
+     for mode in ("relu", "stats", "stats+prologue")]
+_SM90_WGRAD = [
+    ((2, 608, 968, 238), 64, "pre_padded"),
+    ((2, 608, 968, 64), 64, "prologue"),
+    ((2, 304, 484, 64), 128, "plain"),
+    ((2, 304, 484, 128), 128, "prologue"),
+    ((2, 152, 242, 128), 256, "plain"),
+    ((2, 152, 242, 256), 256, "prologue"),
+    ((2, 304, 484, 256), 128, "plain"),
+    ((2, 608, 968, 128), 64, "plain"),
+] + [((1, 13, 37, c), o, mode) for c, o in ((64, 128), (128, 256))
+     for mode in ("plain", "prologue", "pre_padded", "arena_in", "arena_g", "arena_in+arena_g")]
+
+
+def _path_delta(fn, before):
+    return {k: v - before.get(k, 0) for k, v in fn.launches_by_path.items()
+            if v != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode", _SM90_BIAS_ACT)
+def test_sm90_bias_act_matches_plain(cuda_device, shape, o, mode):
+    x, w, b, rng = _conv_inputs(cuda_device, shape, o)
+    pa, pb = _affine(rng, cuda_device, shape[-1]) if "prologue" in mode else (None, None)
+    if mode == "adjoint":
+        b = torch.zeros_like(b)
+    kw = dict(relu=mode == "relu", with_stats=mode.startswith("stats"))
+    before = dict(conv3x3_bias_act.launches_by_path)
+    out, again = (conv3x3_bias_act(x, w, b, pa, pb, **kw) for _ in range(2))
+    assert _path_delta(conv3x3_bias_act, before) == {"sm90": 2}
+    ref = conv3x3_bias_act_reference(x, w, b, pa, pb, **kw)
+    torch.cuda.synchronize()
+    if kw["with_stats"]:
+        (out, (s, ss)), (again, (s2, ss2)), (ref, (rs, rss)) = out, again, ref
+        yf = ref.float()
+        _assert_sums_close(s, rs, yf.abs().sum(dim=(0, 1, 2)), SM90_SUM_REL)
+        _assert_sums_close(ss, rss, (yf * yf).sum(dim=(0, 1, 2)), SM90_SUM_REL)
+        assert torch.equal(s, s2) and torch.equal(ss, ss2)
+    assert bool(torch.isfinite(out).all())
+    _assert_out_close(out, ref, None)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode", _SM90_WGRAD)
+def test_sm90_wgrad_matches_plain(cuda_device, shape, o, mode):
+    """Framed views sit in buffers whose frames hold NaN: TMA reads only the
+    logical regions."""
+    x, _, _, rng = _conv_inputs(cuda_device, shape, o)
+    g = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    h, wd, c = shape[1], shape[2], shape[3]
+    pa = pb = None
+    kw = {}
+    if "prologue" in mode or "arena_in" in mode:
+        pa, pb = _affine(rng, cuda_device, c)
+    if mode == "pre_padded":
+        x = _framed(x, 1)
+        kw["pre_padded_c"] = c
+    if "arena_in" in mode:
+        x = _framed(x, 8)
+        kw["arena_in"] = True
+    if "arena_g" in mode:
+        g = _framed(g, 8)
+        kw.update(arena_g=True, logical_hw=(h, wd))
+    before = dict(conv3x3_wgrad.launches_by_path)
+    dw, dw2 = (conv3x3_wgrad(x, g, pa, pb, **kw) for _ in range(2))
+    assert _path_delta(conv3x3_wgrad, before) == {"sm90": 2}
+    ref = conv3x3_wgrad_reference(x, g, pa, pb, **kw)
+    scale = conv3x3_wgrad_reference(x.abs() if pa is None else x, g.abs(), pa, pb, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dw).all()) and torch.equal(dw, dw2)
+    _assert_sums_close(dw, ref, scale, SM90_SUM_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bias_act", "wgrad"])
+def test_legacy_body_takes_float32_and_untma_layouts(cuda_device, kernel):
+    """float32 and a bf16 view TMA cannot address (C = 238 unframed: 476-byte
+    pixels) take the synchronous kernel, chosen before the launch."""
+    fn = conv3x3_bias_act if kernel == "bias_act" else conv3x3_wgrad
+    for dtype, c in ((torch.float32, 64), (torch.bfloat16, 238)):
+        x, w, b, rng = _conv_inputs(cuda_device, (1, 13, 37, c), 64, dtype=dtype)
+        before = dict(fn.launches_by_path)
+        if kernel == "bias_act":
+            fn(x, w, b, relu=False)
+        else:
+            fn(x, torch.ones((1, 13, 37, 64), dtype=dtype, device=cuda_device))
+        assert _path_delta(fn, before) == {"legacy": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o", [
+    ((2, 608, 968, 64), 64), ((2, 608, 968, 128), 64), ((2, 304, 484, 64), 128),
+    ((2, 304, 484, 128), 128), ((2, 304, 484, 256), 128), ((2, 152, 242, 128), 256),
+    ((2, 152, 242, 256), 256)])
+def test_sm90_wgrad_one_signed_terms(cuda_device, shape, o):
+    """A training step's cotangent of a statistics conv carries a
+    per-channel offset, and after the prologue z >= 0: dW sums a million
+    terms of one sign, where float32 rounding along a block's accumulator
+    chain shows. Both kernel bodies within SM90_SUM_REL of a float64 dW."""
+    x, _, _, rng = _conv_inputs(cuda_device, shape, o)
+    pa, pb = _affine(rng, cuda_device, shape[-1])
+    offset = torch.from_numpy(rng.normal(size=(o,)).astype(np.float32)).to(cuda_device)
+    g = (torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(cuda_device)
+         + offset).to(torch.bfloat16)
+    z = torch.relu(x.float() * pa + pb).to(torch.bfloat16).double()
+    zp = torch.nn.functional.pad(z, (0, 0, 1, 1, 1, 1))
+    g2 = g.double().reshape(-1, o)
+    h, w, c = shape[1], shape[2], shape[3]
+    taps = [zp[:, dh:dh + h, dw:dw + w, :].reshape(-1, c).t() for dh in range(3) for dw in range(3)]
+    exact = torch.stack([t @ g2 for t in taps]).reshape(3, 3, c, o)
+    scale = torch.stack([t.abs() @ g2.abs() for t in taps]).reshape(3, 3, c, o)
+    before = dict(conv3x3_wgrad.launches_by_path)
+    dw = conv3x3_wgrad(x, g, pa, pb)
+    dw_sync = conv3x3_wgrad(x, g, pa, pb, _legacy=True)
+    assert _path_delta(conv3x3_wgrad, before) == {"sm90": 1, "legacy": 1}
+    torch.cuda.synchronize()
+    _assert_sums_close(dw, exact, scale, SM90_SUM_REL)
+    _assert_sums_close(dw_sync, exact, scale, SM90_SUM_REL)

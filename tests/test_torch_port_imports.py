@@ -50,6 +50,7 @@ import hyperpri_tpu_torch.ops.kernels.probe_element_out
 import hyperpri_tpu_torch.ops.kernels.conv3x3_shift
 import hyperpri_tpu_torch.ops.kernels.probe_dh_fold
 import hyperpri_tpu_torch.ops.kernels.probe_mosaic_ops
+import hyperpri_tpu_torch.ops.kernels.sm90_plan
 import hyperpri_tpu_torch.train.checkpoint
 import hyperpri_tpu_torch.train.evaluate
 import hyperpri_tpu_torch.train.trainer

@@ -1,0 +1,166 @@
+"""The host-side plan of the Hopper conv kernels (ops/kernels/sm90_plan.py):
+which kernel body a conv3x3_bias_act or conv3x3_wgrad call takes, and its
+tiling, ring depth and pixel splits. The plan is a pure function of shape,
+dtype, mode and layout, so it is held here without a card."""
+
+import pytest
+import torch
+
+import chip_smoke
+from hyperpri_tpu_torch.ops.kernels import framing, sm90_plan
+from hyperpri_tpu_torch.ops.kernels.framing import Frame
+
+
+def _x_pitch(call):
+    """The channel pitch of the call's x: the ingest buffer's for the
+    pre-padded first conv, else C."""
+    n, h, w, c = call["shape"]
+    if "pre_padded" in call["framing"]:
+        return framing.ingest_spec(h, w, c)[0][2]
+    return c
+
+
+def _plans(model):
+    """(conv3x3_bias_act plans, conv3x3_wgrad plans) of one bf16 training
+    step of `model`, from the routing's walk of the model."""
+    calls = chip_smoke.training_calls(model, ingest=model == "CubeNET", dtype="bf16")
+    bias_act, wgrad = [], []
+    for call in calls:
+        n, h, w, c = call["shape"]
+        o = call["o"]
+        if call["kernel"] == "conv3x3_bias_act":
+            bias_act.append(sm90_plan.bias_act_plan(n, h, w, c, o, torch.bfloat16))
+        elif call["kernel"] == "conv3x3_wgrad":
+            wgrad.append(sm90_plan.wgrad_plan(n, h, w, c, o, torch.bfloat16, _x_pitch(call), o))
+    return bias_act, wgrad
+
+
+@pytest.mark.parametrize("model", ["CubeNET", "UNET"])
+def test_every_bf16_step_call_takes_sm90(model):
+    bias_act, wgrad = _plans(model)
+    assert (len(bias_act), len(wgrad)) == (12, 11 if model == "CubeNET" else 10)
+    assert {p.path for p in bias_act} == {"sm90"}
+    assert {p.path for p in wgrad} == {"sm90"}
+
+
+@pytest.mark.parametrize("case", [
+    dict(dtype=torch.float32, c=128, o=128),              # float32: 3xTF32 kernel
+    dict(dtype=torch.bfloat16, c=238, o=64),              # 476-byte pixels
+    dict(dtype=torch.bfloat16, c=61, o=64),               # 122-byte pixels
+    dict(dtype=torch.bfloat16, c=64, o=64, aligned=False),  # origin off 16 bytes
+    dict(dtype=torch.bfloat16, c=320, o=64),              # halo past the shared memory
+    dict(dtype=torch.bfloat16, c=64, o=131),              # 262-byte weight rows
+])
+def test_bias_act_legacy_cases(case):
+    plan = sm90_plan.bias_act_plan(2, 37, 53, case["c"], case["o"], case["dtype"],
+                                   case.get("aligned", True))
+    assert plan.path == "legacy" and plan.stages == 0
+    assert plan.tile_o == (64 if case["o"] <= 64 else 128)
+
+
+@pytest.mark.parametrize("case", [
+    dict(dtype=torch.float32, c=64, o=64, xp=64, gp=64),
+    dict(dtype=torch.bfloat16, c=64, o=64, xp=64, gp=64, fold=True),
+    dict(dtype=torch.bfloat16, c=238, o=64, xp=238, gp=64),   # C = 238 unframed
+    dict(dtype=torch.bfloat16, c=64, o=20, xp=64, gp=20),     # 40-byte g pixels
+    dict(dtype=torch.bfloat16, c=64, o=64, xp=64, gp=64, aligned=False),
+])
+def test_wgrad_legacy_cases(case):
+    plan = sm90_plan.wgrad_plan(2, 37, 53, case["c"], case["o"], case["dtype"], case["xp"],
+                                case["gp"], case.get("fold", False), case.get("aligned", True))
+    assert plan.path == "legacy" and plan.stages == 0
+
+
+def test_wgrad_framed_views_take_sm90():
+    """The ingest buffer (256-channel pitch) and arenas (pitch round_up(C, 8))
+    are TMA views even where the logical C is not a multiple of 8."""
+    for c, fx in ((238, Frame(610, 970, 256, 1, 1)), (61, Frame(29, 80, 64, 8, 8))):
+        plan = sm90_plan.wgrad_plan(1, 13, 37, c, 24, torch.bfloat16, fx.pitch,
+                                    framing.round_up(24, 8))
+        assert plan.path == "sm90"
+
+
+_SHAPES = [(2, 304, 484, 64, 128), (2, 152, 242, 256, 256), (2, 608, 968, 238, 64),
+           (1, 13, 37, 64, 128), (1, 13, 37, 128, 256), (1, 1, 1, 8, 8), (3, 9, 33, 192, 48),
+           (2, 304, 484, 256, 128), (1, 17, 33, 24, 131)]
+
+
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_plans_fit_shared_memory(shape):
+    n, h, w, c, o = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        k2 = sm90_plan.bias_act_plan(n, h, w, c, o, dtype)
+        k3 = sm90_plan.wgrad_plan(n, h, w, c, o, dtype, c, o)
+        for plan in (k2, k3):
+            assert 0 < plan.smem <= sm90_plan.SMEM_LIMIT
+            assert plan.stages >= (2 if plan.path == "sm90" else 0)
+        if k2.path == "sm90":
+            assert k2.smem == sm90_plan.k2_smem_bytes(-(-c // 64), k2.stages)
+            assert k2.stages == sm90_plan.K2_MAX_STAGES or sm90_plan.k2_smem_bytes(
+                -(-c // 64), k2.stages + 1) > sm90_plan.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_bias_act_grid_covers_the_image(shape):
+    """Every pixel tile has a block, and the statistics' partial buffer has
+    a row per block."""
+    n, h, w, c, o = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = sm90_plan.bias_act_plan(n, h, w, c, o, dtype)
+        gx, gy, gz = plan.grid
+        assert (gx, gy) == (-(-w // sm90_plan.TW), -(-h // sm90_plan.TH))
+        if plan.path == "sm90":
+            assert gz == n and plan.partial_rows == gx * gy * gz
+        else:
+            assert gz == n * -(-o // plan.tile_o) and plan.partial_rows == gx * gy * n
+
+
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_wgrad_splits_cover_every_pixel_tile(shape):
+    n, h, w, c, o = shape
+    tiles = n * -(-h // 8) * -(-w // 32)
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = sm90_plan.wgrad_plan(n, h, w, c, o, dtype, c, o)
+        assert plan.tiles == tiles
+        assert plan.splits * plan.tiles_per_split >= tiles
+        assert 1 <= plan.splits <= tiles
+        assert plan.tiles_per_split <= sm90_plan.K3_MAX_CHAIN
+        if plan.path == "sm90":
+            # no split without a tile, and no more blocks than fill the
+            # waves that the least split count needs
+            assert (plan.splits - 1) * plan.tiles_per_split < tiles
+            co_blocks = -(-c // 64) * -(-o // 64)
+            least = -(-tiles // sm90_plan.K3_MAX_CHAIN)
+            waves = -(-least * co_blocks // sm90_plan.SMS)
+            assert plan.splits * co_blocks <= max(waves * sm90_plan.SMS, co_blocks)
+
+
+@pytest.mark.parametrize("model", ["CubeNET", "UNET"])
+def test_wgrad_chains_stay_within_the_cap(model):
+    """At every weight gradient of a bf16 and a float32 step, on either body,
+    a block's float32 accumulators chain no more than K3_MAX_CHAIN pixel
+    tiles (the float64 check on one-signed terms rests on it), and the
+    Hopper body fills whole waves of one block per SM but the last."""
+    for dtype, torch_dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        calls = chip_smoke.training_calls(model, ingest=model == "CubeNET", dtype=dtype)
+        for call in calls:
+            if call["kernel"] != "conv3x3_wgrad":
+                continue
+            n, h, w, c = call["shape"]
+            o = call["o"]
+            args = (n, h, w, c, o, torch_dtype, _x_pitch(call), o)
+            for plan in (sm90_plan.wgrad_plan(*args), sm90_plan.wgrad_plan(*args, sm90=False)):
+                assert plan.tiles_per_split <= sm90_plan.K3_MAX_CHAIN
+                if plan.path == "sm90":
+                    blocks = plan.splits * -(-c // 64) * -(-o // 64)
+                    assert blocks > (-(-blocks // sm90_plan.SMS) - 1) * sm90_plan.SMS
+
+
+def test_switching_sm90_off_takes_the_synchronous_kernels():
+    """sm90=False (what the wrappers pass for `_legacy=True`) sends a call the
+    Hopper kernels would take to the synchronous ones."""
+    k2 = sm90_plan.bias_act_plan(2, 304, 484, 128, 128, torch.bfloat16, sm90=False)
+    k3 = sm90_plan.wgrad_plan(2, 304, 484, 128, 128, torch.bfloat16, 128, 128, sm90=False)
+    assert (k2.path, k3.path) == ("legacy", "legacy")
+    assert k3.splits == sm90_plan.wgrad_plan(2, 304, 484, 128, 128, torch.float32, 128,
+                                             128).splits
