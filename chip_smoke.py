@@ -9,9 +9,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (c) each kernel and each of its modes and framings, in bf16 and in float32,
       against its plain PyTorch version on the card (TF32 off), at the shapes
       the main paths give it and at ragged ones; every reducing kernel twice,
-      for identical bits (the bf16 calls of conv3x3_bias_act and conv3x3_wgrad
-      take their Hopper kernels, "sm90": TMA staging and wgmma; float32 and
-      bf16 layouts TMA cannot address take the synchronous ones, "legacy");
+      for identical bits (the bf16 calls of conv3x3_packed, conv3x3_bias_act
+      and conv3x3_wgrad take their Hopper kernels, "sm90": TMA staging and
+      wgmma, conv3x3_packed with persistent blocks, in every mode and
+      framing at ragged shapes too; float32 and bf16 layouts TMA cannot
+      address take the synchronous ones, "legacy"; each conv3x3_packed check
+      holds the body it took against the plan's);
       the kernels on no model path too: the weight
       gradient's fold mode (every framing, its dW bit-equal to the non-fold
       synchronous kernel on the materialized g_eff), the shift conv, the dh-fold probe's
@@ -26,15 +29,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
       compute, float32 parameters, masked BCE, Adam(1e-3), through the
       trainable kernel convs and the pool-backward kernel, with the launch
       counts read around those steps and held against the counts the routing
-      predicts (derived by walking the model) and, for conv3x3_bias_act and
-      conv3x3_wgrad, by kernel body as their plans choose it, the loss finite and falling on
+      predicts (derived by walking the model) and, for conv3x3_packed,
+      conv3x3_bias_act and conv3x3_wgrad, by kernel body as their plans
+      choose it, the loss finite and falling on
       a repeated batch, the BatchNorm running statistics moving, and step 1's
       loss, logits and gradients held against the same model on cuDNN and
       autograd in bf16 and in float32;
   (f) times (CUDA events, median of repeated runs after warm-up): every kernel
       call of a training step and of a serving forward beside its bound, its
       plain version and one library call (float32 convs also with cuDNN's TF32
-      on, and with cudnn.benchmark on, labelled); the serving forward and the training
+      on, and with cudnn.benchmark on, labelled; bf16 conv3x3_packed calls
+      also on the synchronous body); the serving forward and the training
       step with kernels on and off; peak memory of a step; the element probe
       beside one PyTorch op; the kernels on no model path (the weight
       gradient's fold mode at the step's conv3x3_wgrad calls, the shift conv
@@ -49,8 +54,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (h) the product loop: a synthetic experiment tree of 608x968 cubes with 299
       stored bands, train_net in bf16 for three epochs of one batch-2 step
       (the first conv reads the host pre-padded buffer; launches by framing
-      held against the routing; every conv3x3_bias_act and conv3x3_wgrad call,
-      12 and 11 a step, on the Hopper kernels), a resumed fourth epoch held bit-equal to an
+      held against the routing; every conv3x3_packed, conv3x3_bias_act and
+      conv3x3_wgrad call, 9, 12 and 11 a step, on the Hopper kernels), a
+      resumed fourth epoch held bit-equal to an
       uninterrupted run, validate_net and test_net, with seconds per epoch,
       steps per second, the device idle share of a profiled epoch, the host
       seconds per batch, and each framed kernel mode at the main path's
@@ -124,6 +130,18 @@ FOLD_FRAMED = [("fold", ("pre_padded",)), ("fold", ("arena_g",)),
 # test_ingest.py take them.
 RAGGED_FRAMED = [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 20), ((1, 17, 33, 24), 64),
                  ((1, 13, 21, 61), 24)]
+# conv3x3_packed's Hopper body at ragged shapes, where pixel tiles, two-tile
+# units and TMA boxes overhang every edge: resident weights (C <= 64),
+# streamed weights with two-tile units (C = 128) and 128 outputs; every mode
+# in every framing, framed inputs on NaN frames.
+PACKED_SM90_RAGGED = [((1, 13, 37, 64), 64), ((2, 29, 71, 128), 48), ((1, 21, 40, 96), 128)]
+PACKED_SM90_MODES = [
+    ("relu", ()), ("stats", ()), ("stats+prologue", ()), ("bwd_x", ()), ("adjoint", ()),
+    ("stats", ("pre_padded",)), ("stats", ("pre_padded", "arena_out")),
+    ("stats", ("arena_out",)), ("relu", ("arena_g",)), ("stats+prologue", ("arena_in",)),
+    ("adjoint", ("arena_g",)), ("bwd_x", ("arena_in", "arena_out")),
+    ("bwd_x", ("arena_in", "arena_out", "arena_g")),
+]
 FRAMED_MODES = [
     ("conv3x3_packed", "stats", ("pre_padded",)),
     ("conv3x3_packed", "stats", ("pre_padded", "arena_out")),
@@ -347,23 +365,27 @@ def count_by_framing(calls):
 
 
 def count_by_body(calls):
-    """{kernel: {"sm90" or "legacy": count}} for conv3x3_bias_act and
-    conv3x3_wgrad: the body each call's plan (ops/kernels/sm90_plan.py) takes.
-    bf16 takes the Hopper kernels wherever TMA can address the views; the one
-    bf16 exception on a path is the unframed first conv's weight gradient in
-    phase e (C = 238: 476-byte pixels), which the product loop's ingest buffer
-    (channel pitch 256) avoids."""
+    """{kernel: {"sm90" or "legacy": count}} for conv3x3_packed,
+    conv3x3_bias_act and conv3x3_wgrad: the body each call's plan
+    (ops/kernels/sm90_plan.py) takes. bf16 takes the Hopper kernels wherever
+    TMA can address the views; the bf16 exceptions on a path are the unframed
+    first conv of phase e and of serving (C = 238: 476-byte pixels), forward
+    and weight gradient, which the product loop's ingest buffer (channel
+    pitch 256) avoids."""
     from hyperpri_tpu_torch.ops.kernels import framing, sm90_plan
 
-    counts = {"conv3x3_bias_act": {}, "conv3x3_wgrad": {}}
+    counts = {"conv3x3_packed": {}, "conv3x3_bias_act": {}, "conv3x3_wgrad": {}}
     for call in calls:
         n, h, w, c = call["shape"]
         o, dtype = call["o"], DTYPES[call["dtype"]]
-        if call["kernel"] == "conv3x3_bias_act":
+        pitch = (framing.ingest_spec(h, w, c)[0][2] if "pre_padded" in call["framing"]
+                 else c)
+        if call["kernel"] == "conv3x3_packed":
+            body = sm90_plan.packed_plan(n, h, w, c, o, dtype, pitch,
+                                         bwd=call["mode"] == "bwd_x").path
+        elif call["kernel"] == "conv3x3_bias_act":
             body = sm90_plan.bias_act_plan(n, h, w, c, o, dtype).path
         elif call["kernel"] == "conv3x3_wgrad":
-            pitch = (framing.ingest_spec(h, w, c)[0][2] if "pre_padded" in call["framing"]
-                     else c)
             body = sm90_plan.wgrad_plan(n, h, w, c, o, dtype, pitch, o).path
         else:
             continue
@@ -634,6 +656,13 @@ class Case:
     def run(self):
         return self.fn(*self.args, **self.kwargs)
 
+    def body(self) -> str:
+        """The kernel body ("sm90" or "legacy") a conv3x3_packed call takes."""
+        from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import call_plan
+
+        x, wk, _, pa, _, r = self.args
+        return call_plan(x, wk, pa, r, **self.kwargs).path
+
     def plain(self):
         return self.ref(*self.args, **self.kwargs)
 
@@ -787,12 +816,22 @@ def phase_kernel_check(calls):
                for shape, o in RAGGED_FRAMED for mode, flags in FOLD_FRAMED]
     ragged += [dict(kernel="conv3x3_bias_act_shift", mode=mode, shape=shape, o=o)
                for shape, o in RAGGED_CONV for mode in ("relu", "conv")]
+    ragged += [dict(kernel="conv3x3_packed", mode=mode, framing=flags, shape=shape, o=o)
+               for shape, o in PACKED_SM90_RAGGED for mode, flags in PACKED_SM90_MODES]
     errors = {}   # {(kernel, dtype): [max abs error, max sums rel error]}
     for call in distinct(calls) + [dict(c, path="ragged", layer="ragged", dtype=dtype)
                                    for dtype in DTYPES for c in ragged]:
         case = Case(call, gen)
+        before = dict(getattr(case.fn, "launches_by_path", {}))
         abs_err, rel = case.verify()
-        print(f"{case.label()}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e}")
+        body = ""
+        if call["kernel"] == "conv3x3_packed":
+            # every launch of the check took the body the plan names
+            body = case.body()
+            taken = {k for k, v in case.fn.launches_by_path.items() if v != before.get(k, 0)}
+            check(taken == {body}, f"{case.label()}: launched {taken}, the plan says {body}")
+            body = f" [{body}]"
+        print(f"{case.label()}{body}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e}")
         worst = errors.setdefault((call["kernel"], call["dtype"]), [0.0, 0.0])
         worst[0], worst[1] = max(worst[0], abs_err), max(worst[1], rel)
         del case
@@ -966,7 +1005,7 @@ def check_launches(label, calls, times):
         want = {k: times * v for k, v in by.items()}
         check(framings.get(name, {}) == want,
               f"{label}: {name} launches by framing {framings.get(name)}, predicted {want}")
-    # kernel bodies of these two, as their plans choose them for each call
+    # kernel bodies of the conv kernels, as their plans choose them for each call
     bodies = {}
     for name, want in count_by_body(calls).items():
         by_path = {k: v for k, v in kernel_wrappers()[name].launches_by_path.items() if v}
@@ -1283,6 +1322,13 @@ def phase_times(calls, card):
                      "library_tf32_ms": library_tf32_ms,
                      "library_benchmark_ms": library_bench_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
+        if call["kernel"] == "conv3x3_packed" and call["dtype"] == "bf16":
+            # the body the plan chose, and the synchronous body on the same call
+            rows[-1]["body"] = case.body()
+            rows[-1]["legacy_ms"] = cuda_ms(lambda: case.fn(*case.args, _legacy=True,
+                                                            **case.kwargs))
+            print(f"  body {rows[-1]['body']}; the synchronous body on the same call: "
+                  f"{rows[-1]['legacy_ms']:.4f} ms")
         if call["kernel"] == "conv3x3_bias_act_shift":
             # the halo kernel (kernel 2) on the same inputs in the same mode
             from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act
@@ -1653,7 +1699,8 @@ def phase_product_loop(tree, calls, card):
     steps = sum(h["steps"] for h in fit.history)
     check(steps == LOOP_EPOCHS, f"{steps} steps in {LOOP_EPOCHS} epochs of one batch")
     launches, framings = check_launches(f"product loop, {steps} steps", calls, steps)
-    for name, count in (("conv3x3_bias_act", 12), ("conv3x3_wgrad", 11)):
+    for name, count in (("conv3x3_packed", 9), ("conv3x3_bias_act", 12),
+                        ("conv3x3_wgrad", 11)):
         by_path = kernel_wrappers()[name].launches_by_path
         check(by_path.get("sm90", 0) == count * steps and not by_path.get("legacy"),
               f"product loop: {name} by body {by_path}, not {count} Hopper launches a step")

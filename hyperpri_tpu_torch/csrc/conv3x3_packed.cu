@@ -19,10 +19,11 @@
 // Framings (the JAX kernel's pre_padded, arena_in, arena_out and arena_g):
 // x, y and r are framed views of their buffers, so the host pre-padded ingest
 // buffer (logical (0,0) at (1,1), channel pitch 256) and arena buffers
-// (logical (0,0) at (8,8)) are read and written in place; staging zero-fills
-// everything outside the logical region by select.
-// The per-channel sums are per-block partials added in a fixed order by a
-// second kernel (conv3x3_common.cuh), never float atomics.
+// (logical (0,0) at (8,8)) are read and written in place; only the logical
+// region of a framed input is ever read.
+// The per-channel sums are per-pixel-tile partials (one row per 8x32 tile)
+// added in a fixed order by a second kernel (conv3x3_common.cuh), never float
+// atomics, so two runs give the same bits whichever block took which tile.
 //
 // Bound. The work is 2*N*H*W*C*O*9 FLOP against (N*H*W*C + N*H*W*O + 9*C*O)
 // elements moved, i.e. about 9*C*O/(C+O) FLOP per bf16 byte. At CubeNET's
@@ -33,20 +34,521 @@
 // bytes double and the tensor rate is TF32's 495 TFLOP/s, of which 3xTF32
 // takes three products per multiply: bound by operations again.
 //
-// Design: the direct implicit GEMM of conv3x3_common.cuh with one output tile
-// (NP in {64, 128} columns, O zero-padded to it), bf16 products or 3xTF32 for
-// float32. Channels are loaded 16 bytes at a time when C fills whole 16-byte
-// groups, two elements at a time when C is even (C = 238 in bf16 gives 476-byte
-// pixels, which are only 4-byte aligned), and one element otherwise; the input
-// is never padded in device memory. The weights arrive pre-packed by the
-// wrapper as wp[tap][o][c] in x's type (tap = 3*dh+dw, C zero-padded to a
-// whole 64-byte chunk: 32 bf16 or 16 float32 channels).
-// Not yet done: double-buffered cp.async/TMA staging and wgmma, which is what
-// the card's full tensor rate needs.
+// Two kernel bodies; the wrapper picks one before the launch
+// (ops/kernels/sm90_plan.py packed_plan), never on a failure.
+//
+// conv3x3_packed_sm90_kernel<NP, TU, RESIDENT> (bf16 views TMA can address:
+// every stride a multiple of 16 bytes, O % 8 == 0, C <= 256; all nine packed
+// calls of the product loop's step and three of a served cube's four). An
+// implicit GEMM (M = output pixels, N = NP output channels, K = 9*C) on the
+// Hopper pieces of conv3x3_sm90.cuh:
+//   - persistent blocks, one per SM (the rings fill its shared memory), each
+//     walking the call's work units in a static order: unit u, u + grid, ...
+//     A unit is TU vertically adjacent 8x32 pixel tiles of one image;
+//   - the (8*TU+2)x(32+2) halo of each 64-channel chunk of a unit comes by TMA
+//     into a ring of halo stages completed on mbarriers. The tensor map covers
+//     the logical view of x (the frame's strides, the logical origin as its
+//     base, C channels, not the pitch), so TMA's zero fill gives the SAME
+//     border, the lanes from C up to the pitch and the frames: a frame holding
+//     NaN is never read. The next units' halos are in flight while the
+//     consumers compute on the current one;
+//   - the weights are read in place, w (3, 3, C, O) HWIO with the outputs
+//     contiguous, by TMA (no packing pass; zero past C and O). Where all
+//     9*C*NP of them fit beside the halo ring (C <= 64 at NP = 64, 72 KiB:
+//     inc2 and up4.conv2 forward, both backward epilogues) the block loads
+//     them once and keeps them for all its units (RESIDENT); wider C streams
+//     (chunk, tap) slices of 64 x NP through a ring of its own, and at NP = 64
+//     each slice feeds a unit of two tiles (TU = 2: 16x32 pixels);
+//   - products: two consumer warpgroups, warp r computing row r of each of
+//     the unit's tiles (two 16-pixel halves per row), wgmma m64n64k16 (NP =
+//     64) or m64n128k16 (NP = 128) with float32 accumulators in registers; A =
+//     the tap-shifted halo pixels from registers (ldmatrix of the swizzled
+//     halo), loaded one K step ahead into a second register set while the
+//     previous step's MMAs run, B = the weight slice from shared memory;
+//   - a producer warpgroup gives its registers to the consumers (setmaxnreg
+//     40 / 232): one thread issues the TMA loads, and with the prologue its
+//     three other warps apply relu(pa*x + pb) to each landed halo chunk, in
+//     place, to in-image pixels and channels below C only (affine_relu, as
+//     the plain version rounds it);
+//   - epilogues from the accumulators: act(acc + b) stored into y's frame;
+//     the statistics summed per thread, the lanes of a channel pair by
+//     shuffles and the eight warps in order into one partial row per tile;
+//     the backward epilogue reads the r values of a thread's outputs before
+//     the products start (NP = 64), forms m, stores dx = m*dz*pa and sums
+//     dpa, dpb per tile the same way.
+//   Bytes staged per MMA (bf16 halo and weight bytes per FLOP of a block).
+//   The synchronous kernel: (340 + 9*NP) rows of 64 bytes per
+//   2*256*NP*9*32 FLOP = 6.2e-3 B/FLOP at NP = 64 (weights read again from L2
+//   for every tile). This kernel: resident weights, 340 rows of 128 bytes per
+//   2*256*64*9*64 FLOP = 2.3e-3; streamed at NP = 64, (612 + 9*64) rows of
+//   128 bytes per 2*512*64*9*64 FLOP = 4.0e-3; at NP = 128, (340 + 9*128)
+//   rows per 2*256*128*9*64 FLOP = 5.1e-3.
+//   Not yet done: overlapping a unit's epilogue with the next unit's MMAs
+//   (two consumer warpgroups on alternate units).
+//
+// conv3x3_kernel<T, NP, VEC> (float32, and bf16 layouts TMA cannot address:
+// C = 238 unframed gives 476-byte pixels): the synchronous direct implicit
+// GEMM of conv3x3_common.cuh with one output tile (NP in {64, 128} columns, O
+// zero-padded to it), bf16 products or 3xTF32 for float32. Channels are
+// loaded 16 bytes at a time when C fills whole 16-byte groups, two elements at
+// a time when C is even, and one element otherwise; the input is never padded
+// in device memory, and staging zero-fills everything outside the logical
+// region by select. The weights arrive pre-packed by the wrapper as
+// wp[tap][o][c] in x's type (tap = 3*dh+dw, C zero-padded to a whole 64-byte
+// chunk: 32 bf16 or 16 float32 channels).
 
 #include "conv3x3_common.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
+
+using conv3x3::sm90::BOX_ROW;
+using conv3x3::sm90::CHUNK;
+
+constexpr int K1_CONSUMERS = 256;               // two warpgroups, warp r: row r of each tile
+constexpr int K1_THREADS = K1_CONSUMERS + 128;  // and the producer warpgroup
+constexpr int K1_PRODUCER_REGS = 40;            // setmaxnreg: 128*40 + 256*232 <= 64K
+constexpr int K1_CONSUMER_REGS = 232;
+constexpr int K1_PROLOGUE_THREADS = 96;         // the producer warpgroup's other warps
+constexpr int K1_MAX_CHUNKS = 4;                // C <= 256 (the affine buffer)
+constexpr int K1_WBOX = CHUNK * BOX_ROW;        // one weight box: 64 inputs x 64 outputs
+constexpr int K1_AFFINE_BYTES = 2 * K1_MAX_CHUNKS * CHUNK * 4;  // the prologue's pa, pb
+
+struct PackedSm90Dims {
+  int H, W, C, O, n_chunks, tiles_h, tiles_w, units_h, n_units, relu, mode, hstages, wstages;
+  conv3x3::Frame fy, fr;  // the views of y and (MODE_BWD) r
+};
+
+constexpr int k1_halo_bytes(int tu) { return (conv3x3::TH * tu + 2) * conv3x3::HALO_W * BOX_ROW; }
+constexpr int k1_halo_slot(int tu) { return (k1_halo_bytes(tu) + 1023) / 1024 * 1024; }
+constexpr int k1_red_floats(int np, int tu) { return 2 * tu * conv3x3::TH * np; }
+
+// Shared memory of one block: the weights (all 9*n_chunks slices of 64 x NP,
+// or a ring of wstages), the halo ring, the per-tile reduction buffer, the
+// prologue's affine and the barriers (ops/kernels/sm90_plan.py mirrors this).
+constexpr int k1_smem_bytes(int np, int tu, bool resident, int n_chunks, int hstages,
+                            int wstages) {
+  return conv3x3::sm90::ALIGN_SLACK + (resident ? 9 * n_chunks : wstages) * np * BOX_ROW +
+         hstages * k1_halo_slot(tu) + k1_red_floats(np, tu) * 4 + K1_AFFINE_BYTES +
+         (2 * (resident ? 1 : wstages) + 3 * hstages) * 8;
+}
+
+// The bf16 conv on Hopper (see the note at the top). NP: output channels of
+// the tile (64 or 128); TU: 8x32 pixel tiles of a work unit (1, or 2 at NP =
+// 64 with streamed weights); RESIDENT: the weights stay in shared memory.
+template <int NP, int TU, bool RESIDENT>
+__global__ void __launch_bounds__(K1_THREADS, 1)
+conv3x3_packed_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                           const float* __restrict__ pa, const float* __restrict__ pb,
+                           const __nv_bfloat16* __restrict__ r, float* __restrict__ partial,
+                           const PackedSm90Dims d) {
+  using namespace conv3x3;
+  using namespace conv3x3::sm90;
+  constexpr int MT = 2 * TU;          // m-tiles of a warp: TU rows x two 16-pixel halves
+  constexpr int NACC = NP / 2;        // accumulators of one m64 x NP wgmma per thread
+  constexpr int NB = NP / 8;          // 8-column blocks of the tile
+  constexpr int HROWS = TH * TU + 2;  // halo rows of a unit
+  constexpr int HBYTES = HROWS * HALO_W * BOX_ROW;
+  constexpr int HSLOT = (HBYTES + 1023) / 1024 * 1024;
+  constexpr int WSLICE = NP * BOX_ROW;  // one (chunk, tap) slice: 64 inputs x NP outputs
+  constexpr int RED = 2 * TU * TH * NP;
+  constexpr bool PREFETCH_R = NP == 64 && TU == 1;  // r held in registers over the products
+  static_assert(2 * TU * NP <= K1_CONSUMERS, "one consumer thread per partial column");
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);
+  const int wslots = RESIDENT ? 9 * d.n_chunks : d.wstages;
+  const int wbars = RESIDENT ? 1 : d.wstages;
+  const uint32_t wbase = base;
+  const int halo_off = wslots * WSLICE;
+  const uint32_t hbase = base + halo_off;
+  const int red_off = halo_off + d.hstages * HSLOT;
+  float* const red = reinterpret_cast<float*>(smem + red_off);
+  float* const pas = red + RED;
+  float* const pbs = pas + K1_MAX_CHUNKS * CHUNK;
+  const uint32_t bars = base + red_off + RED * 4 + K1_AFFINE_BYTES;
+  auto w_full = [&](int s) { return bars + 8 * s; };
+  auto w_empty = [&](int s) { return bars + 8 * (wbars + s); };
+  auto h_full = [&](int s) { return bars + 8 * (2 * wbars + s); };                 // TMA landed
+  auto h_ready = [&](int s) { return bars + 8 * (2 * wbars + d.hstages + s); };    // prologue done
+  auto h_empty = [&](int s) { return bars + 8 * (2 * wbars + 2 * d.hstages + s); };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool prologue = pa != nullptr && d.mode != MODE_BWD;
+  // unit u: image n, first pixel row h0, first column w0 (x fastest)
+  auto unit_origin = [&](int u, int& n, int& h0, int& w0) {
+    const int t = u / d.tiles_w;
+    w0 = (u - t * d.tiles_w) * TW;
+    h0 = (t % d.units_h) * (TH * TU);
+    n = t / d.units_h;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < wbars; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), K1_CONSUMERS / 32);  // every consumer warp
+    }
+    for (int s = 0; s < d.hstages; ++s) {
+      mbar_init(h_full(s), 1);
+      mbar_init(h_ready(s), K1_PROLOGUE_THREADS);
+      mbar_init(h_empty(s), K1_CONSUMERS / 32);
+    }
+    fence_barrier_init();
+  }
+  if (prologue) load_affine(pas, pbs, pa, pb, 0, d.n_chunks * CHUNK, d.C, threadIdx.x, K1_THREADS);
+  __syncthreads();
+
+  if (warp >= K1_CONSUMERS / 32) {
+    // Producer warpgroup. One thread issues the loads in the consumers'
+    // order: resident weights once, then per (unit, chunk) the halo and, when
+    // streamed, the nine weight slices of that chunk.
+    setmaxnreg_dec<K1_PRODUCER_REGS>();
+    if (warp == K1_CONSUMERS / 32) {
+      if (lane != 0) return;
+      if (RESIDENT) {
+        mbar_expect_tx(w_full(0), 9 * d.n_chunks * WSLICE);
+        for (int ch = 0; ch < d.n_chunks; ++ch)
+          for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+            for (int half = 0; half < NP / 64; ++half)
+              tma_load_3d(wbase + (ch * 9 + tap) * WSLICE + half * K1_WBOX, &wmap, w_full(0),
+                          half * 64, ch * CHUNK, tap);
+      }
+      int k = 0, wk = 0;
+      for (int u = blockIdx.x; u < d.n_units; u += gridDim.x) {
+        int n, h0, w0;
+        unit_origin(u, n, h0, w0);
+        for (int ch = 0; ch < d.n_chunks; ++ch, ++k) {
+          const int hs = k % d.hstages;
+          mbar_wait(h_empty(hs), ((k / d.hstages) & 1) ^ 1);
+          mbar_expect_tx(h_full(hs), HBYTES);
+          tma_load_4d(hbase + hs * HSLOT, &xmap, h_full(hs), ch * CHUNK, w0 - 1, h0 - 1, n);
+          if (!RESIDENT) {
+            for (int tap = 0; tap < 9; ++tap, ++wk) {
+              const int ws = wk % d.wstages;
+              mbar_wait(w_empty(ws), ((wk / d.wstages) & 1) ^ 1);
+              mbar_expect_tx(w_full(ws), WSLICE);
+              // w[tap][c][o]: 64 rows (c) of 64 outputs per box
+#pragma unroll
+              for (int half = 0; half < NP / 64; ++half)
+                tma_load_3d(wbase + ws * WSLICE + half * K1_WBOX, &wmap, w_full(ws), half * 64,
+                            ch * CHUNK, tap);
+            }
+          }
+        }
+      }
+    } else if (prologue) {
+      // The prologue on each landed halo chunk, in the same order.
+      const int tid = threadIdx.x - K1_CONSUMERS - 32;
+      int k = 0;
+      for (int u = blockIdx.x; u < d.n_units; u += gridDim.x) {
+        int n, h0, w0;
+        unit_origin(u, n, h0, w0);
+        for (int ch = 0; ch < d.n_chunks; ++ch, ++k) {
+          const int hs = k % d.hstages;
+          mbar_wait(h_full(hs), (k / d.hstages) & 1);
+          prologue_box(reinterpret_cast<__nv_bfloat16*>(smem + halo_off + hs * HSLOT),
+                       HROWS * HALO_W, HALO_W, h0 - 1, w0 - 1, d.H, d.W, pas + ch * CHUNK,
+                       pbs + ch * CHUNK, tid, K1_PROLOGUE_THREADS);
+          fence_proxy_async();
+          mbar_arrive(h_ready(hs));
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<K1_CONSUMER_REGS>();
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  if (RESIDENT) mbar_wait(w_full(0), 0);
+  float acc[MT][NACC];
+  uint32_t a[2][MT][4];  // A operands of two K steps: the one in flight and the next
+  uint32_t rv[PREFETCH_R ? 2 : 1][2][PREFETCH_R ? NB : 1];  // bf16 pairs of r
+  // A of K step s (tap s/4, 16 channels from 16*(s%4) of the chunk): 16
+  // pixels of this warp's row in each half of each tile row, shifted by the tap.
+  auto load_a = [&](uint32_t (&dst)[MT][4], uint32_t halo, int s) {
+    const int dh = s / 12;
+    const int dw = (s / 4) % 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int p = ((mt >> 1) * TH + warp + dh) * HALO_W + (mt & 1) * 16 + dw + (lane & 15);
+      ldsm_x4(dst[mt], swizzled(halo, p, (s % 4) * 2 + (lane >> 4)));
+    }
+  };
+  int k = 0, wk = 0;
+  for (int u = blockIdx.x; u < d.n_units; u += gridDim.x) {
+    int n, h0, w0;
+    unit_origin(u, n, h0, w0);
+    if constexpr (PREFETCH_R) {
+      if (d.mode == MODE_BWD) {
+        const __nv_bfloat16* rn = r + image_offset(d.fr, n);
+        const int oh = h0 + warp;
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ow = w0 + half * 16 + g + hh * 8;
+            const bool in = oh < d.H && ow < d.W;
+            const __nv_bfloat16* rp = rn + (oh * d.fr.cols + ow) * d.fr.pitch;
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb) {
+              const int o = nb * 8 + 2 * q;
+              rv[half][hh][nb] =
+                  in && o < d.O ? __ldg(reinterpret_cast<const unsigned int*>(rp + o)) : 0u;
+            }
+          }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[mt][i] = 0.0f;
+
+    for (int ch = 0; ch < d.n_chunks; ++ch, ++k) {
+      const int hs = k % d.hstages;
+      mbar_wait(prologue ? h_ready(hs) : h_full(hs), (k / d.hstages) & 1);
+      const uint32_t halo = hbase + hs * HSLOT;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[1][mt][e] = 0u;
+      load_a(a[0], halo, 0);
+      uint32_t slice = 0;
+      // The 36 K steps of the chunk (9 taps x 4 x 16 channels), one commit
+      // each: while a step's MMAs run, the next step's A loads.
+#pragma unroll
+      for (int s = 0; s < 36; ++s) {
+        const int tap = s / 4;
+        if (s % 4 == 0) {
+          if (RESIDENT) {
+            slice = wbase + (ch * 9 + tap) * WSLICE;
+          } else {
+            const int ws = wk % d.wstages;
+            mbar_wait(w_full(ws), (wk / d.wstages) & 1);
+            slice = wbase + ws * WSLICE;
+          }
+        }
+        wgmma_fence();
+        // B: 16 rows (c) of the slice's 64-output boxes
+        const uint64_t desc = desc_sw128(slice + (s % 4) * 16 * BOX_ROW, K1_WBOX, 1024);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (NP == 64)
+            wgmma_m64n64k16_rs_tb(acc[mt], a[s & 1][mt], desc);
+          else
+            wgmma_m64n128k16_rs_tb(acc[mt], a[s & 1][mt], desc);
+        }
+        wgmma_commit();
+        // The previous step's MMAs are complete: its A registers, and at a
+        // tap's first step the previous tap's weight slice, are free.
+        wgmma_wait<1>();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_regs(a[(s + 1) & 1][mt]);
+        if (!RESIDENT && s % 4 == 0 && tap > 0 && lane == 0)
+          mbar_arrive(w_empty((wk - 1) % d.wstages));
+        if (s + 1 < 36) load_a(a[(s + 1) & 1], halo, s + 1);
+        if (!RESIDENT && s % 4 == 3) ++wk;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        fence_regs(acc[mt]);
+        fence_regs(a[0][mt]);
+        fence_regs(a[1][mt]);
+      }
+      if (lane == 0) {
+        mbar_arrive(h_empty(hs));
+        if (!RESIDENT) mbar_arrive(w_empty((wk - 1) % d.wstages));
+      }
+    }
+
+    // Epilogue of the unit. Accumulator element i of m-tile mt = (j, half) is
+    // pixel column w0 + 16*half + g + 8*((i%4)/2) of row h0 + 8*j + warp,
+    // output channel 8*(i/4) + 2q + i%2 (the m16n8 layout of each 8-column
+    // block). Modes: MODE_PLAIN y = act(acc + b); MODE_STATS y = acc + b and
+    // the sums of y, y*y from the unrounded value; MODE_BWD dz = acc, m =
+    // (pa*r + pb > 0), dx = m*dz*pa and the sums of m*dz*r, m*dz.
+    __nv_bfloat16* const yn = y + image_offset(d.fy, n);
+    const __nv_bfloat16* const rn = r + (d.mode == MODE_BWD ? image_offset(d.fr, n) : 0);
+#pragma unroll
+    for (int j = 0; j < TU; ++j) {
+      const int oh = h0 + j * TH + warp;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int o = nb * 8 + 2 * q;
+        const bool o_in = o < d.O;  // O % 8 == 0: o + 1 < O too
+        float c0[2] = {0.0f, 0.0f}, c1[2] = {0.0f, 0.0f};  // bias, or pa and pb
+        if (o_in) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (d.mode == MODE_BWD) {
+              c0[e] = __ldg(pa + o + e);
+              c1[e] = __ldg(pb + o + e);
+            } else {
+              c0[e] = __ldg(bias + o + e);
+            }
+          }
+        }
+        float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ow = w0 + half * 16 + g + hh * 8;
+            if (!o_in || oh >= d.H || ow >= d.W) continue;
+            float out[2];
+            if (d.mode == MODE_BWD) {
+              uint32_t rr2;
+              if constexpr (PREFETCH_R)
+                rr2 = rv[half][hh][nb];
+              else
+                rr2 = __ldg(reinterpret_cast<const unsigned int*>(
+                    rn + (oh * d.fr.cols + ow) * d.fr.pitch + o));
+              const float2 rr =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rr2));
+              const float rre[2] = {rr.x, rr.y};
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const bool m = __fadd_rn(__fmul_rn(rre[e], c0[e]), c1[e]) > 0.0f;
+                const float mdz = m ? acc[j * 2 + half][nb * 4 + hh * 2 + e] : 0.0f;
+                out[e] = mdz * c0[e];
+                s[0][e] += mdz * rre[e];
+                s[1][e] += mdz;
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                out[e] = acc[j * 2 + half][nb * 4 + hh * 2 + e] + c0[e];
+                if (d.relu) out[e] = fmaxf(out[e], 0.0f);
+                s[0][e] += out[e];
+                s[1][e] += out[e] * out[e];
+              }
+            }
+            store_pair(yn + (oh * d.fy.cols + ow) * d.fy.pitch + o, out[0], out[1]);
+          }
+        }
+        if (d.mode != MODE_PLAIN) {
+#pragma unroll
+          for (int st = 0; st < 2; ++st)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float v = s[st][e];
+              v += __shfl_xor_sync(0xffffffffu, v, 4);
+              v += __shfl_xor_sync(0xffffffffu, v, 8);
+              v += __shfl_xor_sync(0xffffffffu, v, 16);
+              if (lane < 4) red[((st * TU + j) * TH + warp) * NP + nb * 8 + lane * 2 + e] = v;
+            }
+        }
+      }
+    }
+    if (d.mode != MODE_PLAIN) {
+      // one partial row (2, NP) per 8x32 tile: the eight warps in order
+      consumer_sync<K1_CONSUMERS>();
+      if (threadIdx.x < 2 * TU * NP) {
+        const int st = threadIdx.x / (TU * NP);
+        const int j = (threadIdx.x / NP) % TU;
+        const int col = threadIdx.x % NP;
+        const int ty = h0 / TH + j;
+        if (ty < d.tiles_h) {
+          float total = 0.0f;
+#pragma unroll
+          for (int wq = 0; wq < TH; ++wq) total += red[((st * TU + j) * TH + wq) * NP + col];
+          const size_t tile = (static_cast<size_t>(n) * d.tiles_h + ty) * d.tiles_w + w0 / TW;
+          partial[(tile * 2 + st) * NP + col] = total;
+        }
+      }
+      consumer_sync<K1_CONSUMERS>();
+    }
+  }
+}
+
+template <int NP, int TU, bool RESIDENT>
+cudaError_t launch_packed_sm90(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                               const float* bias, __nv_bfloat16* y, const float* pa,
+                               const float* pb, const __nv_bfloat16* r, float* partial,
+                               const PackedSm90Dims& d, int grid, int smem, cudaStream_t s) {
+  auto kernel = conv3x3_packed_sm90_kernel<NP, TU, RESIDENT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, K1_THREADS, smem, s>>>(xmap, wmap, bias, y, pa, pb, r, partial, d);
+  return cudaGetLastError();
+}
+
+int packed_sm90(const void* x, const void* w, const void* b, void* y, const void* pa,
+                const void* pb, const void* r, void* partial, void* sums, const int* frames,
+                int N, int H, int W, int C, int O, int NP, int tile_rows, int resident,
+                int hstages, int wstages, int grid, int relu, int mode, int partial_rows,
+                void* stream) {
+  using namespace conv3x3;
+  const int TU = tile_rows / TH;
+  const int n_chunks = (C + CHUNK - 1) / CHUNK;
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || O % 8 != 0 || O > NP ||
+      (NP != 64 && NP != 128) || tile_rows % TH != 0 || (TU != 1 && TU != 2) ||
+      n_chunks > K1_MAX_CHUNKS || grid < 1 || hstages < 2 ||
+      (!resident && wstages < 2) || (TU == 2 && (NP != 64 || resident || mode == MODE_BWD)) ||
+      (resident && NP != 64) || mode < MODE_PLAIN || mode > MODE_BWD ||
+      (pa == nullptr) != (pb == nullptr) ||
+      (mode == MODE_BWD && (pa == nullptr || r == nullptr || relu)) ||
+      (mode == MODE_STATS && relu) || frames == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = k1_smem_bytes(NP, TU, resident != 0, n_chunks, hstages, wstages);
+  if (smem > sm90::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
+  const Frame fy{frames[5], frames[6], frames[7], frames[8], frames[9]};
+  const Frame fr{frames[10], frames[11], frames[12], frames[13], frames[14]};
+  if (!frame_ok(fx, H, W, C) || !frame_ok(fy, H, W, O) || fy.pitch % 2 != 0 ||
+      (mode == MODE_BWD && (!frame_ok(fr, H, W, O) || fr.pitch % 2 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int units_h = (H + tile_rows - 1) / tile_rows;
+  const long long tiles = static_cast<long long>(N) * tiles_h * tiles_w;
+  const long long units = static_cast<long long>(N) * units_h * tiles_w;
+  if (units > 0x7fffffffLL || (mode != MODE_PLAIN && (partial_rows != tiles ||
+                                                      partial == nullptr || sums == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  // w (3, 3, C, O) as dims (O, C, 9): the output channels contiguous, zero
+  // past O and C
+  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(O), static_cast<cuuint64_t>(C), 9};
+  const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(O) * 2,
+                                  static_cast<cuuint64_t>(O) * C * 2};
+  const cuuint32_t wbox[3] = {64, static_cast<cuuint32_t>(CHUNK), 1};
+  if (!sm90::nhwc_map(&xmap, x, fx, N, H, W, C, HALO_W, tile_rows + 2) ||
+      !sm90::encode_bf16(&wmap, w, 3, wdims, wstrides, wbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PackedSm90Dims d{H,    W,    C,       O,       n_chunks, tiles_h, tiles_w, units_h,
+                         static_cast<int>(units), relu, mode, hstages, wstages, fy, fr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* bias = static_cast<const float*>(b);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  const auto* paf = static_cast<const float*>(pa);
+  const auto* pbf = static_cast<const float*>(pb);
+  const auto* rb = static_cast<const __nv_bfloat16*>(r);
+  auto* part = static_cast<float*>(partial);
+  cudaError_t err;
+  if (resident)
+    err = launch_packed_sm90<64, 1, true>(xmap, wmap, bias, yb, paf, pbf, rb, part, d, grid,
+                                          smem, s);
+  else if (NP == 128)
+    err = launch_packed_sm90<128, 1, false>(xmap, wmap, bias, yb, paf, pbf, rb, part, d, grid,
+                                            smem, s);
+  else if (TU == 2)
+    err = launch_packed_sm90<64, 2, false>(xmap, wmap, bias, yb, paf, pbf, rb, part, d, grid,
+                                           smem, s);
+  else
+    err = launch_packed_sm90<64, 1, false>(xmap, wmap, bias, yb, paf, pbf, rb, part, d, grid,
+                                           smem, s);
+  if (err != cudaSuccess || mode == MODE_PLAIN) return static_cast<int>(err);
+  return static_cast<int>(reduce_rows(part, static_cast<float*>(sums), partial_rows, 2 * NP, s));
+}
 
 template <typename T>
 int packed_impl(const void* x, const void* wp, const void* b, void* y, const void* pa,
@@ -108,4 +610,22 @@ extern "C" int conv3x3_packed_f32(const void* x, const void* wp, const void* b, 
                                   int x_lanes_zero, int partial_rows, void* stream) {
   return packed_impl<float>(x, wp, b, y, pa, pb, r, partial, sums, frames, N, H, W, C, Cp, O,
                             NP, relu, mode, x_lanes_zero, partial_rows, stream);
+}
+
+// The Hopper kernel (bf16): x framed by frames[0:5] with C <= 256 and a pitch
+// that is a multiple of 8, w: (3, 3, C, O) bf16 HWIO weights, read in place,
+// with O % 8 == 0 and O <= NP; b, y, pa, pb, r, frames, partial and sums as
+// above (y's and r's pitches even), partial_rows = N * ceil(H/8) * ceil(W/32).
+// The plan (ops/kernels/sm90_plan.py packed_plan): NP (64 or 128), tile_rows
+// (8 or 16: pixel rows of a work unit), resident (weights kept in shared
+// memory), hstages (halo ring depth), wstages (weight ring depth when
+// streamed), grid (persistent blocks).
+extern "C" int conv3x3_packed_sm90_bf16(const void* x, const void* w, const void* b, void* y,
+                                        const void* pa, const void* pb, const void* r,
+                                        void* partial, void* sums, const int* frames, int N,
+                                        int H, int W, int C, int O, int NP, int tile_rows,
+                                        int resident, int hstages, int wstages, int grid,
+                                        int relu, int mode, int partial_rows, void* stream) {
+  return packed_sm90(x, w, b, y, pa, pb, r, partial, sums, frames, N, H, W, C, O, NP, tile_rows,
+                     resident, hstages, wstages, grid, relu, mode, partial_rows, stream);
 }

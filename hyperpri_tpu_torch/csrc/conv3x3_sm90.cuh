@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the bf16 conv kernels redesigned for the
-// H100: conv3x3_sm90_kernel (conv3x3.cu, conv3x3_bias_act) and
+// H100: conv3x3_packed_sm90_kernel (conv3x3_packed.cu, conv3x3_packed),
+// conv3x3_sm90_kernel (conv3x3.cu, conv3x3_bias_act) and
 // conv3x3_wgrad_sm90_kernel (conv3x3_grad.cu, conv3x3_wgrad).
 //
 //   - Staging is asynchronous: one thread keeps TMA loads

@@ -37,12 +37,22 @@ geometry in framing.py). Each operand is a framed view of its buffer:
     of), else of framing.arena_shape; the statistics stay over the logical
     region.
 The JAX kernel's `lane_stride` is the width of the output tile, which the
-wrapper picks from O (64 for O <= 64, else 128) and pads the packed weights to.
-Only the logical region of a framed input is read: the kernel zero-fills the
-rest by select, and the plain version slices it out.
+plan picks from O (64 for O <= 64, else 128). Only the logical region of a
+framed input is read: the Hopper kernel's tensor maps cover just that region
+(TMA zero-fills the rest), the synchronous one zero-fills it by select, and
+the plain version slices it out.
+
+On the card the call takes one of two kernel bodies, chosen before the launch
+by sm90_plan.packed_plan from its dtype and layout: "sm90", the Hopper kernel
+(persistent blocks, TMA staging into mbarrier rings, wgmma; bf16 views TMA
+can address with O % 8 == 0 and C <= 256; it reads w in place), or
+"legacy", the synchronous mma.sync kernel on packed weights (float32, and
+bf16 layouts TMA cannot take, e.g. C = 238 unframed). The private keyword
+`_legacy=True` takes the synchronous body whatever the layout, to hold the
+two bodies against each other.
 
 `conv3x3_packed` runs the plain version, `conv3x3_packed_reference`, only for
-tensors on the CPU. For CUDA tensors it launches the kernel or raises.
+tensors on the CPU. For CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -52,11 +62,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from hyperpri_tpu_torch.ops.kernels import _plain, framing
+from hyperpri_tpu_torch.ops.kernels import _plain, framing, sm90_plan
 from hyperpri_tpu_torch.ops.kernels.framing import Frame
 
 MAX_OUT = 128
-_TH, _TW = 8, 32  # the kernel's pixel tile: one row of partial sums per tile
 _MODE_PLAIN, _MODE_STATS, _MODE_BWD = 0, 1, 2
 
 
@@ -189,19 +198,43 @@ def _lib(suffix: str):
                        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
+def _lib_sm90():
+    return _plain.bind("conv3x3_packed", "conv3x3_packed_sm90_bf16",
+                       [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+
+
+def _plan(x, w, bwd_x, f: _Framing, legacy: bool) -> sm90_plan.PackedPlan:
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return sm90_plan.packed_plan(f.n, f.h, f.w, f.c, f.o, x.dtype, f.fx.pitch,
+                                 bwd=bwd_x is not None, aligned=aligned, sm90=not legacy,
+                                 y_pitch=f.fy.pitch, r_pitch=f.fr.pitch)
+
+
+def call_plan(x: torch.Tensor, w: torch.Tensor, pa: Optional[torch.Tensor] = None,
+              bwd_x: Optional[torch.Tensor] = None, *, _legacy: bool = False,
+              **framing_flags) -> sm90_plan.PackedPlan:
+    """The plan (kernel body, tiling, rings, grid) that conv3x3_packed takes
+    for these operands on the card; w as the wrapper reads it (x's dtype,
+    contiguous)."""
+    f = _resolve(x, w, pa, bwd_x, **_framing_kwargs(framing_flags))
+    return _plan(x, w, bwd_x, f, _legacy)
+
+
 def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    pa: Optional[torch.Tensor] = None, pb: Optional[torch.Tensor] = None,
                    bwd_x: Optional[torch.Tensor] = None, *,
                    relu: bool = True, with_stats: bool = False, logical_hw=None,
                    arena_in: bool = False, arena_out: bool = False, arena_g: bool = False,
-                   pre_padded: bool = False):
+                   pre_padded: bool = False, _legacy: bool = False):
     """y, (y, (sum, sumsq)) or (dx, (dpa, dpb)); see the module docstring.
 
     `conv3x3_packed.calls` counts every call (the kernel route was taken);
-    `conv3x3_packed.launches` counts launches of the CUDA kernel only,
+    `conv3x3_packed.launches` counts launches of the CUDA kernels only,
     `calls_by_framing` / `launches_by_framing` count them by framing flag
-    ("unframed" for a call without one) and `launches_by_dtype` by the
-    activations' type ("bf16", "f32")."""
+    ("unframed" for a call without one), `launches_by_dtype` by the
+    activations' type ("bf16", "f32") and `launches_by_path` by kernel body
+    ("sm90", "legacy")."""
     _check(x, w, b, pa, pb, bwd_x, relu, with_stats)
     flags = dict(logical_hw=logical_hw, arena_in=arena_in, arena_out=arena_out,
                  arena_g=arena_g, pre_padded=pre_padded)
@@ -220,26 +253,39 @@ def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if n * h * width == 0:
         raise ValueError("conv3x3_packed: empty input")
     mode = _MODE_BWD if bwd_x is not None else _MODE_STATS if with_stats else _MODE_PLAIN
-    wp = _plain.pack_weights(w, 64 if o <= 64 else 128, x.dtype)
-    np_ = wp.shape[1]
+    w_bf16 = w.to(x.dtype).contiguous() if x.dtype == torch.bfloat16 else w
+    plan = _plan(x, w_bf16, bwd_x, f, _legacy)
+    np_ = plan.tile_o
     bf, paf, pbf = _plain.f32_vector(b), _plain.f32_vector(pa), _plain.f32_vector(pb)
-    rows = n * -(-h // _TH) * -(-width // _TW)
     partial = sums = None
     if mode != _MODE_PLAIN:
-        partial = torch.empty((rows, 2, np_), dtype=torch.float32, device=x.device)
+        partial = torch.empty((plan.partial_rows, 2, np_), dtype=torch.float32, device=x.device)
         sums = torch.empty((2, np_), dtype=torch.float32, device=x.device)
+    frames = framing.frames_arg(f.fx, f.fy, f.fr)
     with torch.cuda.device(x.device):
-        err = _lib(suffix)(
-            x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
-            _plain.ptr(pbf), _plain.ptr(bwd_x), _plain.ptr(partial), _plain.ptr(sums),
-            framing.frames_arg(f.fx, f.fy, f.fr), n, h, width, c, wp.shape[2], o, np_,
-            int(relu), mode, int(pre_padded), rows, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.path == "sm90":
+            # the Hopper kernel reads w in place; the synchronous one packed weights
+            err = _lib_sm90()(
+                x.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
+                _plain.ptr(pbf), _plain.ptr(bwd_x), _plain.ptr(partial), _plain.ptr(sums),
+                frames, n, h, width, c, o, np_, plan.tile_rows, int(plan.resident),
+                plan.stages, plan.w_stages, plan.grid[0], int(relu), mode, plan.partial_rows,
+                stream)
+        else:
+            wp = _plain.pack_weights(w, np_, x.dtype)
+            err = _lib(suffix)(
+                x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
+                _plain.ptr(pbf), _plain.ptr(bwd_x), _plain.ptr(partial), _plain.ptr(sums),
+                frames, n, h, width, c, wp.shape[2], o, np_, int(relu), mode, int(pre_padded),
+                plan.partial_rows, stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_packed kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"conv3x3_packed kernel launch failed ({plan.path}): "
+                           f"cudaError_t {err}")
     conv3x3_packed.launches += 1
     _plain.count(conv3x3_packed.launches_by_framing, f.names)
     _plain.count(conv3x3_packed.launches_by_dtype, (suffix,))
+    _plain.count(conv3x3_packed.launches_by_path, (plan.path,))
     if mode == _MODE_PLAIN:
         return y
     return y, (sums[0, :o], sums[1, :o])
@@ -250,3 +296,4 @@ conv3x3_packed.launches = 0
 conv3x3_packed.calls_by_framing = {}
 conv3x3_packed.launches_by_framing = {}
 conv3x3_packed.launches_by_dtype = {}
+conv3x3_packed.launches_by_path = {}

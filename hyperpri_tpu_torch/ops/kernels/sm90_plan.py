@@ -1,12 +1,14 @@
-"""How a conv3x3_bias_act or conv3x3_wgrad call runs on the card: which kernel
-body, with which tiling, ring depth and pixel splits.
+"""How a conv3x3_packed, conv3x3_bias_act or conv3x3_wgrad call runs on the
+card: which kernel body, with which tiling, ring depths, weight residency,
+persistent grid and pixel splits.
 
 Each plan is a pure function of the call's shape, dtype, mode and layout
 (frames, strides, alignment), so that the CPU tests can hold it without a
 card, and the wrappers choose before the launch, never on a failure.
 
-  - "sm90": the Hopper kernels (csrc/conv3x3_sm90.cuh; conv3x3_sm90_kernel in
-    csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel in csrc/conv3x3_grad.cu): TMA
+  - "sm90": the Hopper kernels (csrc/conv3x3_sm90.cuh;
+    conv3x3_packed_sm90_kernel in csrc/conv3x3_packed.cu, conv3x3_sm90_kernel
+    in csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel in csrc/conv3x3_grad.cu): TMA
     staging into an mbarrier ring and wgmma products. They take bf16 views
     that TMA can address: every stride a multiple of 16 bytes (a channel
     pitch that is a multiple of 8) and a 16-byte aligned logical origin.
@@ -14,8 +16,9 @@ card, and the wrappers choose before the launch, never on a failure.
     float32, the weight gradient's fold mode, and bf16 layouts TMA cannot
     take (e.g. C = 238 unframed: 476-byte pixels).
 
-The shared-memory sums mirror the kernels' (k2_smem_bytes in conv3x3.cu,
-k3_smem_bytes in conv3x3_grad.cu); each plan's must fit an H100 block.
+The shared-memory sums mirror the kernels' (k1_smem_bytes in
+conv3x3_packed.cu, k2_smem_bytes in conv3x3.cu, k3_smem_bytes in
+conv3x3_grad.cu); each plan's must fit an H100 block.
 `sm90=False` sends a call to the synchronous kernels whatever its layout:
 the wrappers pass it for their private `_legacy` keyword, with which the
 fold mode (which has no Hopper body) is compared bit for bit with the
@@ -24,7 +27,7 @@ synchronous body, and the two bodies with each other.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +41,16 @@ HALO_BYTES = (TH + 2) * (TW + 2) * BOX_ROW
 HALO_SLOT = -(-HALO_BYTES // 1024) * 1024
 TILE_BYTES = TH * TW * BOX_ROW
 
+# conv3x3_packed_sm90_kernel: persistent blocks walking work units of TU
+# 8x32 pixel tiles; the halo of each (unit, 64-channel chunk) in a ring of
+# halo stages; the weights (chunk, tap) slices of 64 x NP, resident where all
+# of them fit beside a ring of two halo stages, else streamed through a ring
+# of their own; TU = 2 at NP = 64 with streamed weights (one slice feeds two
+# tiles) unless the backward epilogue holds r in registers.
+K1_MAX_CHUNKS = 4
+K1_AFFINE_BYTES = 2 * K1_MAX_CHUNKS * CHUNK * 4
+K1_MAX_HSTAGES = 4
+K1_MAX_WSTAGES = 8
 # conv3x3_sm90_kernel: O tiles of 128 walked inside the block, the whole halo
 # resident (at most 4 chunks: C <= 256), weight slices of 16 KiB in a ring of
 # 2-4 stages.
@@ -72,6 +85,19 @@ class BiasActPlan(NamedTuple):
     smem: int                     # dynamic shared memory of a block
 
 
+class PackedPlan(NamedTuple):
+    path: str                     # "sm90" or "legacy"
+    tile_o: int                   # output channels of the tile (NP)
+    tile_rows: int                # pixel rows of a work unit: 8 * TU (8 for legacy)
+    resident: bool                # the weights stay in shared memory (sm90)
+    stages: int                   # halo ring depth (sm90), 0 for legacy
+    w_stages: int                 # weight ring depth (sm90, streamed), else 0
+    grid: Tuple[int, int, int]
+    units: int                    # work units the blocks walk (legacy: one per block)
+    partial_rows: int             # rows of the sums' partial buffer: one per 8x32 tile
+    smem: int                     # dynamic shared memory of a block
+
+
 class WgradPlan(NamedTuple):
     path: str                     # "sm90" or "legacy"
     splits: int                   # blocks along the pixel axis
@@ -83,6 +109,18 @@ class WgradPlan(NamedTuple):
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def k1_halo_slot(tu: int) -> int:
+    return _cdiv((TH * tu + 2) * (TW + 2) * BOX_ROW, 1024) * 1024
+
+
+def k1_smem_bytes(tile_o: int, tu: int, resident: bool, n_chunks: int, hstages: int,
+                  wstages: int) -> int:
+    wslots = 9 * n_chunks if resident else wstages
+    wbars = 1 if resident else wstages
+    return (ALIGN_SLACK + wslots * tile_o * BOX_ROW + hstages * k1_halo_slot(tu)
+            + 2 * tu * TH * tile_o * 4 + K1_AFFINE_BYTES + (2 * wbars + 3 * hstages) * 8)
 
 
 def k2_smem_bytes(n_chunks: int, stages: int) -> int:
@@ -99,6 +137,59 @@ def tma_view_ok(pitch: int, aligned: bool) -> bool:
     multiple of 16, so every row and image stride and, with the buffer's base
     16-byte aligned (`aligned`), the logical origin are too."""
     return pitch % 8 == 0 and aligned
+
+
+def packed_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pitch: int,
+                bwd: bool = False, aligned: bool = True, sm90: bool = True,
+                y_pitch: Optional[int] = None, r_pitch: Optional[int] = None) -> PackedPlan:
+    """The plan of conv3x3_packed for logical (n, h, w) images of c input
+    and o <= 128 output channels, x in a view of channel pitch x_pitch and y
+    and (with the backward epilogue, `bwd`) r in views of y_pitch and r_pitch
+    (their frames'; o when None); `aligned`: the data pointers of x's buffer
+    and of the (3, 3, c, o) weights, which the Hopper kernel reads in place
+    by TMA, are 16-byte aligned. The Hopper body takes bf16 with a TMA view
+    of x, o % 8 == 0 (TMA strides of the weights), even y and r pitches (its
+    stores and loads take channel pairs) and c <= 256; it launches
+    one persistent block per SM (no more than there are work units), the
+    rings as deep as the shared memory allows."""
+    tile_o = 64 if o <= 64 else 128
+    tiles = n * _cdiv(h, TH) * _cdiv(w, TW)
+    n_chunks = _cdiv(c, CHUNK)
+    pairs = all(p % 2 == 0 for p in (y_pitch or o, r_pitch or o))
+    if (sm90 and dtype == torch.bfloat16 and n_chunks <= K1_MAX_CHUNKS and pairs
+            and tma_view_ok(x_pitch, aligned) and tma_view_ok(o, aligned)):
+        resident = tile_o == 64 and k1_smem_bytes(64, 1, True, n_chunks, 2, 0) <= SMEM_LIMIT
+        tu = 2 if tile_o == 64 and not resident and not bwd else 1
+        if resident:
+            wstages = 0
+            hstages = max(s for s in range(2, K1_MAX_HSTAGES + 1)
+                          if s == 2 or k1_smem_bytes(64, 1, True, n_chunks, s, 0) <= SMEM_LIMIT)
+        else:
+            hstages = 2
+            wstages = max(s for s in range(2, K1_MAX_WSTAGES + 1)
+                          if s == 2 or k1_smem_bytes(tile_o, tu, False, n_chunks, 2, s)
+                          <= SMEM_LIMIT)
+        units = n * _cdiv(h, TH * tu) * _cdiv(w, TW)
+        return PackedPlan("sm90", tile_o, TH * tu, resident, hstages, wstages,
+                          (min(units, SMS), 1, 1), units, tiles,
+                          k1_smem_bytes(tile_o, tu, resident, n_chunks, hstages, wstages))
+    return PackedPlan("legacy", tile_o, TH, False, 0, 0, (_cdiv(w, TW), _cdiv(h, TH), n), tiles,
+                      tiles, (LEGACY_HALO_PIX + 9 * tile_o) * LEGACY_ROW_BYTES)
+
+
+def packed_tiles(plan: PackedPlan, n: int, h: int, w: int, block: int):
+    """The 8x32 pixel tiles (image, tile row, tile column) that block `block`
+    of an sm90 plan computes, in its order: units block, block + grid, ...
+    (the kernel's walk; a unit's tiles past the image are skipped)."""
+    tu = plan.tile_rows // TH
+    tiles_h, tiles_w = _cdiv(h, TH), _cdiv(w, TW)
+    units_h = _cdiv(h, plan.tile_rows)
+    out = []
+    for u in range(block, plan.units, plan.grid[0]):
+        t, ux = divmod(u, tiles_w)
+        image, uy = divmod(t, units_h)
+        out += [(image, uy * tu + j, ux) for j in range(tu) if uy * tu + j < tiles_h]
+    return out
 
 
 def bias_act_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,

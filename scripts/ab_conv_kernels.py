@@ -1,6 +1,6 @@
-"""Time the port's 3x3 conv kernels at the bf16 training step's calls for one
-source tree, to compare two commits of hyperpri_tpu_torch on the same card
-within one job:
+"""Time the port's 3x3 conv kernels at the bf16 training step's and serving's
+calls for one source tree, to compare two commits of hyperpri_tpu_torch on the
+same card within one job:
 
     git archive <parent> | tar -x -C build/parent      # a gitignored directory
     python3 scripts/ab_conv_kernels.py build/parent
@@ -9,15 +9,17 @@ within one job:
     python3 scripts/ab_conv_kernels.py build/parent
 
 Each run imports hyperpri_tpu_torch from the given tree (building its kernels
-there) and calls, on seeded inputs at batch 2: every distinct bf16 call of
-conv3x3_bias_act (12 a CubeNET-64 step) and conv3x3_wgrad (11, the first
-reading the host pre-padded ingest buffer) with its multiplicity in a step;
-as controls, one float32 call of each and the four conv3x3_packed calls of
-the step at 608x968. Per call it prints the median wrapper time by CUDA
-events (20 timed calls after 3 warm-ups) and the device time of the call's
-kernels from torch.profiler over 10 calls; then, per kernel and dtype, the
-sums over the step's calls (time x multiplicity). The card's name and power
-limit come first. Needs a CUDA device; imports no JAX.
+there) and calls, on seeded inputs: the targets, every distinct bf16 call of
+conv3x3_packed in a product-loop step (9 at batch 2, the first reading the
+host pre-padded ingest buffer) and in a served cube (4 at batch 1), each with
+its multiplicity; as controls, every distinct bf16 call of conv3x3_bias_act
+(12 a CubeNET-64 step) and conv3x3_wgrad (11), one float32 call of each and
+the float32 conv3x3_packed calls of a CubeNET-64 float32 step. Per call it
+prints the median wrapper time by CUDA events (20 timed calls after 3
+warm-ups) and the device time of the call's kernels from torch.profiler over
+10 calls; then, per kernel, dtype and group (step, serving, control), the
+sums over the calls (time x multiplicity). The card's name and power limit
+come first. Needs a CUDA device; imports no JAX.
 """
 
 import os
@@ -28,31 +30,59 @@ import sys
 import torch
 
 H, W = 608, 968
-# (label, kernel, shape (N, H, W, C), O, mode, dtype, calls in a step)
+# (label, kernel, shape (N, H, W, C), O, mode, dtype, calls, group)
 CALLS = [
-    ("down1.conv1 stats", "halo", (2, 304, 484, 64), 128, "stats", "bf16", 1),
-    ("down1/up3.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "bf16", 2),
-    ("down1/up3.conv2 adjoint", "halo", (2, 304, 484, 128), 128, "adjoint", "bf16", 2),
-    ("up3.conv1 stats", "halo", (2, 304, 484, 256), 128, "stats", "bf16", 1),
-    ("up3.conv1 adjoint", "halo", (2, 304, 484, 128), 256, "adjoint", "bf16", 1),
-    ("down2.conv1 stats", "halo", (2, 152, 242, 128), 256, "stats", "bf16", 1),
-    ("down2/up2.conv2 stats+prologue", "halo", (2, 152, 242, 256), 256, "prologue", "bf16", 2),
-    ("down2/up2.conv2 adjoint", "halo", (2, 152, 242, 256), 256, "adjoint", "bf16", 2),
-    ("first_conv wgrad pre-padded", "wgrad", (2, H, W, 238), 64, "pre_padded", "bf16", 1),
-    ("inc2/up4.conv2 wgrad prologue", "wgrad", (2, H, W, 64), 64, "prologue", "bf16", 2),
-    ("up4.conv1 wgrad", "wgrad", (2, H, W, 128), 64, "plain", "bf16", 1),
-    ("down1.conv1 wgrad", "wgrad", (2, 304, 484, 64), 128, "plain", "bf16", 1),
-    ("down1/up3.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "bf16", 2),
-    ("up3.conv1 wgrad", "wgrad", (2, 304, 484, 256), 128, "plain", "bf16", 1),
-    ("down2.conv1 wgrad", "wgrad", (2, 152, 242, 128), 256, "plain", "bf16", 1),
-    ("down2/up2.conv2 wgrad prologue", "wgrad", (2, 152, 242, 256), 256, "prologue", "bf16", 2),
+    # targets: conv3x3_packed in bf16, a product-loop step's calls and a served cube's
+    ("first_conv stats pre-padded", "packed", (2, H, W, 238), 64, "pre_padded", "bf16", 1, "step"),
+    ("inc2/up4.conv2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue", "bf16", 2, "step"),
+    ("inc2/up4.conv2 bwd_x", "packed", (2, H, W, 64), 64, "bwd_x", "bf16", 2, "step"),
+    ("down1.conv1 adjoint", "packed", (2, 304, 484, 128), 64, "adjoint", "bf16", 1, "step"),
+    ("down2.conv1 adjoint", "packed", (2, 152, 242, 256), 128, "adjoint", "bf16", 1, "step"),
+    ("up4.conv1 stats", "packed", (2, H, W, 128), 64, "stats", "bf16", 1, "step"),
+    ("up4.conv1 adjoint", "packed", (2, H, W, 64), 128, "adjoint", "bf16", 1, "step"),
+    ("serving first_conv", "packed", (1, H, W, 238), 64, "relu", "bf16", 1, "serving"),
+    ("serving inc2/up4.conv2", "packed", (1, H, W, 64), 64, "relu", "bf16", 2, "serving"),
+    ("serving up4.conv1", "packed", (1, H, W, 128), 64, "relu", "bf16", 1, "serving"),
     # controls: kernels and forms this comparison does not target
-    ("f32 down1.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "f32", 1),
-    ("f32 down1.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "f32", 1),
-    ("packed first_conv stats", "packed", (2, H, W, 238), 64, "stats", "bf16", 1),
-    ("packed inc2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue", "bf16", 1),
-    ("packed inc2 bwd_x", "packed", (2, H, W, 64), 64, "bwd_x", "bf16", 1),
-    ("packed up4.conv1 stats", "packed", (2, H, W, 128), 64, "stats", "bf16", 1),
+    ("down1.conv1 stats", "halo", (2, 304, 484, 64), 128, "stats", "bf16", 1, "control"),
+    ("down1/up3.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "bf16", 2,
+     "control"),
+    ("down1/up3.conv2 adjoint", "halo", (2, 304, 484, 128), 128, "adjoint", "bf16", 2,
+     "control"),
+    ("up3.conv1 stats", "halo", (2, 304, 484, 256), 128, "stats", "bf16", 1, "control"),
+    ("up3.conv1 adjoint", "halo", (2, 304, 484, 128), 256, "adjoint", "bf16", 1, "control"),
+    ("down2.conv1 stats", "halo", (2, 152, 242, 128), 256, "stats", "bf16", 1, "control"),
+    ("down2/up2.conv2 stats+prologue", "halo", (2, 152, 242, 256), 256, "prologue", "bf16", 2,
+     "control"),
+    ("down2/up2.conv2 adjoint", "halo", (2, 152, 242, 256), 256, "adjoint", "bf16", 2,
+     "control"),
+    ("first_conv wgrad pre-padded", "wgrad", (2, H, W, 238), 64, "pre_padded", "bf16", 1,
+     "control"),
+    ("inc2/up4.conv2 wgrad prologue", "wgrad", (2, H, W, 64), 64, "prologue", "bf16", 2,
+     "control"),
+    ("up4.conv1 wgrad", "wgrad", (2, H, W, 128), 64, "plain", "bf16", 1, "control"),
+    ("down1.conv1 wgrad", "wgrad", (2, 304, 484, 64), 128, "plain", "bf16", 1, "control"),
+    ("down1/up3.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "bf16", 2,
+     "control"),
+    ("up3.conv1 wgrad", "wgrad", (2, 304, 484, 256), 128, "plain", "bf16", 1, "control"),
+    ("down2.conv1 wgrad", "wgrad", (2, 152, 242, 128), 256, "plain", "bf16", 1, "control"),
+    ("down2/up2.conv2 wgrad prologue", "wgrad", (2, 152, 242, 256), 256, "prologue", "bf16", 2,
+     "control"),
+    ("f32 down1.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "f32", 1,
+     "control"),
+    ("f32 down1.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "f32", 1,
+     "control"),
+    ("f32 first_conv stats pre-padded", "packed", (2, H, W, 238), 64, "pre_padded", "f32", 1,
+     "control"),
+    ("f32 inc2/up4.conv2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue", "f32", 2,
+     "control"),
+    ("f32 inc2/up4.conv2 bwd_x", "packed", (2, H, W, 64), 64, "bwd_x", "f32", 2, "control"),
+    ("f32 down1.conv1 adjoint", "packed", (2, 304, 484, 128), 64, "adjoint", "f32", 1,
+     "control"),
+    ("f32 down2.conv1 adjoint", "packed", (2, 152, 242, 256), 128, "adjoint", "f32", 1,
+     "control"),
+    ("f32 up4.conv1 stats", "packed", (2, H, W, 128), 64, "stats", "f32", 1, "control"),
+    ("f32 up4.conv1 adjoint", "packed", (2, H, W, 64), 128, "adjoint", "f32", 1, "control"),
 ]
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -114,6 +144,12 @@ def make_call(kernels, kernel, shape, o, mode, dtype, gen):
     wk = (torch.randn((3, 3, c, o), generator=gen, device="cuda") / (9 * c) ** 0.5).to(dtype)
     b = 0.1 * torch.randn((o,), generator=gen, device="cuda")
     fn = conv3x3_packed if kernel == "packed" else conv3x3_bias_act
+    if mode == "pre_padded":
+        xb = ingest_buffer(x)
+        return lambda: fn(xb, wk, b, relu=False, with_stats=True, pre_padded=True,
+                          logical_hw=(h, w))
+    if mode == "relu":
+        return lambda: fn(x, wk, b)
     if mode == "bwd_x":
         r = rand(n, h, w, o)
         qa = 0.5 + torch.rand((o,), generator=gen, device="cuda")
@@ -146,20 +182,20 @@ def main():
     kernels = (conv3x3_packed, conv3x3_bias_act, conv3x3_wgrad)
     print(f"{args[0]} on {card}", flush=True)
     sums = {}
-    for label, kernel, shape, o, mode, dtype, count in CALLS:
+    for label, kernel, shape, o, mode, dtype, count, group in CALLS:
         fn = make_call(kernels, kernel, shape, o, mode, DTYPES[dtype], gen)
         ms, dev = cuda_ms(fn), device_ms(fn)
-        key = f"{kernel} {dtype}"
+        key = f"{kernel} {dtype} {group}"
         total = sums.setdefault(key, [0.0, 0.0, 0])
         total[0] += ms * count
         total[1] += dev * count
         total[2] += count
-        print(f"  {label:32s} {dtype:4s} x{count} wrapper {ms:.4f} ms, device {dev:.4f} ms",
+        print(f"  {label:34s} {dtype:4s} x{count} wrapper {ms:.4f} ms, device {dev:.4f} ms",
               flush=True)
         del fn
         torch.cuda.empty_cache()
     for key, (ms, dev, count) in sums.items():
-        print(f"  sum {key:12s} over {count:2d} calls: wrapper {ms:.4f} ms, device {dev:.4f} ms")
+        print(f"  sum {key:22s} over {count:2d} calls: wrapper {ms:.4f} ms, device {dev:.4f} ms")
     return 0
 
 

@@ -676,18 +676,18 @@ def test_sm90_wgrad_matches_plain(cuda_device, shape, o, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["bias_act", "wgrad"])
+@pytest.mark.parametrize("kernel", ["bias_act", "wgrad", "packed"])
 def test_legacy_body_takes_float32_and_untma_layouts(cuda_device, kernel):
     """float32 and a bf16 view TMA cannot address (C = 238 unframed: 476-byte
     pixels) take the synchronous kernel, chosen before the launch."""
-    fn = conv3x3_bias_act if kernel == "bias_act" else conv3x3_wgrad
+    fn = {"bias_act": conv3x3_bias_act, "wgrad": conv3x3_wgrad, "packed": conv3x3_packed}[kernel]
     for dtype, c in ((torch.float32, 64), (torch.bfloat16, 238)):
         x, w, b, rng = _conv_inputs(cuda_device, (1, 13, 37, c), 64, dtype=dtype)
         before = dict(fn.launches_by_path)
-        if kernel == "bias_act":
-            fn(x, w, b, relu=False)
-        else:
+        if kernel == "wgrad":
             fn(x, torch.ones((1, 13, 37, 64), dtype=dtype, device=cuda_device))
+        else:
+            fn(x, w, b, relu=False)
         assert _path_delta(fn, before) == {"legacy": 1}
 
 
@@ -720,3 +720,144 @@ def test_sm90_wgrad_one_signed_terms(cuda_device, shape, o):
     torch.cuda.synchronize()
     _assert_sums_close(dw, exact, scale, SM90_SUM_REL)
     _assert_sums_close(dw_sync, exact, scale, SM90_SUM_REL)
+
+
+# The Hopper body of conv3x3_packed (kernel 1), at the bf16 step's calls cut
+# to 24 rows (608x968 -> 24x968: the persistent walk, both unit heights and
+# ragged units at the bottom edge) and 152x242 -> 19x242: every mode in every
+# framing it takes, at 64 outputs (resident weights for C = 64, streamed with
+# two-tile units for C = 128 and the ingest conv's C = 238) and at 128 (NP =
+# 128, streamed). Framed buffers hold NaN in their frames.
+_SM90_PACKED = [
+    ((2, 24, 968, 64), 64, mode, framing)
+    for mode, framing in (
+        ("relu", ()), ("stats", ()), ("prologue", ()), ("bwd_x", ()), ("relu", ("arena_out",)),
+        ("stats", ("arena_out",)), ("prologue", ("arena_in",)),
+        ("prologue", ("arena_in", "arena_out")), ("relu", ("arena_g",)),
+        ("stats", ("arena_g",)), ("bwd_x", ("arena_in",)), ("bwd_x", ("arena_in", "arena_out")),
+        ("bwd_x", ("arena_in", "arena_out", "arena_g")), ("bwd_x", ("arena_g",)))
+] + [
+    ((2, 24, 968, 128), 64, mode, framing)
+    for mode, framing in (("relu", ()), ("stats", ()), ("prologue", ()), ("bwd_x", ()),
+                          ("stats", ("arena_out",)), ("prologue", ("arena_in",)),
+                          ("stats", ("arena_g",)))
+] + [
+    ((2, 24, 968, 238), 64, mode, framing)
+    for mode, framing in (("stats", ("pre_padded",)), ("relu", ("pre_padded",)),
+                          ("stats", ("pre_padded", "arena_out")))
+] + [
+    ((2, 24, 968, 64), 128, mode, framing)
+    for mode, framing in (("adjoint", ()), ("relu", ()), ("prologue", ()), ("bwd_x", ()),
+                          ("adjoint", ("arena_g",)), ("bwd_x", ("arena_in", "arena_out")))
+] + [
+    ((2, 19, 242, 256), 128, mode, framing)
+    for mode, framing in (("adjoint", ()), ("stats", ("arena_out",)),
+                          ("prologue", ("arena_in",)), ("relu", ("arena_g",)))
+]
+
+
+def _packed_case(device, shape, o, mode, framing, seed=0):
+    """Arguments and keywords of one conv3x3_packed call on seeded inputs:
+    (x, w, b, pa, pb, r) with x, r framed as `framing` says, the logical x
+    and r, and the kwargs."""
+    x, w, b, rng = _conv_inputs(device, shape, o, seed=seed)
+    h, wd, c = shape[1], shape[2], shape[3]
+    pa = pb = r = None
+    kw = dict(relu=mode == "relu", with_stats=mode in ("stats", "prologue"))
+    if mode == "prologue":
+        pa, pb = _affine(rng, device, c)
+    if mode in ("bwd_x", "adjoint"):
+        b = torch.zeros_like(b)
+    if mode == "bwd_x":
+        pa, pb = _affine(rng, device, o)
+        r = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
+            device, torch.bfloat16)
+        kw["with_stats"] = False
+    x_logical, r_logical = x, r
+    if framing:
+        kw["logical_hw"] = (h, wd)
+    if "pre_padded" in framing:
+        x = _framed(x, 1)
+        kw["pre_padded"] = True
+    if "arena_g" in framing or ("arena_in" in framing and mode == "prologue"):
+        x = _framed(x, 8)
+        kw["arena_g" if "arena_g" in framing else "arena_in"] = True
+    if "arena_in" in framing and mode == "bwd_x":
+        r = _framed(r, 8)
+        kw["arena_in"] = True
+    if "arena_out" in framing:
+        kw["arena_out"] = True
+    return (x, w, b, pa, pb, r), x_logical, r_logical, kw
+
+
+def _check_packed(out, ref, args, x_logical, r_logical, mode, kw, rel=SM90_SUM_REL):
+    """A conv3x3_packed result against its plain version: the output (frame
+    included) within one bf16 ulp and finite; the float32 sums within `rel`
+    of the sums of the absolute values of their terms."""
+    from hyperpri_tpu_torch.ops.kernels import _plain
+
+    sums = ref_sums = None
+    if isinstance(out, tuple):
+        (out, sums), (ref, ref_sums) = out, ref
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    assert _bf16_ulp_error(out, ref) <= 1.0
+    if sums is None:
+        return
+    _, w, _, pa, pb, _ = args
+    n, h, wd, o = x_logical.shape[0], x_logical.shape[1], x_logical.shape[2], w.shape[-1]
+    if mode == "bwd_x":
+        dz = _plain.conv3x3_same_f32(x_logical, w)
+        rf = r_logical.float()
+        mdz = torch.where(rf * pa + pb > 0, dz, torch.zeros_like(dz)).abs()
+        scales = ((mdz * rf.abs()).sum(dim=(0, 1, 2)), mdz.sum(dim=(0, 1, 2)))
+    else:
+        y = ref[:, 8:8 + h, 8:8 + wd, :o] if kw.get("arena_out") else ref
+        yf = y.float()
+        scales = (yf.abs().sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2)))
+    for s, rs, sc in zip(sums, ref_sums, scales):
+        _assert_sums_close(s, rs, sc, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode,framing", _SM90_PACKED)
+def test_sm90_packed_matches_plain(cuda_device, shape, o, mode, framing):
+    """The Hopper body in one mode and framing: it is the body taken, its
+    output within one bf16 ulp of the plain version (an arena output's zero
+    frame too), its sums within SM90_SUM_REL of their absolute terms, NaN
+    frames never reach an output, and a reducing call gives the same bits
+    twice."""
+    args, x_logical, r_logical, kw = _packed_case(cuda_device, shape, o, mode, framing)
+    before = dict(conv3x3_packed.launches_by_path)
+    out, again = (conv3x3_packed(*args, **kw) for _ in range(2))
+    assert _path_delta(conv3x3_packed, before) == {"sm90": 2}
+    ref = conv3x3_packed_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _check_packed(out, ref, args, x_logical, r_logical, mode, kw)
+    if isinstance(out, tuple):
+        assert torch.equal(out[0], again[0])
+        assert all(torch.equal(a, b) for a, b in zip(out[1], again[1]))
+    else:
+        assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode,framing", [
+    ((2, 24, 968, 238), 64, "stats", ("pre_padded",)),
+    ((2, 24, 968, 64), 64, "prologue", ()),
+    ((2, 24, 968, 64), 64, "bwd_x", ()),
+    ((2, 32, 484, 128), 64, "adjoint", ()),
+    ((2, 24, 968, 64), 128, "adjoint", ()),
+    ((2, 19, 242, 256), 128, "adjoint", ()),
+])
+def test_sm90_packed_matches_the_synchronous_body(cuda_device, shape, o, mode, framing):
+    """The Hopper and synchronous bodies on the same bf16 inputs (the
+    synchronous one through `_legacy`): outputs within one bf16 ulp of each
+    other, sums within SM90_SUM_REL of their absolute terms of each other."""
+    args, x_logical, r_logical, kw = _packed_case(cuda_device, shape, o, mode, framing, seed=1)
+    before = dict(conv3x3_packed.launches_by_path)
+    hopper = conv3x3_packed(*args, **kw)
+    sync = conv3x3_packed(*args, _legacy=True, **kw)
+    assert _path_delta(conv3x3_packed, before) == {"sm90": 1, "legacy": 1}
+    torch.cuda.synchronize()
+    _check_packed(hopper, sync, args, x_logical, r_logical, mode, kw)

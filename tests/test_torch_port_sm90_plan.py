@@ -164,3 +164,105 @@ def test_switching_sm90_off_takes_the_synchronous_kernels():
     assert (k2.path, k3.path) == ("legacy", "legacy")
     assert k3.splits == sm90_plan.wgrad_plan(2, 304, 484, 128, 128, torch.float32, 128,
                                              128).splits
+
+
+# conv3x3_packed (kernel 1): the Hopper body's persistent plan.
+
+def _packed_plan(call, **kw):
+    n, h, w, c = call["shape"]
+    return sm90_plan.packed_plan(n, h, w, c, call["o"], chip_smoke.DTYPES[call["dtype"]],
+                                 _x_pitch(call), bwd=call["mode"] == "bwd_x", **kw)
+
+
+@pytest.mark.parametrize("path", ["product_loop", "training_step", "serving"])
+def test_packed_bf16_calls_take_sm90(path):
+    """All nine bf16 packed calls of the product loop's step take the Hopper
+    body; phase e's unframed C = 238 first conv (476-byte pixels) and
+    serving's keep the synchronous one: 8 of 9 and 3 of 4."""
+    if path == "serving":
+        calls = chip_smoke.serving_calls()
+    else:
+        calls = [c for c in chip_smoke.training_calls(ingest=path == "product_loop")
+                 if c["kernel"] == "conv3x3_packed"]
+    paths = [_packed_plan(call).path for call in calls]
+    want = {"product_loop": (9, 0), "training_step": (8, 1), "serving": (3, 1)}[path]
+    assert (paths.count("sm90"), paths.count("legacy")) == want
+    for call, p in zip(calls, paths):
+        if p == "legacy":
+            assert call["shape"][-1] == 238 and call["framing"] == ()
+
+
+@pytest.mark.parametrize("model", ["CubeNET", "UNET"])
+def test_packed_float32_and_legacy_flag_take_the_synchronous_body(model):
+    calls = [c for c in chip_smoke.training_calls(model, ingest=model == "CubeNET", dtype="f32")
+             if c["kernel"] == "conv3x3_packed"]
+    assert len(calls) == (9 if model == "CubeNET" else 8)
+    assert {_packed_plan(call).path for call in calls} == {"legacy"}
+    bf16 = [dict(call, dtype="bf16") for call in calls]
+    assert {_packed_plan(call, sm90=False).path for call in bf16} == {"legacy"}
+
+
+@pytest.mark.parametrize("case", [
+    dict(c=238, o=64, xp=238),                   # 476-byte pixels
+    dict(c=61, o=64, xp=61),                     # 122-byte pixels
+    dict(c=64, o=20, xp=64),                     # 40-byte weight rows
+    dict(c=64, o=64, xp=64, aligned=False),      # origin off 16 bytes
+    dict(c=320, o=64, xp=320),                   # past the prologue's affine buffer
+    dict(c=64, o=64, xp=64, y_pitch=65),         # odd y pitch: no channel pairs
+    dict(c=64, o=64, xp=64, bwd=True, r_pitch=65),
+])
+def test_packed_legacy_cases(case):
+    plan = sm90_plan.packed_plan(2, 37, 53, case["c"], case["o"], torch.bfloat16, case["xp"],
+                                 bwd=case.get("bwd", False), aligned=case.get("aligned", True),
+                                 y_pitch=case.get("y_pitch"), r_pitch=case.get("r_pitch"))
+    assert plan.path == "legacy" and plan.stages == plan.w_stages == 0
+    assert plan.tile_o == 64 and plan.partial_rows == 2 * 5 * 2
+
+
+_PACKED_SHAPES = [(2, 608, 968, 238, 64, 256, False), (2, 608, 968, 64, 64, 64, False),
+                  (2, 608, 968, 64, 64, 64, True), (2, 304, 484, 128, 64, 128, False),
+                  (2, 152, 242, 256, 128, 256, False), (2, 608, 968, 128, 64, 128, False),
+                  (2, 608, 968, 64, 128, 64, False), (1, 13, 37, 64, 128, 64, True),
+                  (1, 9, 33, 24, 16, 24, False), (3, 17, 65, 96, 128, 96, True),
+                  (1, 21, 40, 256, 64, 256, True), (1, 1, 1, 8, 8, 8, False)]
+
+
+@pytest.mark.parametrize("shape", _PACKED_SHAPES)
+def test_packed_plans_fit_shared_memory(shape):
+    """Each Hopper plan fits an H100 block with the deepest rings that fit;
+    weights stay resident exactly where all of them fit beside two halo
+    stages (C <= 64 at 64 outputs), and two tiles share a streamed weight
+    slice at 64 outputs unless the backward epilogue holds r in registers."""
+    n, h, w, c, o, xp, bwd = shape
+    plan = sm90_plan.packed_plan(n, h, w, c, o, torch.bfloat16, xp, bwd=bwd)
+    assert plan.path == "sm90" and plan.tile_o == (64 if o <= 64 else 128)
+    assert plan.resident == (o <= 64 and c <= 64)
+    assert plan.tile_rows == (16 if o <= 64 and c > 64 and not bwd else 8)
+    tu, chunks = plan.tile_rows // 8, -(-c // 64)
+    smem = sm90_plan.k1_smem_bytes(plan.tile_o, tu, plan.resident, chunks, plan.stages,
+                                   plan.w_stages)
+    assert plan.smem == smem <= sm90_plan.SMEM_LIMIT
+    if plan.resident:
+        assert plan.w_stages == 0 and plan.stages >= 2
+        deeper = sm90_plan.k1_smem_bytes(64, 1, True, chunks, plan.stages + 1, 0)
+        assert plan.stages == sm90_plan.K1_MAX_HSTAGES or deeper > sm90_plan.SMEM_LIMIT
+    else:
+        assert plan.stages == 2 and plan.w_stages >= 2
+        deeper = sm90_plan.k1_smem_bytes(plan.tile_o, tu, False, chunks, 2, plan.w_stages + 1)
+        assert plan.w_stages == sm90_plan.K1_MAX_WSTAGES or deeper > sm90_plan.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape", _PACKED_SHAPES)
+def test_packed_walk_covers_every_tile_once(shape):
+    """The persistent blocks (no more than one per SM, none idle) walk every
+    8x32 pixel tile exactly once, and the sums' partial buffer has one row
+    per tile, whatever the unit size."""
+    n, h, w, c, o, xp, bwd = shape
+    plan = sm90_plan.packed_plan(n, h, w, c, o, torch.bfloat16, xp, bwd=bwd)
+    tiles = [(i, ty, tx) for i in range(n) for ty in range(-(-h // 8)) for tx in range(-(-w // 32))]
+    assert plan.partial_rows == len(tiles)
+    assert plan.units == n * -(-h // plan.tile_rows) * -(-w // 32)
+    assert plan.grid == (min(plan.units, sm90_plan.SMS), 1, 1)
+    walked = [t for b in range(plan.grid[0]) for t in sm90_plan.packed_tiles(plan, n, h, w, b)]
+    assert sorted(walked) == tiles
+    assert all(sm90_plan.packed_tiles(plan, n, h, w, b) for b in range(plan.grid[0]))
