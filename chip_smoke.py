@@ -5,16 +5,21 @@
 Phases, each of which raises on failure (the script then exits non-zero):
   (a) environment: card name and power limit, torch / CUDA / nvcc versions;
   (b) build every CUDA kernel from hyperpri_tpu_torch/csrc, one nvcc each, all
-      started together; ptxas's register and spill report is printed;
+      started together; ptxas's register and spill report is printed, each
+      kernel by name, with any wgmma serialization (C75xx) it reports;
   (c) each kernel and each of its modes and framings, in bf16 and in float32,
       against its plain PyTorch version on the card (TF32 off), at the shapes
       the main paths give it and at ragged ones; every reducing kernel twice,
       for identical bits (the bf16 calls of conv3x3_packed, conv3x3_bias_act
-      and conv3x3_wgrad take their Hopper kernels, "sm90": TMA staging and
-      wgmma, conv3x3_packed with persistent blocks, in every mode and
-      framing at ragged shapes too; float32 and bf16 layouts TMA cannot
-      address take the synchronous ones, "legacy"; each conv3x3_packed check
-      holds the body it took against the plan's);
+      and conv3x3_wgrad and the float32 calls of conv3x3_bias_act and
+      conv3x3_wgrad take their Hopper kernels, "sm90": TMA staging and
+      wgmma, 3xTF32 in float32, conv3x3_packed with persistent blocks, in
+      every mode and framing at ragged shapes too; conv3x3_packed in
+      float32 and layouts TMA cannot address take the synchronous ones,
+      "legacy"; each check of the three conv kernels holds the body it took
+      against the plan's, and each float32 Hopper call is also held against
+      the synchronous body on the same inputs; the float32 conv's weight
+      split bit for bit against its plain version);
       the kernels on no model path too: the weight
       gradient's fold mode (every framing, its dW bit-equal to the non-fold
       synchronous kernel on the materialized g_eff), the shift conv, the dh-fold probe's
@@ -39,7 +44,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
       call of a training step and of a serving forward beside its bound, its
       plain version and one library call (float32 convs also with cuDNN's TF32
       on, and with cudnn.benchmark on, labelled; bf16 conv3x3_packed calls
-      also on the synchronous body); the serving forward and the training
+      and float32 conv3x3_bias_act and conv3x3_wgrad calls also on the
+      synchronous body); the serving forward and the training
       step with kernels on and off; peak memory of a step; the element probe
       beside one PyTorch op; the kernels on no model path (the weight
       gradient's fold mode at the step's conv3x3_wgrad calls, the shift conv
@@ -49,7 +55,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
       bf16 product-loop step and one CubeNET-64 float32 step, in turns: g_eff
       materialized, then dW and db, against dW and db from the raw cotangent
       in one kernel, with and without the g_eff pass the adjoint conv still
-      needs; summed per step; both routes' dW held against float64;
+      needs; summed per step; both routes' dW held against float64 (in
+      float32 today's route is the Hopper body and the fold mode the
+      synchronous one, at every float32 weight-gradient shape of the UNET
+      and CubeNET-64 steps);
   (g) a torch.profiler breakdown of one kernel-route training step;
   (h) the product loop: a synthetic experiment tree of 608x968 cubes with 299
       stored bands, train_net in bf16 for three epochs of one batch-2 step
@@ -371,7 +380,10 @@ def count_by_body(calls):
     TMA can address the views; the bf16 exceptions on a path are the unframed
     first conv of phase e and of serving (C = 238: 476-byte pixels), forward
     and weight gradient, which the product loop's ingest buffer (channel
-    pitch 256) avoids."""
+    pitch 256) avoids. float32 takes them for conv3x3_bias_act and
+    conv3x3_wgrad (every call of the UNET and CubeNET-64 steps, CubeNET-64's
+    first-conv weight gradient through the float32 ingest buffer's
+    1,024-byte pixels) and the synchronous body for conv3x3_packed."""
     from hyperpri_tpu_torch.ops.kernels import framing, sm90_plan
 
     counts = {"conv3x3_packed": {}, "conv3x3_bias_act": {}, "conv3x3_wgrad": {}}
@@ -657,11 +669,37 @@ class Case:
         return self.fn(*self.args, **self.kwargs)
 
     def body(self) -> str:
-        """The kernel body ("sm90" or "legacy") a conv3x3_packed call takes."""
+        """The kernel body ("sm90" or "legacy") a conv3x3_packed,
+        conv3x3_bias_act or conv3x3_wgrad call takes, by its plan."""
+        from hyperpri_tpu_torch.ops.kernels import sm90_plan
         from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import call_plan
 
-        x, wk, _, pa, _, r = self.args
-        return call_plan(x, wk, pa, r, **self.kwargs).path
+        kernel = self.call["kernel"]
+        if kernel == "conv3x3_packed":
+            x, wk, _, pa, _, r = self.args
+            return call_plan(x, wk, pa, r, **self.kwargs).path
+        n, h, w, c = self.call["shape"]
+        x, other = self.args[:2]   # (x, w) or (x, g), as the wrapper sees them
+        aligned = x.data_ptr() % 16 == 0 and other.data_ptr() % 16 == 0
+        if kernel == "conv3x3_bias_act":
+            return sm90_plan.bias_act_plan(n, h, w, c, self.call["o"], self.dtype, aligned).path
+        return sm90_plan.wgrad_plan(n, h, w, c, self.call["o"], self.dtype, x.shape[-1],
+                                    other.shape[-1], False, aligned).path
+
+    def versus_legacy(self) -> float:
+        """A float32 Hopper call against the synchronous body on the same
+        inputs (`_legacy=True`): the largest difference of the main output
+        over the sum of the absolute values of its terms."""
+        out = self.run()
+        sync = self.fn(*self.args, _legacy=True, **self.kwargs)
+        if self.call["kernel"] == "conv3x3_wgrad":
+            x, g, pa, pb = self.args
+            scale = self.ref(x.abs() if pa is None else x, g.abs(), pa, pb, **self.kwargs)
+        else:
+            scale = self.abs_terms()
+            out, sync = (t[0] if isinstance(t, tuple) else t for t in (out, sync))
+        torch.cuda.synchronize()
+        return sum_error(out, sync, scale)
 
     def plain(self):
         return self.ref(*self.args, **self.kwargs)
@@ -784,8 +822,10 @@ def phase_build():
     built = _build.build_all(force=True)
     print(f"built {', '.join(built)} in {time.perf_counter() - t0:.2f} s (in parallel)")
     for name, (_, log) in built.items():
+        # C75xx: ptxas serialized a kernel's wgmmas ("Potential Performance Loss")
         report = [ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "spill" in ln or "warning" in ln.lower()]
+                  if "registers" in ln or "spill" in ln or "warning" in ln.lower()
+                  or "Compiling entry" in ln or "(C75" in ln]
         print(f"-- {name}\n" + "\n".join(report))
         _build.load(name)
 
@@ -825,11 +865,15 @@ def phase_kernel_check(calls):
         before = dict(getattr(case.fn, "launches_by_path", {}))
         abs_err, rel = case.verify()
         body = ""
-        if call["kernel"] == "conv3x3_packed":
+        if call["kernel"] in ("conv3x3_packed", "conv3x3_bias_act", "conv3x3_wgrad"):
             # every launch of the check took the body the plan names
             body = case.body()
             taken = {k for k, v in case.fn.launches_by_path.items() if v != before.get(k, 0)}
             check(taken == {body}, f"{case.label()}: launched {taken}, the plan says {body}")
+            if call["dtype"] == "f32" and body == "sm90" and call["kernel"] != "conv3x3_packed":
+                vs = case.versus_legacy()
+                check(vs <= SUM_REL, f"{case.label()}: {vs} of |terms| off the synchronous body")
+                body += f", vs synchronous {vs:.2e}"
             body = f" [{body}]"
         print(f"{case.label()}{body}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e}")
         worst = errors.setdefault((call["kernel"], call["dtype"]), [0.0, 0.0])
@@ -837,6 +881,7 @@ def phase_kernel_check(calls):
         del case
     for dtype in DTYPES:
         check_pool_ties(DTYPES[dtype])
+    check_split_weights(calls)
     errors["probe_element_out", "f32"] = [check_element_out(), 0.0]
     errors.update(check_dh_fold())
     errors["probe_mosaic_ops", "f32"] = [check_mosaic_ops(), 0.0]
@@ -848,6 +893,26 @@ def phase_kernel_check(calls):
 
 
 ELEMENT_OUT_SHAPES = [(2, H, W, 64), (1, 13, 21, 5), (1, 16, 24, 128)]
+
+
+def check_split_weights(calls):
+    """The float32 Hopper conv's weight split (the TF32 hi and lo planes it
+    writes before each conv3x3_bias_act call) on the card, bit for bit its
+    plain version, at the weight shapes of the float32 steps' calls and a
+    ragged one."""
+    from hyperpri_tpu_torch.ops.kernels import _plain
+    from hyperpri_tpu_torch.ops.kernels.conv3x3 import split_weights_tf32
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = sorted({(c["shape"][-1], c["o"]) for c in calls
+                     if c["kernel"] == "conv3x3_bias_act" and c["dtype"] == "f32"} | {(5, 12)})
+    for c, o in shapes:
+        w = torch.randn((3, 3, c, o), generator=gen, device="cuda")
+        planes = split_weights_tf32(w)
+        torch.cuda.synchronize()
+        check(torch.equal(planes, _plain.split_weights_tf32_reference(w)),
+              f"split_weights_tf32 {c}->{o}: differs from the plain version")
+    print(f"split_weights_tf32 at {shapes}: exact")
 
 
 def check_dh_fold():
@@ -1322,7 +1387,9 @@ def phase_times(calls, card):
                      "library_tf32_ms": library_tf32_ms,
                      "library_benchmark_ms": library_bench_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
-        if call["kernel"] == "conv3x3_packed" and call["dtype"] == "bf16":
+        if ((call["kernel"] == "conv3x3_packed" and call["dtype"] == "bf16")
+                or (call["kernel"] in ("conv3x3_bias_act", "conv3x3_wgrad")
+                    and call["dtype"] == "f32")):
             # the body the plan chose, and the synchronous body on the same call
             rows[-1]["body"] = case.body()
             rows[-1]["legacy_ms"] = cuda_ms(lambda: case.fn(*case.args, _legacy=True,
@@ -1444,9 +1511,11 @@ def phase_fold_ab(calls_by_dtype):
          yardstick of the fold mode's own cost.
     Also holds b's dW bit-equal to the synchronous kernel's on the
     materialized g_eff (the fold mode's own body and summation order), a's
-    dW (the Hopper kernel's in bf16) and b's each within SUM_REL of a float64
-    evaluation (g_eff has a per-channel offset: one-signed terms, where
-    float32 chains show), and b's db within SUM_REL of a's.
+    dW (the Hopper kernel's, bf16 and float32) and b's each within SUM_REL of
+    a float64 evaluation (g_eff has a per-channel offset: one-signed terms,
+    where float32 chains show), and b's db within SUM_REL of a's. The
+    CubeNET-64 float32 step's calls hold every float32 weight-gradient shape
+    of the UNET step too.
     Summed per step: ms of a, b, c and d."""
     phase("(l) the weight gradient's fold mode against today's route, per step")
     from hyperpri_tpu_torch.ops.kernels import _plain
@@ -1839,7 +1908,9 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     product-loop training step; float32: one UNET step and one CubeNET-64
     step); launches are those counted during the paths' runs, by path and,
     for the framed kernels, by framing. The float32 bound takes the TF32
-    tensor rate. The fold mode of the weight gradient and the shift conv are
+    tensor rate. legacy_ms sums the same calls on the synchronous body where
+    phase f timed it (bf16 conv3x3_packed, float32 conv3x3_bias_act and
+    conv3x3_wgrad), else null. The fold mode of the weight gradient and the shift conv are
     on no path (launches 0): their numbers are summed over the conv3x3_wgrad
     and conv3x3_bias_act calls of one product-loop step (bf16) and of one
     CubeNET-64 float32 step, and no single PyTorch call computes the fold
@@ -1892,6 +1963,9 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                                     else sum(ms * r["count"] for ms, r in zip(tf32, mine))),
                 "library_benchmark_ms": (None if None in bench else
                                          sum(ms * r["count"] for ms, r in zip(bench, mine))),
+                # the same calls on the synchronous body, where it was timed too
+                "legacy_ms": (sum(r["legacy_ms"] * r["count"] for r in mine)
+                              if all("legacy_ms" in r for r in mine) else None),
                 "times_by_path": times_by_path, "calls": mine,
             })
     return kernels

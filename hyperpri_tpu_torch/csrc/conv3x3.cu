@@ -18,8 +18,8 @@
 // 256->256, all above the ~295 FLOP/byte ridge of an H100: bound by operations.
 // In float32 (half the FLOP per byte, against TF32's ridge of ~148) too.
 //
-// Two kernel bodies; the wrapper picks one by dtype and layout before the
-// launch (ops/kernels/sm90_plan.py), never on a failure.
+// Three kernel bodies; the wrapper picks one by dtype and layout before
+// the launch (ops/kernels/sm90_plan.py), never on a failure.
 //
 // conv3x3_sm90_kernel (bf16 whose channels TMA can address: C % 8 == 0 and
 // C <= 256; every bf16 call of a training step). An implicit GEMM, M = output
@@ -61,18 +61,49 @@
 //   O = 128 (a larger pixel tile per weight slice, or persistent blocks
 //   that keep two tiles' halos resident; ROADMAP queue 2b).
 //
-// conv3x3_kernel<T, NP, VEC> (float32, and bf16 whose channels TMA cannot
-// address): the synchronous direct implicit GEMM of conv3x3_common.cuh
-// (bf16 mma.sync products, or 3xTF32 for float32) with the output channels
-// tiled over the grid. A block computes an 8x32 pixel tile by 128 output
-// channels (64 when O <= 64); blockIdx.z walks images and output tiles, so
-// every output tile stages the input halo again (10x34-pixel chunks of 64
-// bytes of channels, from L2 after the first tile). The weights arrive packed
-// as wp[tap][o][c] in x's type with O zero-padded to whole tiles and C to a
-// whole chunk (32 bf16 or 16 float32 channels). The per-channel sums are
-// per-block partials added in a fixed order by a second kernel. Not yet done:
-// TMA staging and wgmma for float32 (3xTF32 needs hi/lo split operands in
-// shared memory, ROADMAP queue 2b).
+// conv3x3_sm90_f32_kernel (float32 with C % 4 == 0, O % 4 == 0 and C <= 256:
+// every float32 call of a training step). The same implicit GEMM and block
+// shape in 3xTF32 (conv3x3_sm90.cuh):
+//   - the tf32 wgmma (m64n64k8) takes B from shared memory only K-major, so
+//     the weights are first split by split_weights_tf32_kernel into two
+//     planes (2, 9, O, C), hi and lo, the input channels contiguous; TMA
+//     loads a (tap, 32-channel chunk) slice of 64 outputs from each plane
+//     (16 KiB) into a ring of up to 8 stages;
+//   - a float32 halo is 174 KiB at C = 128 and 348 KiB at C = 256, so it
+//     cannot stay resident: it streams through a ring of two 32-channel
+//     chunks (43.5 KiB each, one 128-byte box row a pixel), filled by TMA,
+//     the prologue applied in place by the producer warpgroup's idle warps,
+//     released by the consumers after the chunk's ninth tap;
+//   - loop order: O tile of 64 outer, then chunk, then tap, so each thread
+//     holds the accumulators of one O tile only (2 m-tiles x 32 floats) and
+//     the halo is staged again from L2 for every O tile;
+//   - A = the tap-shifted halo pixels by ldmatrix (the b16 ldmatrix of 32-bit
+//     words gives the tf32 A fragment), split into hi and lo in registers;
+//     each (tap, chunk) slice and m-tile is one chain of 4 K steps (12
+//     wgmmas: lo*hi, hi*lo, hi*hi) into a fresh fragment, which is added to
+//     the accumulators with float32 adds rounded to nearest (K2F_GROUP = 4,
+//     the whole slice; chip_smoke.py's phase c found every output and sum
+//     within 2.0e-7 of the sum of its absolute terms on an H100, PERF.md §6);
+//   - epilogue and statistics as in the bf16 kernel, per O tile of 64.
+//   Bound: operations, at the TF32 rate; three TF32 products a float32
+//   product make the ceiling three times that bound. Bytes staged per FLOP
+//   (of the conv, one product a term): (340 pixels x 128 bytes of halo + 9 x
+//   16 KiB of weight planes) per 2*256*64*9*32 FLOP = 2.02e-2 B/FLOP, 77% of
+//   it weights, all from L2 (the synchronous float32 kernel stages 1.01e-2:
+//   128 outputs a tile, the weights split in registers). Not yet done: a
+//   larger pixel tile per weight slice, which would halve the weight bytes.
+//
+// conv3x3_kernel<T, NP, VEC> (bf16 and float32 layouts neither Hopper body
+// takes, e.g. C = 238 unframed): the synchronous direct implicit GEMM of
+// conv3x3_common.cuh (bf16 mma.sync products, or 3xTF32 for float32) with
+// the output channels tiled over the grid. A block computes an 8x32 pixel
+// tile by 128 output channels (64 when O <= 64); blockIdx.z walks images and
+// output tiles, so every output tile stages the input halo again (10x34-pixel
+// chunks of 64 bytes of channels, from L2 after the first tile). The weights
+// arrive packed as wp[tap][o][c] in x's type with O zero-padded to whole
+// tiles and C to a whole chunk (32 bf16 or 16 float32 channels). The
+// per-channel sums are per-block partials added in a fixed order by a second
+// kernel.
 
 #include "conv3x3_common.cuh"
 #include "conv3x3_sm90.cuh"
@@ -372,6 +403,366 @@ int bias_act_sm90(const void* x, const void* w, const void* b, void* y, const vo
                                       2 * OP, s));
 }
 
+// ---------------------------------------------------------------------------
+// The float32 Hopper body (see the note at the top).
+
+using conv3x3::sm90::F32_CHUNK;
+
+constexpr int K2F_N = 64;                          // output channels of one pass (O tile)
+constexpr int K2F_PLANE = K2F_N * conv3x3::sm90::BOX_ROW;  // one (tap, chunk) slice, one plane
+constexpr int K2F_WSTAGE = 2 * K2F_PLANE;          // its hi and lo planes
+constexpr int K2F_HSTAGES = 2;                     // halo ring: one 32-channel chunk a stage
+constexpr int K2F_MAX_C = 256;
+// K steps (8 channels each) chained through the tensor cores into one fresh
+// fragment before it is added to the accumulators; a (tap, chunk) slice holds
+// 4, so K2F_UNITS fragments a slice and m-tile.
+constexpr int K2F_GROUP = 4;
+constexpr int K2F_UNITS = 4 / K2F_GROUP;
+static_assert(4 % K2F_GROUP == 0, "a slice's K steps split into whole groups");
+constexpr int K2F_RED_FLOATS = conv3x3::TH * K2F_N;  // one statistic of the 8 warps
+constexpr int K2F_AFFINE_FLOATS = 2 * K2F_MAX_C;
+
+// Shared memory of one block: the halo ring, the weight ring, the statistics'
+// cross-warp buffer, the prologue's affine and the barriers
+// (ops/kernels/sm90_plan.py mirrors this).
+constexpr int k2f_smem_bytes(int stages) {
+  return conv3x3::sm90::ALIGN_SLACK + K2F_HSTAGES * HALO_SLOT + stages * K2F_WSTAGE +
+         (K2F_RED_FLOATS + K2F_AFFINE_FLOATS) * 4 + (3 * K2F_HSTAGES + 2 * stages) * 8;
+}
+
+// planes[plane][tap][o][c] = hi (plane 0) and lo (plane 1) of w[tap][c][o]
+// (w HWIO (3, 3, C, O) float32): the weights K-major in TF32 halves, as the
+// tf32 wgmma reads B; split_tf32 of conv3x3_common.cuh.
+__global__ void split_weights_tf32_kernel(const float* __restrict__ w, float* __restrict__ planes,
+                                          int C, int O) {
+  const int total = 9 * C * O;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int c = i % C;
+    const int o = (i / C) % O;
+    const int tap = i / (C * O);
+    uint32_t hi, lo;
+    conv3x3::split_tf32(__float_as_uint(w[(tap * C + c) * O + o]), hi, lo);
+    planes[i] = __uint_as_float(hi);
+    planes[total + i] = __uint_as_float(lo);
+  }
+}
+
+cudaError_t split_weights_tf32(const float* w, float* planes, int C, int O, cudaStream_t s) {
+  const int total = 9 * C * O;
+  const int blocks = (total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024;
+  split_weights_tf32_kernel<<<blocks, 256, 0, s>>>(w, planes, C, O);
+  return cudaGetLastError();
+}
+
+// A of m-tile mt for K steps unit*K2F_GROUP.. of a staged 32-channel halo
+// chunk: the 16 pixels of this warp's output row `wrow`, shifted by the tap
+// (dh, dw), split into TF32 halves. The b16 ldmatrix of 32-bit words gives
+// the m16n8k8 tf32 A fragment (conv3x3_common.cuh, conv3x3_kernel).
+__device__ __forceinline__ void k2f_load_a(uint32_t (&a_hi)[K2F_GROUP][4],
+                                           uint32_t (&a_lo)[K2F_GROUP][4], uint32_t halo,
+                                           int wrow, int dh, int dw, int mt, int unit, int lane) {
+  using namespace conv3x3::sm90;
+  const int p = (wrow + dh) * conv3x3::HALO_W + mt * 16 + dw + (lane & 15);
+#pragma unroll
+  for (int j = 0; j < K2F_GROUP; ++j) {
+    uint32_t r[4];
+    ldsm_x4(r, swizzled(halo, p, (unit * K2F_GROUP + j) * 2 + (lane >> 4)));
+    conv3x3::split_tf32(r, a_hi[j], a_lo[j]);
+  }
+}
+
+// The fragment d of K steps unit*K2F_GROUP.. of the weight slice at `stage`
+// (hi plane, then lo plane; 64 output rows of 128-byte-swizzled K each).
+__device__ __forceinline__ void k2f_chain(float (&d)[32], const uint32_t (&a_hi)[K2F_GROUP][4],
+                                          const uint32_t (&a_lo)[K2F_GROUP][4], uint32_t stage,
+                                          int unit) {
+  using namespace conv3x3::sm90;
+#pragma unroll
+  for (int j = 0; j < K2F_GROUP; ++j) {
+    const uint32_t k_off = (unit * K2F_GROUP + j) * 32;
+    wgmma_3xtf32_step(d, a_hi[j], a_lo[j], desc_sw128(stage + k_off, 16, 1024),
+                      desc_sw128(stage + K2F_PLANE + k_off, 16, 1024), j == 0);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) conv3x3::sm90::fence_regs(a[j]);
+}
+
+// The float32 forward conv on Hopper (see the note at the top).
+__global__ void __launch_bounds__(K2_THREADS, 1)
+conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                        float* __restrict__ y, const float* __restrict__ pa,
+                        const float* __restrict__ pb, float* __restrict__ partial,
+                        const Sm90Dims d) {
+  using namespace conv3x3;
+  using namespace conv3x3::sm90;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);
+  const uint32_t ring = base + K2F_HSTAGES * HALO_SLOT;
+  float* const red =
+      reinterpret_cast<float*>(smem + K2F_HSTAGES * HALO_SLOT + d.stages * K2F_WSTAGE);
+  float* const pas = red + K2F_RED_FLOATS;
+  float* const pbs = pas + K2F_MAX_C;
+  const uint32_t bars = ring + d.stages * K2F_WSTAGE + (K2F_RED_FLOATS + K2F_AFFINE_FLOATS) * 4;
+  auto halo_full = [&](int hs) { return bars + 8 * hs; };                     // TMA landed
+  auto halo_ready = [&](int hs) { return bars + 8 * (K2F_HSTAGES + hs); };    // prologue done
+  auto halo_empty = [&](int hs) { return bars + 8 * (2 * K2F_HSTAGES + hs); };
+  auto w_full = [&](int s) { return bars + 8 * (3 * K2F_HSTAGES + s); };
+  auto w_empty = [&](int s) { return bars + 8 * (3 * K2F_HSTAGES + d.stages + s); };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int w0 = blockIdx.x * TW;
+  const int h0 = blockIdx.y * TH;
+  const int n = blockIdx.z;
+
+  if (threadIdx.x == 0) {
+    for (int hs = 0; hs < K2F_HSTAGES; ++hs) {
+      mbar_init(halo_full(hs), 1);
+      mbar_init(halo_ready(hs), K2_PROLOGUE_THREADS);
+      mbar_init(halo_empty(hs), K2_CONSUMERS / 32);  // every consumer warp
+    }
+    for (int s = 0; s < d.stages; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), K2_CONSUMERS / 32);
+    }
+    fence_barrier_init();
+  }
+  load_affine(pas, pbs, pa, pb, 0, d.n_chunks * F32_CHUNK, d.C, threadIdx.x, K2_THREADS);
+  __syncthreads();
+
+  // The walk: O tile, then 32-channel chunk (one halo fill each), then tap
+  // (one weight slice each); the halo is staged again for every O tile.
+  const int n_fills = d.n_otiles * d.n_chunks;
+  const bool prologue = pa != nullptr;
+  if (warp >= K2_CONSUMERS / 32) {
+    // Producer warpgroup: one thread issues the loads in the consumers'
+    // order; with the prologue, the other three warps apply it to each halo
+    // fill once it has landed.
+    setmaxnreg_dec<K2_PRODUCER_REGS>();
+    if (warp > K2_CONSUMERS / 32 && prologue) {
+      const int tid = threadIdx.x - K2_CONSUMERS - 32;
+      for (int f = 0; f < n_fills; ++f) {
+        const int hs = f % K2F_HSTAGES;
+        const int ch = f % d.n_chunks;
+        mbar_wait(halo_full(hs), (f / K2F_HSTAGES) & 1);
+        prologue_box_f32(reinterpret_cast<float*>(smem + hs * HALO_SLOT), HALO_PIX, HALO_W,
+                         h0 - 1, w0 - 1, d.H, d.W, pas + ch * F32_CHUNK, pbs + ch * F32_CHUNK,
+                         tid, K2_PROLOGUE_THREADS);
+        fence_proxy_async();
+        mbar_arrive(halo_ready(hs));
+      }
+    }
+    if (warp == K2_CONSUMERS / 32 && lane == 0) {
+      for (int it = 0; it < n_fills * 9; ++it) {
+        const int f = it / 9;
+        const int tap = it % 9;
+        const int ot = f / d.n_chunks;
+        const int ch = f % d.n_chunks;
+        if (tap == 0) {
+          const int hs = f % K2F_HSTAGES;
+          mbar_wait(halo_empty(hs), ((f / K2F_HSTAGES) & 1) ^ 1);
+          mbar_expect_tx(halo_full(hs), HALO_BYTES);
+          tma_load_4d(base + hs * HALO_SLOT, &xmap, halo_full(hs), ch * F32_CHUNK, w0 - 1,
+                      h0 - 1, n);
+        }
+        const int s = it % d.stages;
+        mbar_wait(w_empty(s), ((it / d.stages) & 1) ^ 1);
+        mbar_expect_tx(w_full(s), K2F_WSTAGE);
+        // planes (2, 9, O, C): 64 output rows of 32 channels per box
+#pragma unroll
+        for (int plane = 0; plane < 2; ++plane)
+          tma_load_4d(ring + s * K2F_WSTAGE + plane * K2F_PLANE, &wmap, w_full(s),
+                      ch * F32_CHUNK, ot * K2F_N, tap, plane);
+      }
+    }
+  } else {
+    setmaxnreg_inc<K2_CONSUMER_REGS>();
+    const int wrow = warp;  // output row h0 + wrow; warpgroup warp / 4
+    const int oh = h0 + wrow;
+    const int g = lane >> 2;
+    const int q = lane & 3;
+    // Two m-tiles of 64 pixels (16-column halves of the warpgroup's four
+    // rows), each with its float32 accumulators and the fragment of its
+    // current K-step group. Both m-tiles' chains are one commit group,
+    // waited for at once: while a warpgroup adds its two fragments, the
+    // other consumer warpgroup's chains keep the tensor cores busy. (Adding
+    // one m-tile's fragment while the other's chain is in flight made ptxas
+    // serialize the wgmmas, C7514, and ran slower.)
+    float acc[2][32], frag[2][32];
+    uint32_t a_hi[2][K2F_GROUP][4], a_lo[2][K2F_GROUP][4];
+    int it = 0;
+    for (int ot = 0; ot < d.n_otiles; ++ot) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[mt][i] = 0.0f;
+      for (int ch = 0; ch < d.n_chunks; ++ch) {
+        const int f = ot * d.n_chunks + ch;
+        const int hs = f % K2F_HSTAGES;
+        const uint32_t halo = base + hs * HALO_SLOT;
+        mbar_wait(prologue ? halo_ready(hs) : halo_full(hs), (f / K2F_HSTAGES) & 1);
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap, ++it) {
+          const int dh = tap / 3;
+          const int dw = tap % 3;
+          const int s = it % d.stages;
+          const uint32_t stage = ring + s * K2F_WSTAGE;
+#pragma unroll
+          for (int unit = 0; unit < K2F_UNITS; ++unit) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              k2f_load_a(a_hi[mt], a_lo[mt], halo, wrow, dh, dw, mt, unit, lane);
+            if (unit == 0) mbar_wait(w_full(s), (it / d.stages) & 1);
+            wgmma_fence();
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) k2f_chain(frag[mt], a_hi[mt], a_lo[mt], stage, unit);
+            wgmma_commit();
+            wgmma_wait<0>();
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              fence_regs(frag[mt]);
+              fence_a(a_hi[mt]);
+              fence_a(a_lo[mt]);
+              add_fragment(acc[mt], frag[mt]);
+            }
+            if (unit == K2F_UNITS - 1 && lane == 0) {
+              mbar_arrive(w_empty(s));
+              if (tap == 8) mbar_arrive(halo_empty(hs));
+            }
+          }
+        }
+      }
+
+      // Epilogue of O tile ot. Accumulator element i of m-tile mt is pixel
+      // column w0 + mt*16 + g + 8*((i%4)/2) of row oh, output channel
+      // o0 + 8*(i/4) + 2q + i%2.
+      const int o0 = ot * K2F_N;
+      float* const yn = y + static_cast<size_t>(n) * d.H * d.W * d.O;
+      if (oh < d.H) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int ow = w0 + mt * 16 + g + half * 8;
+            if (ow >= d.W) continue;
+            float* yp = yn + static_cast<size_t>(oh * d.W + ow) * d.O;
+#pragma unroll
+            for (int nb = 0; nb < K2F_N / 8; ++nb) {
+              const int o = o0 + nb * 8 + 2 * q;
+              if (o >= d.O) continue;  // O is even: o + 1 < O too
+              float v0 = acc[mt][nb * 4 + half * 2] + bias[o];
+              float v1 = acc[mt][nb * 4 + half * 2 + 1] + bias[o + 1];
+              if (d.relu) {
+                v0 = fmaxf(v0, 0.0f);
+                v1 = fmaxf(v1, 0.0f);
+              }
+              store_pair(yp + o, v0, v1);
+            }
+          }
+        }
+      }
+      if (d.mode == MODE_STATS) {
+        // sum(v) then sum(v*v), v = acc + bias: each thread's four pixels,
+        // the eight lanes of a channel pair by shuffles, the eight warps in
+        // order; one partial row (2, OP) per block.
+        const size_t block_lin =
+            (static_cast<size_t>(n) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+#pragma unroll 1
+        for (int st = 0; st < 2; ++st) {
+#pragma unroll
+          for (int nb = 0; nb < K2F_N / 8; ++nb) {
+            const int o = o0 + nb * 8 + 2 * q;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float sum = 0.0f;
+              if (o + e < d.O && oh < d.H) {
+                const float bo = bias[o + e];
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+                  for (int half = 0; half < 2; ++half) {
+                    if (w0 + mt * 16 + g + half * 8 >= d.W) continue;
+                    const float v = acc[mt][nb * 4 + half * 2 + e] + bo;
+                    sum += st == 0 ? v : v * v;
+                  }
+                }
+              }
+              sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+              sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+              sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+              if (lane < 4) red[wrow * K2F_N + nb * 8 + lane * 2 + e] = sum;
+            }
+          }
+          consumer_sync<K2_CONSUMERS>();
+          if (threadIdx.x < K2F_N) {
+            float total_s = 0.0f;
+#pragma unroll
+            for (int wq = 0; wq < TH; ++wq) total_s += red[wq * K2F_N + threadIdx.x];
+            partial[(block_lin * 2 + st) * d.OP + o0 + threadIdx.x] = total_s;
+          }
+          consumer_sync<K2_CONSUMERS>();
+        }
+      }
+    }
+  }
+}
+
+int bias_act_sm90_f32(const void* x, const void* w, void* planes, const void* b, void* y,
+                      const void* pa, const void* pb, void* partial, void* sums, int N, int H,
+                      int W, int C, int O, int relu, int mode, int stages, int partial_rows,
+                      void* stream) {
+  using namespace conv3x3;
+  const int n_chunks = (C + F32_CHUNK - 1) / F32_CHUNK;
+  const int n_otiles = (O + K2F_N - 1) / K2F_N;
+  const int OP = n_otiles * K2F_N;
+  if (N < 1 || H < 1 || W < 1 || C < 1 || C % 4 != 0 || C > K2F_MAX_C || O < 1 || O % 4 != 0 ||
+      planes == nullptr || (mode != MODE_PLAIN && mode != MODE_STATS) ||
+      (pa == nullptr) != (pb == nullptr) || (mode == MODE_STATS && relu) || stages < 2 ||
+      k2f_smem_bytes(stages) > sm90::SMEM_LIMIT || !frame_ok(unframed(H, W, C), H, W, C) ||
+      9LL * C * O > 0x3fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
+  const long long rows = static_cast<long long>(grid.x) * grid.y * grid.z;
+  if (grid.y > 65535 || grid.z > 65535 ||
+      (mode == MODE_STATS && (partial_rows != rows || partial == nullptr || sums == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = split_weights_tf32(static_cast<const float*>(w), static_cast<float*>(planes),
+                                       C, O, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap xmap, wmap;
+  // planes (2, 9, O, C) as dims (C, O, 9, 2): the input channels contiguous
+  // (K-major), zero past C and O
+  const cuuint64_t wdims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(O), 9, 2};
+  const cuuint64_t wstrides[3] = {static_cast<cuuint64_t>(C) * 4,
+                                  static_cast<cuuint64_t>(O) * C * 4,
+                                  static_cast<cuuint64_t>(9) * O * C * 4};
+  const cuuint32_t wbox[4] = {static_cast<cuuint32_t>(F32_CHUNK), K2F_N, 1, 1};
+  if (!sm90::nhwc_map_f32(&xmap, x, unframed(H, W, C), N, H, W, C, HALO_W, TH + 2) ||
+      !sm90::encode_f32(&wmap, planes, 4, wdims, wstrides, wbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sm90Dims d{H, W, C, O, OP, n_chunks, n_otiles, relu, mode, stages};
+  auto* part = static_cast<float*>(partial);
+  const int smem = k2f_smem_bytes(stages);
+  err = cudaFuncSetAttribute(conv3x3_sm90_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv3x3_sm90_f32_kernel<<<grid, K2_THREADS, smem, s>>>(
+      xmap, wmap, static_cast<const float*>(b), static_cast<float*>(y),
+      static_cast<const float*>(pa), static_cast<const float*>(pb), part, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || mode == MODE_PLAIN) return static_cast<int>(err);
+  return static_cast<int>(reduce_rows(part, static_cast<float*>(sums), static_cast<int>(rows),
+                                      2 * OP, s));
+}
+
 template <typename T>
 int bias_act_impl(const void* x, const void* wp, const void* b, void* y, const void* pa,
                   const void* pb, void* partial, void* sums, int N, int H, int W, int C, int Cp,
@@ -434,4 +825,29 @@ extern "C" int conv3x3_bias_act_sm90_bf16(const void* x, const void* w, const vo
                                           void* stream) {
   return bias_act_sm90(x, w, b, y, pa, pb, partial, sums, N, H, W, C, O, relu, mode, stages,
                        partial_rows, stream);
+}
+
+// The Hopper kernel (float32): x (N, H, W, C) with C % 4 == 0 and C <= 256;
+// w: (3, 3, C, O) float32 HWIO weights with O % 4 == 0; planes: (2, 9, O, C)
+// float32 scratch, which the call fills with the weights' TF32 halves before
+// the conv reads them by TMA; b, y, pa, pb as above; partial: (partial_rows,
+// 2, OP) and sums: (2, OP) with OP = O rounded up to 64, partial_rows = N *
+// ceil(H/8) * ceil(W/32); stages: weight ring depth.
+extern "C" int conv3x3_bias_act_sm90_f32(const void* x, const void* w, void* planes,
+                                         const void* b, void* y, const void* pa, const void* pb,
+                                         void* partial, void* sums, int N, int H, int W, int C,
+                                         int O, int relu, int mode, int stages, int partial_rows,
+                                         void* stream) {
+  return bias_act_sm90_f32(x, w, planes, b, y, pa, pb, partial, sums, N, H, W, C, O, relu, mode,
+                           stages, partial_rows, stream);
+}
+
+// The weight split alone (what conv3x3_bias_act_sm90_f32 runs first), to hold
+// it against its plain version: w (3, 3, C, O) float32 -> planes (2, 9, O, C).
+extern "C" int conv3x3_split_weights_tf32(const void* w, void* planes, int C, int O,
+                                          void* stream) {
+  if (C < 1 || O < 1 || 9LL * C * O > 0x3fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(split_weights_tf32(static_cast<const float*>(w),
+                                             static_cast<float*>(planes), C, O,
+                                             static_cast<cudaStream_t>(stream)));
 }

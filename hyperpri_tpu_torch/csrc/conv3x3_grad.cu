@@ -36,8 +36,8 @@
 // tile of 64), a block walks the 8x32 pixel tiles of its split and writes its
 // (9, 64, 64) partial to partial[split], and reduce_rows_kernel adds the
 // splits in a fixed order: no float atomics, two runs give the same bits.
-// Two kernel bodies; the wrapper picks one by dtype, mode and layout before
-// the launch (ops/kernels/sm90_plan.py), never on a failure.
+// Three kernel bodies; the wrapper picks one by dtype, mode and layout
+// before the launch (ops/kernels/sm90_plan.py), never on a failure.
 //
 // conv3x3_wgrad_sm90_kernel (bf16 without the fold mode, every view with a
 // channel pitch that is a multiple of 8: every bf16 call of a training step,
@@ -74,8 +74,42 @@
 //   2*256*64*64*9 FLOP = 4.04e-3, as in the synchronous kernel; what changed
 //   is that the staging of the next tiles overlaps the products.
 //
-// conv3x3_wgrad_kernel<T, FOLD> (float32, the fold mode, and bf16 views whose
-// pitch TMA cannot take, e.g. C = 238 unframed): synchronous staging.
+// conv3x3_wgrad_sm90_f32_kernel (float32 without the fold mode, every view
+// with a channel pitch that is a multiple of 4: every float32 call of a
+// training step, the float32 ingest buffer's 256-channel pitch included). The
+// same blocks, splits and warpgroups (dh) in 3xTF32 (conv3x3_sm90.cuh):
+//   - the tf32 wgmma (m64n64k8) takes B from shared memory only K-major, and
+//     both operands arrive channel-contiguous, so g is transposed: a quarter
+//     tile of g (2 pixel rows x 32 pixels x 64 outputs, two TMA boxes) lands
+//     in a raw buffer, and 256 threads turn it into g^T, pixels contiguous,
+//     128-byte swizzled, split into TF32 hi and lo planes (4x4 blocks a
+//     thread, conflict-free 16-byte reads and writes); thread 0 then loads
+//     the next quarter's g while the warpgroups compute on this one;
+//   - A = z^T from registers: each thread reads its fragment words (channel
+//     rows, pixel columns) from the swizzled x halo, which TMA stages for two
+//     tiles ahead (two 32-channel boxes a tile, 87 KiB; the prologue applied
+//     in place in float32 by all 384 threads, in-image pixels only), and
+//     splits them into hi and lo;
+//   - each group of 2 K steps (16 pixels) and tap is one chain of 6 wgmmas
+//     (lo*hi, hi*lo, hi*hi) into a fresh fragment, added to the tap's
+//     accumulators with float32 adds rounded to nearest (K3F_GROUP = 2: a
+//     group of 4 needs 32 more A registers than the 168 a thread of a
+//     384-thread kernel has beside 96 accumulators and the fragment). On a
+//     step's one-signed cotangents dW was within 4.7e-7 of float64 relative
+//     to its absolute terms at every float32 shape of both steps, the
+//     synchronous kernel within 4.2e-7 (scripts/wgrad_f64_error.py on an
+//     H100, PERF.md §6); K3_MAX_CHAIN still bounds a split;
+//   - one block per SM (227 KiB of shared memory: two halos, the raw quarter
+//     and the two planes). Two block-wide barriers a quarter order the
+//     transposition against the products.
+//   Bound: operations, at the TF32 rate (three products a term: a ceiling
+//   three times the bound). Staged bytes per FLOP: (2 x 340 + 2 x 256)
+//   pixels of 128 bytes (x halo and g, 64 channels each) per 2*256*64*64*9
+//   FLOP = 8.09e-3, as in the synchronous float32 kernel; what changed is
+//   that the staging of the next tiles overlaps the products.
+//
+// conv3x3_wgrad_kernel<T, FOLD> (the fold mode, and views whose pitch TMA
+// cannot take, e.g. C = 238 unframed): synchronous staging.
 //   - for each pixel tile the block stages the (8+2)x(32+2)x64 halo of z and
 //     the 8x32x64 tile of g in shared memory (zero outside the image and past
 //     C or O, so the loops have no masks);
@@ -86,7 +120,6 @@
 //     float32 (3xTF32 on m16n8k8) there is no transposing ldmatrix for 32-bit
 //     elements: each thread loads its fragment words itself, from rows padded
 //     to 72 floats, so the 32 lanes' words fall in 32 distinct banks.
-//   Not yet done: TMA staging and wgmma for float32 (ROADMAP queue 2b).
 
 #include "conv3x3_common.cuh"
 #include "conv3x3_sm90.cuh"
@@ -552,6 +585,279 @@ int wgrad_sm90(const void* x, const void* g, const void* pa, const void* pb, voi
                                       s));
 }
 
+// ---------------------------------------------------------------------------
+// The float32 Hopper body (see the note at the top).
+
+using sm90::F32_CHUNK;
+using sm90::BOX_ROW;
+
+constexpr int K3F_HSTAGE = 2 * HALO_SLOT;           // a tile's x halo: two 32-channel boxes
+constexpr int K3F_HSTAGES = 2;
+constexpr int K3F_QROWS = 2;                        // pixel rows of a quarter tile
+constexpr int K3F_QUARTERS = TH / K3F_QROWS;
+constexpr int K3F_RAW_BOX = K3F_QROWS * TW * BOX_ROW;  // 32 outputs x 64 pixels of g
+constexpr int K3F_RAW = 2 * K3F_RAW_BOX;            // the quarter's g, 64 outputs
+constexpr int K3F_KBLOCK = 64 * BOX_ROW;            // 64 output rows x 32 pixels (one plane)
+constexpr int K3F_PLANE = K3F_QROWS * K3F_KBLOCK;   // the quarter's g^T, one plane
+// K steps (8 pixels each) chained through the tensor cores into one fresh
+// fragment before it is added to the accumulators.
+constexpr int K3F_GROUP = 2;
+static_assert(4 % K3F_GROUP == 0, "a 32-pixel row splits into whole groups");
+constexpr int K3F_TRANSPOSERS = 256;                // 4x4 blocks of the 64x64 quarter tile
+
+// Shared memory of one block: the halo ring, the raw g quarter, its g^T hi
+// and lo planes, the C tile's affine and the barriers (ops/kernels/sm90_plan.py
+// mirrors this).
+constexpr int k3f_smem_bytes() {
+  return sm90::ALIGN_SLACK + K3F_HSTAGES * K3F_HSTAGE + K3F_RAW + 2 * K3F_PLANE +
+         2 * 2 * F32_CHUNK * 4 + (K3F_HSTAGES + 1) * 8;
+}
+
+// The transpose-and-split stage: the raw g quarter (two TMA boxes, pixel rows
+// of 32 outputs, 128-byte swizzled) -> g^T, K-major (a row of 32 pixels per
+// output, 128-byte swizzled, one 8 KiB block per pixel row), in TF32 hi and
+// lo planes. Thread tid < 256 moves one 4x4 block: outputs 4*ob.., pixels
+// 4*pb..; the mapping makes both its 16-byte reads and its 16-byte writes
+// conflict-free within each quarter warp.
+__device__ __forceinline__ void k3f_transpose(const unsigned char* raw, unsigned char* phi,
+                                              unsigned char* plo, int tid) {
+  const int l8 = tid & 7;
+  const int ob = (l8 ^ ((tid >> 3) & 7)) | (((tid >> 6) & 1) << 3);
+  const int pb = l8 | (((tid >> 7) & 1) << 3);
+  float v[4][4];  // v[pixel][output] of the block
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = 4 * pb + i;
+    const float4 t = *reinterpret_cast<const float4*>(raw + (ob >> 3) * K3F_RAW_BOX +
+                                                      p * BOX_ROW + (((ob & 7) ^ (p & 7)) << 4));
+    v[i][0] = t.x;
+    v[i][1] = t.y;
+    v[i][2] = t.z;
+    v[i][3] = t.w;
+  }
+  const int kb = pb >> 3;
+  const int pc = pb & 7;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int o = 4 * ob + j;
+    const uint32_t col[4] = {__float_as_uint(v[0][j]), __float_as_uint(v[1][j]),
+                             __float_as_uint(v[2][j]), __float_as_uint(v[3][j])};
+    uint32_t hi[4], lo[4];
+    split_tf32(col, hi, lo);
+    const int at = kb * K3F_KBLOCK + o * BOX_ROW + ((pc ^ (o & 7)) << 4);
+    *reinterpret_cast<uint4*>(phi + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(plo + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// The float32 weight gradient on Hopper (see the note at the top). blockIdx
+// = (pixel split, C tile of 64, O tile of 64); warpgroup dh holds the
+// accumulators of taps (dh, 0..2): 3 x 32 floats a thread.
+__global__ void __launch_bounds__(K3_THREADS, 1)
+conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap gmap,
+                              const float* __restrict__ pa, const float* __restrict__ pb,
+                              float* __restrict__ partial, int N, int H, int W, int C, int O,
+                              int tiles_h, int tiles_w, int tiles_per_split) {
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw_base);
+  constexpr int RAW_OFF = K3F_HSTAGES * K3F_HSTAGE;
+  constexpr int HI_OFF = RAW_OFF + K3F_RAW;
+  constexpr int LO_OFF = HI_OFF + K3F_PLANE;
+  float* const pas = reinterpret_cast<float*>(smem + LO_OFF + K3F_PLANE);  // the C tile's affine
+  float* const pbs = pas + 2 * F32_CHUNK;
+  const uint32_t bars = base + LO_OFF + K3F_PLANE + 2 * 2 * F32_CHUNK * 4;
+  auto halo_full = [&](int hs) { return bars + 8 * hs; };
+  const uint32_t raw_full = bars + 8 * K3F_HSTAGES;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c0 = blockIdx.y * 2 * F32_CHUNK;
+  const int o0 = blockIdx.z * 2 * F32_CHUNK;
+  const int n_tiles = N * tiles_h * tiles_w;
+  const int t_begin = blockIdx.x * tiles_per_split;
+  const int n_mine = min(n_tiles, t_begin + tiles_per_split) - t_begin;
+
+  if (threadIdx.x == 0) {
+    for (int hs = 0; hs <= K3F_HSTAGES; ++hs) mbar_init(bars + 8 * hs, 1);
+    fence_barrier_init();
+  }
+  load_affine(pas, pbs, pa, pb, c0, 2 * F32_CHUNK, C, threadIdx.x, K3_THREADS);
+  __syncthreads();
+
+  // Thread 0 issues the loads: tile i's (8+2)x(32+2) x halo into halo stage
+  // i % 2 (two boxes of 32 channels), and quarter u's 2x32-pixel g tile (two
+  // boxes of 32 outputs) into the raw buffer; zero outside the logical images.
+  auto coords = [&](int i, int& n, int& ty, int& tx) {
+    const int t = t_begin + i;
+    tx = t % tiles_w;
+    ty = (t / tiles_w) % tiles_h;
+    n = t / (tiles_w * tiles_h);
+  };
+  auto issue_halo = [&](int i) {
+    int n, ty, tx;
+    coords(i, n, ty, tx);
+    const int hs = i % K3F_HSTAGES;
+    mbar_expect_tx(halo_full(hs), 2 * HALO_BYTES);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      tma_load_4d(base + hs * K3F_HSTAGE + b * HALO_SLOT, &xmap, halo_full(hs),
+                  c0 + b * F32_CHUNK, tx * TW - 1, ty * TH - 1, n);
+  };
+  auto issue_raw = [&](int u) {
+    int n, ty, tx;
+    coords(u / K3F_QUARTERS, n, ty, tx);
+    mbar_expect_tx(raw_full, K3F_RAW);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      tma_load_4d(base + RAW_OFF + b * K3F_RAW_BOX, &gmap, raw_full, o0 + b * F32_CHUNK,
+                  tx * TW, ty * TH + (u % K3F_QUARTERS) * K3F_QROWS, n);
+  };
+  if (threadIdx.x == 0 && n_mine > 0) {
+    for (int i = 0; i < K3F_HSTAGES && i < n_mine; ++i) issue_halo(i);
+    issue_raw(0);
+  }
+
+  const int dh = warp >> 2;  // tap row of this warpgroup
+  const int wq = warp & 3;   // 16-channel row block of the C tile
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // A[m = channel][k = pixel] = z^T: thread (g, t4) of warp wq holds channels
+  // 16wq + g (+8) at pixels t4 (+4) of a K step; both channels lie in box
+  // wq / 2 at channel cc (+8) of its 32.
+  const int cc = 16 * (wq & 1) + g;
+  float acc[3][32];
+#pragma unroll
+  for (int dw = 0; dw < 3; ++dw)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[dw][i] = 0.0f;
+  float frag[32];
+  uint32_t a_hi[K3F_GROUP][4], a_lo[K3F_GROUP][4];
+
+  for (int i = 0; i < n_mine; ++i) {
+    const int hs = i % K3F_HSTAGES;
+    const unsigned char* const halo = smem + hs * K3F_HSTAGE + (wq >> 1) * HALO_SLOT;
+    mbar_wait(halo_full(hs), (i / K3F_HSTAGES) & 1);
+    if (pa != nullptr) {
+      int n, ty, tx;
+      coords(i, n, ty, tx);
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        prologue_box_f32(reinterpret_cast<float*>(smem + hs * K3F_HSTAGE + b * HALO_SLOT),
+                         HALO_PIX, HALO_W, ty * TH - 1, tx * TW - 1, H, W, pas + b * F32_CHUNK,
+                         pbs + b * F32_CHUNK, threadIdx.x, K3_THREADS);
+      fence_proxy_async();  // before TMA writes this stage again
+    }
+#pragma unroll 1
+    for (int q = 0; q < K3F_QUARTERS; ++q) {
+      const int u = i * K3F_QUARTERS + q;
+      mbar_wait(raw_full, u & 1);
+      if (threadIdx.x < K3F_TRANSPOSERS)
+        k3f_transpose(smem + RAW_OFF, smem + HI_OFF, smem + LO_OFF, threadIdx.x);
+      fence_proxy_async();  // the planes, before the tensor cores read them
+      __syncthreads();      // planes written, raw read, the prologue done
+      if (threadIdx.x == 0 && u + 1 < n_mine * K3F_QUARTERS) issue_raw(u + 1);
+#pragma unroll 1
+      for (int r = 0; r < K3F_QROWS; ++r) {
+        const int hrow = (q * K3F_QROWS + r + dh) * HALO_W;
+#pragma unroll
+        for (int grp = 0; grp < 4 / K3F_GROUP; ++grp) {
+#pragma unroll
+          for (int dw = 0; dw < 3; ++dw) {
+#pragma unroll
+            for (int j = 0; j < K3F_GROUP; ++j) {
+              const int p0 = hrow + (grp * K3F_GROUP + j) * 8 + t4 + dw;
+              uint32_t a[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int p = p0 + (e >> 1) * 4;
+                const int c = cc + (e & 1) * 8;
+                a[e] = *reinterpret_cast<const uint32_t*>(
+                    halo + p * BOX_ROW + (((c >> 2) ^ (p & 7)) << 4) + (c & 3) * 4);
+              }
+              split_tf32(a, a_hi[j], a_lo[j]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < K3F_GROUP; ++j) {
+              const uint32_t k_off = r * K3F_KBLOCK + (grp * K3F_GROUP + j) * 32;
+              wgmma_3xtf32_step(frag, a_hi[j], a_lo[j], desc_sw128(base + HI_OFF + k_off, 16, 1024),
+                                desc_sw128(base + LO_OFF + k_off, 16, 1024), j == 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(frag);
+#pragma unroll
+            for (int j = 0; j < K3F_GROUP; ++j) {
+              fence_regs(a_hi[j]);
+              fence_regs(a_lo[j]);
+            }
+            add_fragment(acc[dw], frag);
+          }
+        }
+      }
+      __syncthreads();  // every warpgroup is done with the planes (and, after
+                        // the last quarter, with the halo stage)
+    }
+    if (threadIdx.x == 0 && i + K3F_HSTAGES < n_mine) issue_halo(i + K3F_HSTAGES);
+  }
+
+  // Accumulator element i of tap (dh, dw) is input channel c0 + 16*wq +
+  // lane/4 + 8*((i%4)/2), output channel o0 + 8*(i/4) + 2*(lane%4) + i%2.
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 9 * C * O;
+#pragma unroll
+  for (int dw = 0; dw < 3; ++dw) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = c0 + 16 * wq + g + 8 * ((i & 3) >> 1);
+      const int o = o0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (c < C && o < O) out[(static_cast<size_t>(3 * dh + dw) * C + c) * O + o] = acc[dw][i];
+    }
+  }
+}
+
+int wgrad_sm90_f32(const void* x, const void* g, const void* pa, const void* pb, void* partial,
+                   void* out, const int* frames, int N, int H, int W, int C, int O, int splits,
+                   int stages, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 || frames == nullptr ||
+      (pa == nullptr) != (pb == nullptr) || stages != K3F_HSTAGES ||
+      k3f_smem_bytes() > sm90::SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
+  const Frame fg{frames[5], frames[6], frames[7], frames[8], frames[9]};
+  if (!frame_ok(fx, H, W, C) || !frame_ok(fg, H, W, O))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_w = (W + TW - 1) / TW;
+  const long long n_tiles = static_cast<long long>(N) * tiles_h * tiles_w;
+  const int c_tiles = (C + 2 * F32_CHUNK - 1) / (2 * F32_CHUNK);
+  const int o_tiles = (O + 2 * F32_CHUNK - 1) / (2 * F32_CHUNK);
+  const long long cols = static_cast<long long>(9) * C * O;
+  if (n_tiles > 0x7fffffffLL || c_tiles > 65535 || o_tiles > 65535 || cols > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, gmap;
+  if (!sm90::nhwc_map_f32(&xmap, x, fx, N, H, W, C, HALO_W, TH + 2) ||
+      !sm90::nhwc_map_f32(&gmap, g, fg, N, H, W, O, TW, K3F_QROWS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_per_split = static_cast<int>((n_tiles + splits - 1) / splits);
+  const int smem = k3f_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgrad_sm90_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  conv3x3_wgrad_sm90_f32_kernel<<<dim3(splits, c_tiles, o_tiles), K3_THREADS, smem, s>>>(
+      xmap, gmap, static_cast<const float*>(pa), static_cast<const float*>(pb),
+      static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_rows(static_cast<const float*>(partial),
+                                      static_cast<float*>(out), splits, static_cast<int>(cols),
+                                      s));
+}
+
 template <typename T>
 int wgrad_impl(const void* x, const void* g, const void* pa, const void* pb, const Fold<T>& fold,
                void* partial, void* out, const int* frames, int N, int H, int W, int C, int O,
@@ -641,4 +947,15 @@ extern "C" int conv3x3_wgrad_sm90_bf16(const void* x, const void* g, const void*
                                        const int* frames, int N, int H, int W, int C, int O,
                                        int splits, int stages, void* stream) {
   return wgrad_sm90(x, g, pa, pb, partial, out, frames, N, H, W, C, O, splits, stages, stream);
+}
+
+// The Hopper kernel (float32, no fold mode): as conv3x3_wgrad_sm90_bf16, every
+// view with a channel pitch that is a multiple of 4; stages: the depth of the
+// ring of x halos (2).
+extern "C" int conv3x3_wgrad_sm90_f32(const void* x, const void* g, const void* pa,
+                                      const void* pb, void* partial, void* out, const int* frames,
+                                      int N, int H, int W, int C, int O, int splits, int stages,
+                                      void* stream) {
+  return wgrad_sm90_f32(x, g, pa, pb, partial, out, frames, N, H, W, C, O, splits, stages,
+                        stream);
 }

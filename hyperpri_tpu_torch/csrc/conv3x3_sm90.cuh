@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the bf16 conv kernels redesigned for the
-// H100: conv3x3_packed_sm90_kernel (conv3x3_packed.cu, conv3x3_packed),
-// conv3x3_sm90_kernel (conv3x3.cu, conv3x3_bias_act) and
-// conv3x3_wgrad_sm90_kernel (conv3x3_grad.cu, conv3x3_wgrad).
+// Hopper (sm_90a) building blocks of the conv kernels redesigned for the
+// H100: conv3x3_packed_sm90_kernel (conv3x3_packed.cu, conv3x3_packed, bf16),
+// conv3x3_sm90_kernel and conv3x3_sm90_f32_kernel (conv3x3.cu,
+// conv3x3_bias_act, bf16 and float32) and conv3x3_wgrad_sm90_kernel and
+// conv3x3_wgrad_sm90_f32_kernel (conv3x3_grad.cu, conv3x3_wgrad).
 //
 //   - Staging is asynchronous: one thread keeps TMA loads
 //     (cp.async.bulk.tensor) in flight into a ring of shared-memory stages,
@@ -28,6 +29,17 @@
 //     ldmatrix from the staged box into the A-register layout (per warp the
 //     mma.sync m16n8k16 A fragment); the unshifted operand is read by the
 //     tensor cores from shared memory through a descriptor.
+//   - Float32 (3xTF32, as conv3x3_common.cuh describes): a staged pixel is one
+//     128-byte row of 32 float32 channels, swizzled alike. The tf32 wgmma is
+//     m64nNk8 (a K step is 8 floats, 32 bytes) and reads B from shared memory
+//     only K-major (the descriptor's transpose bits exist for f16/bf16 only),
+//     so the shared-memory operand is laid out K-major in two planes, hi =
+//     tf32(v) and lo = tf32(v - hi); the register operand is split in
+//     registers. Each product is lo*hi + hi*lo + hi*hi into a fresh fragment
+//     (scale-d = 0 on its first wgmma) that chains a few K steps only and is
+//     then added to the float32 accumulators with adds rounded to nearest: the
+//     tensor cores' own accumulation truncates, and a long chain through it
+//     drifts on one-signed terms (conv3x3_common.cuh, mma_3xtf32).
 
 #pragma once
 
@@ -46,6 +58,7 @@ constexpr int HALO_BYTES = HALO_PIX * BOX_ROW;                 // (8+2) x (32+2)
 constexpr int HALO_SLOT = (HALO_BYTES + 1023) / 1024 * 1024;   // 1 KiB aligned
 constexpr int TILE_BYTES = TH * TW * BOX_ROW;                  // 8 x 32 pixels
 constexpr int ALIGN_SLACK = 1024;   // the dynamic base is rounded up to 1 KiB
+constexpr int F32_CHUNK = BOX_ROW / 4;  // float32 channels of one staged box row (32)
 
 // ---------------------------------------------------------------------------
 // mbarriers, TMA, fences
@@ -251,6 +264,50 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d = A * B + (scale_d ? d : 0), m64n64k8 in tf32: A (64 x 8) from registers
+// in the mma.sync m16n8k8 tf32 A fragment layout (warp w of the warpgroup
+// holds rows 16w..16w+15), B (8 x 64) K-major in shared memory (desc_b: 64
+// rows of 128-byte-swizzled K, the K step's 32 bytes at the start address).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// One 3xTF32 K step into the fragment d: lo(A)*hi(B) + hi(A)*lo(B) +
+// hi(A)*hi(B), B's planes at desc_hi and desc_lo; `first` starts the chain
+// (scale-d = 0 on its first wgmma).
+__device__ __forceinline__ void wgmma_3xtf32_step(float (&d)[32], const uint32_t (&a_hi)[4],
+                                                  const uint32_t (&a_lo)[4], uint64_t desc_hi,
+                                                  uint64_t desc_lo, bool first) {
+  wgmma_m64n64k8_tf32_rs(d, a_lo, desc_hi, first ? 0 : 1);
+  wgmma_m64n64k8_tf32_rs(d, a_hi, desc_lo, 1);
+  wgmma_m64n64k8_tf32_rs(d, a_hi, desc_hi, 1);
+}
+
+// acc += frag with float32 adds rounded to nearest.
+template <int R>
+__device__ __forceinline__ void add_fragment(float (&acc)[R], const float (&frag)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = __fadd_rn(acc[i], frag[i]);
+}
+
 // ---------------------------------------------------------------------------
 // The prologue on a staged box, after it has landed
 
@@ -294,6 +351,30 @@ __device__ __forceinline__ void prologue_box(__nv_bfloat16* box, int rows, int b
   }
 }
 
+// The same on a swizzled float32 box (32 channels a pixel): z =
+// relu(pa*x + pb) in float32, kept unrounded. pas, pbs: the affine of the
+// box's 32 channels (16-byte aligned, zero from channel C on).
+__device__ __forceinline__ void prologue_box_f32(float* box, int rows, int box_w, int h_start,
+                                                 int w_start, int H, int W, const float* pas,
+                                                 const float* pbs, int tid, int nthreads) {
+  for (int i = tid; i < rows * 8; i += nthreads) {
+    const int p = i >> 3;
+    const int hh = h_start + p / box_w;
+    const int ww = w_start + p % box_w;
+    if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
+    const int lc = ((i & 7) ^ (p & 7)) << 2;  // the vector's first channel in the box
+    float4* q = reinterpret_cast<float4*>(box + p * F32_CHUNK + (i & 7) * 4);
+    const float4 a = *reinterpret_cast<const float4*>(pas + lc);
+    const float4 b = *reinterpret_cast<const float4*>(pbs + lc);
+    float4 v = *q;
+    v.x = affine_relu(v.x, a.x, b.x);
+    v.y = affine_relu(v.y, a.y, b.y);
+    v.z = affine_relu(v.z, a.z, b.z);
+    v.w = affine_relu(v.w, a.w, b.w);
+    *q = v;
+  }
+}
+
 // Copy the prologue affine of channels [c_first, c_first + n) into shared
 // memory (pas[k], pbs[k] for channel c_first + k), zero from channel C on and
 // without a prologue. Threads tid = 0..nthreads-1 share the work.
@@ -324,20 +405,30 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1..rank-1) with a 128-byte-swizzled box, zero fill out of bounds.
-inline bool encode_bf16(CUtensorMap* map, const void* origin, int rank, const cuuint64_t* dims,
-                        const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of `rank` dims (innermost first; strides in bytes of dims
+// 1..rank-1) with a 128-byte-swizzled box, zero fill out of bounds.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* origin,
+                         int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(origin) % 16 != 0) return false;
   for (int i = 0; i < rank - 1; ++i)
     if (strides[i] % 16 != 0) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                const_cast<void*>(origin), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(origin), dims,
+                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_bf16(CUtensorMap* map, const void* origin, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, origin, rank, dims, strides, box);
+}
+
+inline bool encode_f32(CUtensorMap* map, const void* origin, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, origin, rank, dims, strides, box);
 }
 
 // The map of a framed NHWC bf16 view: dims (C, W, H, N) of the logical
@@ -353,6 +444,20 @@ inline bool nhwc_map(CUtensorMap* map, const void* buf, const Frame& f, int N, i
                              static_cast<cuuint32_t>(box_h), 1};
   const char* origin = static_cast<const char*>(buf) + image_offset(f, 0) * 2;
   return encode_bf16(map, origin, 4, dims, strides, box);
+}
+
+// The same for a float32 view: boxes of 32 channels (128 bytes) x box_w x
+// box_h pixels of one image.
+inline bool nhwc_map_f32(CUtensorMap* map, const void* buf, const Frame& f, int N, int H, int W,
+                         int C, int box_w, int box_h) {
+  const cuuint64_t pix = static_cast<cuuint64_t>(f.pitch) * 4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {pix, pix * f.cols, pix * f.cols * f.rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(F32_CHUNK), static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
+  const char* origin = static_cast<const char*>(buf) + image_offset(f, 0) * 4;
+  return encode_f32(map, origin, 4, dims, strides, box);
 }
 
 }  // namespace sm90

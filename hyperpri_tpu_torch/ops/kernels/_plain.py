@@ -171,6 +171,34 @@ def pack_weights(w: torch.Tensor, tile: int, dtype: torch.dtype) -> torch.Tensor
     return wp
 
 
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on float32 `t`: round to the 10 mantissa bits of TF32,
+    to nearest with ties away from zero, the low 13 bits zero; NaN stays
+    NaN."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64)
+    sign = bits & -0x80000000
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    out = (sign | mag).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(t), t, out)
+
+
+def split_tf32_reference(t: torch.Tensor):
+    """(hi, lo) of float32 `t` as the 3xTF32 kernels split an operand: hi =
+    tf32(t), lo = tf32(t - hi); t - hi is exact in float32 and hi + lo is
+    within 2**-21 of t relative (split_tf32 in csrc/conv3x3_common.cuh)."""
+    hi = tf32_rna(t.float())
+    return hi, tf32_rna(t.float() - hi)
+
+
+def split_weights_tf32_reference(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, O) float32 weights -> (2, 9, O, C): planes[0][tap][o][c] = hi
+    and planes[1][tap][o][c] = lo of w[dh][dw][c][o] (tap = 3*dh + dw), the
+    K-major TF32 halves the float32 Hopper conv reads."""
+    _, _, c, o = w.shape
+    hi, lo = split_tf32_reference(w.float().permute(0, 1, 3, 2).reshape(9, o, c))
+    return torch.stack([hi, lo])
+
+
 def count(counts: dict, names) -> None:
     """Add one to each name's entry of a wrapper's by-framing counter."""
     for name in names:

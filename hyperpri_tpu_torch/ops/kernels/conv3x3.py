@@ -18,11 +18,13 @@ kernel's bound and design.
 
 On the card the call takes one of two kernel bodies, chosen before the launch
 by sm90_plan.bias_act_plan from its dtype and layout: "sm90", the Hopper
-kernel (TMA staging, wgmma; bf16 with C and O multiples of 8 and C <= 256,
-every bf16 call of a training step; it reads w in place), or "legacy", the
-synchronous mma.sync kernel on packed weights (float32, other bf16 layouts).
-The private keyword `_legacy=True` takes the synchronous body whatever the
-layout, to hold the two bodies against each other.
+kernels (TMA staging, wgmma; C <= 256 and C, O whose rows TMA can address:
+multiples of 8 in bf16, of 4 in float32; every call of a bf16 or float32
+training step. bf16 reads w in place; float32 first splits w into K-major
+TF32 hi and lo planes, `split_weights_tf32`, and multiplies by 3xTF32), or
+"legacy", the synchronous mma.sync kernel on packed weights (other layouts,
+e.g. C = 238). The private keyword `_legacy=True` takes the synchronous body
+whatever the layout, to hold the two bodies against each other.
 
 `conv3x3_bias_act` runs the plain version, `conv3x3_bias_act_reference`, only
 for tensors on the CPU. For CUDA tensors it launches a kernel or raises.
@@ -54,9 +56,31 @@ def _lib(suffix: str):
                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
-def _lib_sm90():
-    return _plain.bind("conv3x3", "conv3x3_bias_act_sm90_bf16",
-                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+def _lib_sm90(suffix: str):
+    pointers = 8 if suffix == "bf16" else 9   # float32 also takes the planes' scratch
+    return _plain.bind("conv3x3", f"conv3x3_bias_act_sm90_{suffix}",
+                       [ctypes.c_void_p] * pointers + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
+def split_weights_tf32(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, O) float32 weights -> their (2, 9, O, C) K-major TF32 hi and
+    lo planes, as the float32 Hopper body of conv3x3_bias_act splits them on
+    the card before each conv (the kernel alone, to hold it against
+    `_plain.split_weights_tf32_reference`, which runs for CPU tensors)."""
+    if w.dim() != 4 or w.shape[:2] != (3, 3) or w.dtype != torch.float32:
+        raise ValueError(f"need (3, 3, C, O) float32 weights, got {tuple(w.shape)} {w.dtype}")
+    if w.device.type == "cpu":
+        return _plain.split_weights_tf32_reference(w)
+    w = w.contiguous()
+    c, o = w.shape[2], w.shape[3]
+    planes = torch.empty((2, 9, o, c), dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        fn = _plain.bind("conv3x3", "conv3x3_split_weights_tf32",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        err = fn(w.data_ptr(), planes.data_ptr(), c, o, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_weights_tf32 kernel launch failed: cudaError_t {err}")
+    return planes
 
 
 def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -82,10 +106,11 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((n, h, width, o), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         raise ValueError("conv3x3_bias_act: empty input")
-    w_bf16 = w.to(x.dtype).contiguous() if x.dtype == torch.bfloat16 else w
-    aligned = x.data_ptr() % 16 == 0 and w_bf16.data_ptr() % 16 == 0
+    w_k = w.to(x.dtype).contiguous()   # what the Hopper kernels read (bf16) or split (float32)
+    aligned = x.data_ptr() % 16 == 0 and w_k.data_ptr() % 16 == 0
     plan = sm90_plan.bias_act_plan(n, h, width, c, o, x.dtype, aligned, sm90=not _legacy)
-    # the Hopper kernel reads w in place; the synchronous one packed weights
+    # the bf16 Hopper kernel reads w in place, the float32 one its TF32 planes;
+    # the synchronous one packed weights
     op = -(-o // plan.tile_o) * plan.tile_o
     bf, paf, pbf = _plain.f32_vector(b), _plain.f32_vector(pa), _plain.f32_vector(pb)
     partial = sums = None
@@ -95,8 +120,12 @@ def conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.path == "sm90":
-            err = _lib_sm90()(
-                x.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
+            weights = [w_k.data_ptr()]
+            if suffix == "f32":   # scratch the call fills with the weights' TF32 planes
+                planes = torch.empty((2, 9, o, c), dtype=torch.float32, device=x.device)
+                weights.append(planes.data_ptr())
+            err = _lib_sm90(suffix)(
+                x.data_ptr(), *weights, bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
                 _plain.ptr(pbf), _plain.ptr(partial), _plain.ptr(sums), n, h, width, c, o,
                 int(relu), int(with_stats), plan.stages, plan.partial_rows, stream)
         else:

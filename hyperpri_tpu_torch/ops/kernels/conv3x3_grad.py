@@ -37,10 +37,11 @@ adjoint conv reads too.
 
 On the card the call takes one of two kernel bodies, chosen before the launch
 by sm90_plan.wgrad_plan from its dtype, mode and layout: "sm90", the Hopper
-kernel (TMA staging, wgmma; bf16 without the fold mode, views whose channel
-pitch is a multiple of 8: every bf16 call of a training step, the ingest
-buffer included), or "legacy", the synchronous mma.sync kernel (float32, the
-fold mode, other bf16 layouts such as C = 238 unframed). The private keyword
+kernels (TMA staging, wgmma, 3xTF32 in float32; no fold mode, views whose
+channel pitch TMA can address, a multiple of 8 in bf16 and of 4 in float32:
+every call of a bf16 or float32 training step, the ingest buffer included),
+or "legacy", the synchronous mma.sync kernel (the fold mode, other layouts
+such as C = 238 unframed). The private keyword
 `_legacy=True` takes the synchronous body whatever the layout: the fold mode
 is held bit for bit against it, and the two bodies against each other.
 
@@ -151,8 +152,8 @@ def _lib(suffix: str):
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
-def _lib_sm90():
-    return _plain.bind("conv3x3_grad", "conv3x3_wgrad_sm90_bf16",
+def _lib_sm90(suffix: str):
+    return _plain.bind("conv3x3_grad", f"conv3x3_wgrad_sm90_{suffix}",
                        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
@@ -204,7 +205,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.path == "sm90":
-            err = _lib_sm90()(
+            err = _lib_sm90(suffix)(
                 x.data_ptr(), g.data_ptr(), _plain.ptr(paf), _plain.ptr(pbf), partial.data_ptr(),
                 out.data_ptr(), framing.frames_arg(fx, fg), n, h, width, c, o, plan.splits,
                 plan.stages, stream)

@@ -8,17 +8,23 @@ card, and the wrappers choose before the launch, never on a failure.
 
   - "sm90": the Hopper kernels (csrc/conv3x3_sm90.cuh;
     conv3x3_packed_sm90_kernel in csrc/conv3x3_packed.cu, conv3x3_sm90_kernel
-    in csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel in csrc/conv3x3_grad.cu): TMA
-    staging into an mbarrier ring and wgmma products. They take bf16 views
-    that TMA can address: every stride a multiple of 16 bytes (a channel
-    pitch that is a multiple of 8) and a 16-byte aligned logical origin.
+    and conv3x3_sm90_f32_kernel in csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel
+    and conv3x3_wgrad_sm90_f32_kernel in csrc/conv3x3_grad.cu): TMA staging
+    into mbarrier rings and wgmma products (3xTF32 in float32). They take
+    views that TMA can address: every stride a multiple of 16 bytes (a
+    channel pitch that is a multiple of 8 in bf16, of 4 in float32) and a
+    16-byte aligned logical origin. conv3x3_packed takes them in bf16 only;
+    conv3x3_bias_act and conv3x3_wgrad (not its fold mode) in bf16 and
+    float32.
   - "legacy": the synchronous mma.sync kernels (conv3x3_common.cuh), for
-    float32, the weight gradient's fold mode, and bf16 layouts TMA cannot
-    take (e.g. C = 238 unframed: 476-byte pixels).
+    conv3x3_packed in float32, the weight gradient's fold mode, and layouts
+    TMA cannot take (e.g. C = 238 unframed: 476-byte bf16 or 952-byte
+    float32 pixels).
 
 The shared-memory sums mirror the kernels' (k1_smem_bytes in
-conv3x3_packed.cu, k2_smem_bytes in conv3x3.cu, k3_smem_bytes in
-conv3x3_grad.cu); each plan's must fit an H100 block.
+conv3x3_packed.cu, k2_smem_bytes and k2f_smem_bytes in conv3x3.cu,
+k3_smem_bytes and k3f_smem_bytes in conv3x3_grad.cu); each plan's must fit
+an H100 block.
 `sm90=False` sends a call to the synchronous kernels whatever its layout:
 the wrappers pass it for their private `_legacy` keyword, with which the
 fold mode (which has no Hopper body) is compared bit for bit with the
@@ -59,6 +65,19 @@ K2_WSTAGE = K2_N * BOX_ROW
 K2_MAX_CHUNKS = 4
 K2_MAX_STAGES = 4
 K2_RED_BYTES = TH * K2_N * 4
+# conv3x3_sm90_f32_kernel: O tiles of 64 walked inside the block, the halo
+# streamed in 32-channel chunks (one 128-byte box row of float32) through a
+# ring of two stages, staged again for every O tile; (tap, chunk) weight
+# slices of 64 outputs x 32 channels in TF32 hi and lo planes (16 KiB) in a
+# ring of 2-8 stages; C <= 256 (the prologue's affine buffer).
+F32_CHUNK = BOX_ROW // 4
+K2F_N = 64
+K2F_WSTAGE = 2 * K2F_N * BOX_ROW
+K2F_HSTAGES = 2
+K2F_MAX_C = 256
+K2F_MAX_STAGES = 8
+K2F_RED_BYTES = TH * K2F_N * 4
+K2F_AFFINE_BYTES = 2 * K2F_MAX_C * 4
 # conv3x3_wgrad_sm90_kernel: a ring of whole pixel tiles (x halo + g tile).
 # In both weight-gradient kernels a split's float32 accumulators chain the K
 # steps of its pixel tiles, and on one-signed terms (a step's cotangents)
@@ -68,6 +87,12 @@ K2_RED_BYTES = TH * K2_N * 4
 K3_STAGE = HALO_SLOT + TILE_BYTES
 K3_MAX_STAGES = 3
 K3_MAX_CHAIN = 19
+# conv3x3_wgrad_sm90_f32_kernel: a ring of two x halos (64 channels: two
+# 32-channel boxes), the g tile a quarter (2 pixel rows) at a time, raw and
+# as TF32 hi and lo planes of g^T.
+K3F_HSTAGES = 2
+K3F_RAW = 2 * 2 * TW * BOX_ROW
+K3F_PLANE = 2 * 64 * BOX_ROW
 # the synchronous kernels
 LEGACY_ROW_BYTES = 80
 LEGACY_HALO_PIX = (TH + 2) * (TW + 2)
@@ -128,15 +153,30 @@ def k2_smem_bytes(n_chunks: int, stages: int) -> int:
             + (2 * K2_MAX_CHUNKS + 2 * stages) * 8)
 
 
+def k2f_smem_bytes(stages: int) -> int:
+    return (ALIGN_SLACK + K2F_HSTAGES * HALO_SLOT + stages * K2F_WSTAGE + K2F_RED_BYTES
+            + K2F_AFFINE_BYTES + (3 * K2F_HSTAGES + 2 * stages) * 8)
+
+
 def k3_smem_bytes(stages: int) -> int:
     return ALIGN_SLACK + stages * K3_STAGE + 2 * CHUNK * 4 + 2 * stages * 8
 
 
-def tma_view_ok(pitch: int, aligned: bool) -> bool:
-    """A bf16 NHWC view TMA can address: pixel stride (pitch * 2 bytes) a
-    multiple of 16, so every row and image stride and, with the buffer's base
-    16-byte aligned (`aligned`), the logical origin are too."""
-    return pitch % 8 == 0 and aligned
+def k3f_smem_bytes() -> int:
+    return (ALIGN_SLACK + K3F_HSTAGES * 2 * HALO_SLOT + K3F_RAW + 2 * K3F_PLANE
+            + 2 * 2 * F32_CHUNK * 4 + (K3F_HSTAGES + 1) * 8)
+
+
+def tma_view_ok(pitch: int, aligned: bool, esize: int = 2) -> bool:
+    """An NHWC view of `esize`-byte elements TMA can address: pixel stride
+    (pitch * esize bytes) a multiple of 16, so every row and image stride
+    and, with the buffer's base 16-byte aligned (`aligned`), the logical
+    origin are too."""
+    return pitch * esize % 16 == 0 and aligned
+
+
+def _esize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def packed_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pitch: int,
@@ -196,15 +236,25 @@ def bias_act_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,
                   aligned: bool = True, sm90: bool = True) -> BiasActPlan:
     """The plan of conv3x3_bias_act on an unframed (n, h, w, c) x with o
     outputs; `aligned`: the data pointers of x and of the (3, 3, c, o)
-    weights, which the Hopper kernel reads in place, are 16-byte aligned."""
+    weights, which the bf16 Hopper kernel reads in place, are 16-byte
+    aligned (the float32 one reads the weights' TF32 planes, which the call
+    writes). Both Hopper bodies take C <= 256 and TMA views of x and of the
+    weights' rows (c and o); bf16 walks O tiles of 128 over a resident halo,
+    float32 O tiles of 64 over a streamed one."""
     tiles_h, tiles_w = _cdiv(h, TH), _cdiv(w, TW)
     n_chunks = _cdiv(c, CHUNK)
-    if (sm90 and dtype == torch.bfloat16 and n_chunks <= K2_MAX_CHUNKS
-            and tma_view_ok(c, aligned) and tma_view_ok(o, aligned)):
+    esize = _esize(dtype)
+    tma = tma_view_ok(c, aligned, esize) and tma_view_ok(o, aligned, esize)
+    if sm90 and tma and dtype == torch.bfloat16 and n_chunks <= K2_MAX_CHUNKS:
         stages = max(s for s in range(2, K2_MAX_STAGES + 1)
                      if s == 2 or k2_smem_bytes(n_chunks, s) <= SMEM_LIMIT)
         return BiasActPlan("sm90", K2_N, stages, (tiles_w, tiles_h, n),
                            n * tiles_h * tiles_w, k2_smem_bytes(n_chunks, stages))
+    if sm90 and tma and dtype == torch.float32 and c <= K2F_MAX_C:
+        stages = max(s for s in range(2, K2F_MAX_STAGES + 1)
+                     if s == 2 or k2f_smem_bytes(s) <= SMEM_LIMIT)
+        return BiasActPlan("sm90", K2F_N, stages, (tiles_w, tiles_h, n),
+                           n * tiles_h * tiles_w, k2f_smem_bytes(stages))
     tile_o = 64 if o <= 64 else 128
     return BiasActPlan("legacy", tile_o, 0, (tiles_w, tiles_h, n * _cdiv(o, tile_o)),
                        n * tiles_h * tiles_w,
@@ -223,21 +273,26 @@ def wgrad_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pit
     shared memory), fills the waves of blocks over the (C tile, O tile)
     pairs that the least count needs; both no more than there are pixel
     tiles and within a bounded partial buffer (for sm90 every split has
-    tiles)."""
+    tiles). The Hopper bodies (bf16 and float32) take every non-fold call
+    whose views TMA can address."""
     tiles = n * _cdiv(h, TH) * _cdiv(w, TW)
     co_blocks = _cdiv(c, CHUNK) * _cdiv(o, CHUNK)
     by_memory = max(1, MAX_PARTIAL_BYTES // (36 * c * o))
     least = _cdiv(tiles, K3_MAX_CHAIN)
-    sm90 = (sm90 and dtype == torch.bfloat16 and not fold and tma_view_ok(x_pitch, aligned)
-            and tma_view_ok(g_pitch, aligned))
+    esize = _esize(dtype)
+    sm90 = (sm90 and not fold and tma_view_ok(x_pitch, aligned, esize)
+            and tma_view_ok(g_pitch, aligned, esize))
     if sm90:
-        stages = max(s for s in range(2, K3_MAX_STAGES + 1)
-                     if s == 2 or k3_smem_bytes(s) <= SMEM_LIMIT)
+        if dtype == torch.bfloat16:
+            stages = max(s for s in range(2, K3_MAX_STAGES + 1)
+                         if s == 2 or k3_smem_bytes(s) <= SMEM_LIMIT)
+            smem = k3_smem_bytes(stages)
+        else:
+            stages, smem = K3F_HSTAGES, k3f_smem_bytes()
         waves = _cdiv(least * co_blocks, SMS)
-        target, smem = waves * SMS // co_blocks, k3_smem_bytes(stages)
+        target = waves * SMS // co_blocks
     else:
         stages, target = 0, max(least, _cdiv(LEGACY_TARGET_BLOCKS, co_blocks))
-        esize = torch.empty((), dtype=dtype).element_size()
         smem = ((LEGACY_HALO_PIX + TH * TW) * LEGACY_WGRAD_ROW * esize
                 + ((2 * CHUNK + 256 * (16 // esize)) * 4 if fold else 0))
     splits = max(1, min(tiles, target, by_memory))

@@ -4,7 +4,9 @@ against float64, for both kernel bodies of conv3x3_wgrad:
     python3 scripts/wgrad_f64_error.py [SEEDS]
 
 At every distinct bf16 conv3x3_wgrad call of a CubeNET-64 product-loop step
-(chip_smoke.training_calls(ingest=True)), on the inputs of chip_smoke.py's
+(chip_smoke.training_calls(ingest=True)) and every distinct float32 one of a
+CubeNET-64 float32 step with the ingest buffer (which holds every float32
+weight-gradient shape of the UNET step too), on the inputs of chip_smoke.py's
 phase l: g_eff folded from a cotangent and the statistics' cotangents, so
 that it carries a per-channel offset and dW sums terms of one sign, where
 the float32 rounding along an accumulator chain shows. For seeds 0 to
@@ -40,17 +42,19 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"{card}; seeds 0-{seeds - 1}; limit {chip_smoke.SUM_REL:.0e}", flush=True)
-    calls = chip_smoke.distinct([c for c in chip_smoke.unrouted_calls(
-        chip_smoke.training_calls(ingest=True)) if c["kernel"] == "conv3x3_wgrad_fold"])
-    worst = {"sm90": 0.0, "legacy": 0.0}
+    calls = chip_smoke.distinct([
+        c for dtype in chip_smoke.DTYPES
+        for c in chip_smoke.unrouted_calls(chip_smoke.training_calls(ingest=True, dtype=dtype))
+        if c["kernel"] == "conv3x3_wgrad_fold"])
+    worst = {dtype: {"sm90": 0.0, "legacy": 0.0} for dtype in chip_smoke.DTYPES}
     for call in calls:
         n, h, w, c = call["shape"]
-        o = call["o"]
+        o, dtype = call["o"], call["dtype"]
         x_pitch = framing.ingest_spec(h, w, c)[0][2] if "pre_padded" in call["framing"] else c
-        chains = {body: sm90_plan.wgrad_plan(n, h, w, c, o, torch.bfloat16, x_pitch, o,
+        chains = {body: sm90_plan.wgrad_plan(n, h, w, c, o, chip_smoke.DTYPES[dtype], x_pitch, o,
                                              sm90=body == "sm90").tiles_per_split
-                  for body in worst}
-        errs = {body: 0.0 for body in worst}
+                  for body in ("sm90", "legacy")}
+        errs = {body: 0.0 for body in chains}
         for seed in range(seeds):
             case = chip_smoke.Case(call, torch.Generator(device="cuda").manual_seed(seed))
             (x, gy, pa, pb), kw, lg = case.args, case.kwargs, case.logical
@@ -60,18 +64,20 @@ def main():
             z = _plain.prologue_act(lg["x"], lg["pa"], lg["pb"])
             exact = chip_smoke.wgrad_f64(z, g_log)
             scale = chip_smoke.wgrad_f64(z.abs(), g_log.abs())
-            for body in worst:
+            for body in chains:
                 dw = conv3x3_wgrad(x, g_mat, pa, pb, _legacy=body == "legacy",
                                    **case.materialized_kwargs)
                 errs[body] = max(errs[body], chip_smoke.sum_error(dw, exact, scale))
             del case, g_mat, g_log, z, exact, scale
             torch.cuda.empty_cache()
-        for body in worst:
-            worst[body] = max(worst[body], errs[body])
-        print(f"  {c}->{o} at {n}x{h}x{w} {call['mode']:13s} x{call['count']}: sm90 "
+        for body in chains:
+            worst[dtype][body] = max(worst[dtype][body], errs[body])
+        print(f"  {dtype:4s} {c}->{o} at {n}x{h}x{w} {call['mode']:13s} x{call['count']}: sm90 "
               f"{errs['sm90']:.3e} ({chains['sm90']} tiles a split), synchronous "
               f"{errs['legacy']:.3e} ({chains['legacy']})", flush=True)
-    print(f"  largest: sm90 {worst['sm90']:.3e}, synchronous {worst['legacy']:.3e}")
+    for dtype, by_body in worst.items():
+        print(f"  largest {dtype}: sm90 {by_body['sm90']:.3e}, synchronous "
+              f"{by_body['legacy']:.3e}")
     return 0
 
 

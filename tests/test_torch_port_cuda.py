@@ -204,10 +204,8 @@ def test_prologue_border_is_zero(cuda_device, dtype):
         assert float(y[0, 4, 4, 0]) == 9 * c * 0.5
         assert float(y[0, 0, 4, 0]) == 6 * c * 0.5
         if fn is conv3x3_bias_act:
-            # bf16 takes the Hopper kernel (prologue on the landed TMA box),
-            # float32 the synchronous one
-            path = "sm90" if dtype == torch.bfloat16 else "legacy"
-            assert fn.launches_by_path.get(path, 0) == paths.get(path, 0) + 1
+            # both dtypes take the Hopper kernel (prologue on the landed TMA box)
+            assert fn.launches_by_path.get("sm90", 0) == paths.get("sm90", 0) + 1
 
 
 def _assert_bwd_close(g, wt, zero, pa, pb, r, dx, dpa, dpb, rdx, rdpa, rdpb, logical, **kw):
@@ -678,10 +676,12 @@ def test_sm90_wgrad_matches_plain(cuda_device, shape, o, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["bias_act", "wgrad", "packed"])
 def test_legacy_body_takes_float32_and_untma_layouts(cuda_device, kernel):
-    """float32 and a bf16 view TMA cannot address (C = 238 unframed: 476-byte
-    pixels) take the synchronous kernel, chosen before the launch."""
+    """Views TMA cannot address take the synchronous kernel, chosen before
+    the launch: C = 238 unframed, 476-byte bf16 and 952-byte float32 pixels;
+    and conv3x3_packed in float32, which has no Hopper body."""
     fn = {"bias_act": conv3x3_bias_act, "wgrad": conv3x3_wgrad, "packed": conv3x3_packed}[kernel]
-    for dtype, c in ((torch.float32, 64), (torch.bfloat16, 238)):
+    cases = [(torch.float32, 238), (torch.bfloat16, 238)]
+    for dtype, c in cases + ([(torch.float32, 64)] if kernel == "packed" else []):
         x, w, b, rng = _conv_inputs(cuda_device, (1, 13, 37, c), 64, dtype=dtype)
         before = dict(fn.launches_by_path)
         if kernel == "wgrad":
@@ -689,6 +689,146 @@ def test_legacy_body_takes_float32_and_untma_layouts(cuda_device, kernel):
         else:
             fn(x, w, b, relu=False)
         assert _path_delta(fn, before) == {"legacy": 1}
+
+
+# The float32 Hopper bodies (3xTF32 on wgmma, TMA rings) of conv3x3_bias_act
+# and conv3x3_wgrad at the same calls, every mode and framing (framed views
+# on NaN frames): outputs, sums and dW within F32_REL of the sum of the
+# absolute values of their terms, against the plain version and against the
+# synchronous body (`_legacy=True`); every call twice with identical bits.
+
+def _f32_conv_case(device, shape, o, mode):
+    x, w, b, rng = _conv_inputs(device, shape, o, dtype=torch.float32)
+    pa, pb = _affine(rng, device, shape[-1]) if "prologue" in mode else (None, None)
+    if mode == "adjoint":
+        b = torch.zeros_like(b)
+    return (x, w, b, pa, pb), dict(relu=mode == "relu", with_stats=mode.startswith("stats"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode", _SM90_BIAS_ACT)
+def test_sm90_f32_bias_act_matches_plain(cuda_device, shape, o, mode):
+    args, kw = _f32_conv_case(cuda_device, shape, o, mode)
+    x, w, b, pa, pb = args
+    before = dict(conv3x3_bias_act.launches_by_path)
+    out, again = (conv3x3_bias_act(*args, **kw) for _ in range(2))
+    assert _path_delta(conv3x3_bias_act, before) == {"sm90": 2}
+    ref = conv3x3_bias_act_reference(*args, **kw)
+    terms = conv3x3_bias_act_reference(x if pa is not None else x.abs(), w.abs(), b.abs(), pa,
+                                       pb, relu=False)
+    torch.cuda.synchronize()
+    if kw["with_stats"]:
+        (out, (s, ss)), (again, (s2, ss2)), (ref, (rs, rss)) = out, again, ref
+        _assert_sums_close(s, rs, terms.abs().sum(dim=(0, 1, 2)), F32_REL)
+        _assert_sums_close(ss, rss, (terms * terms).sum(dim=(0, 1, 2)), F32_REL)
+        assert torch.equal(s, s2) and torch.equal(ss, ss2)
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+    _assert_out_close(out, ref, terms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode", _SM90_BIAS_ACT)
+def test_sm90_f32_bias_act_matches_the_synchronous_body(cuda_device, shape, o, mode):
+    args, kw = _f32_conv_case(cuda_device, shape, o, mode)
+    x, w, b, pa, pb = args
+    before = dict(conv3x3_bias_act.launches_by_path)
+    out = conv3x3_bias_act(*args, **kw)
+    sync = conv3x3_bias_act(*args, _legacy=True, **kw)
+    assert _path_delta(conv3x3_bias_act, before) == {"sm90": 1, "legacy": 1}
+    terms = conv3x3_bias_act_reference(x if pa is not None else x.abs(), w.abs(), b.abs(), pa,
+                                       pb, relu=False)
+    torch.cuda.synchronize()
+    if kw["with_stats"]:
+        (out, sums), (sync, sync_sums) = out, sync
+        scales = (terms.abs().sum(dim=(0, 1, 2)), (terms * terms).sum(dim=(0, 1, 2)))
+        for a, b2, scale in zip(sums, sync_sums, scales):
+            _assert_sums_close(a, b2, scale, F32_REL)
+    _assert_sums_close(out, sync, terms, F32_REL)
+
+
+def _f32_wgrad_case(device, shape, o, mode):
+    """Arguments, keywords and the logical x of one float32 weight gradient;
+    framed operands sit on NaN frames."""
+    x, _, _, rng = _conv_inputs(device, shape, o, dtype=torch.float32)
+    g = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(device)
+    h, wd, c = shape[1], shape[2], shape[3]
+    pa = pb = None
+    kw = {}
+    if "prologue" in mode or "arena_in" in mode:
+        pa, pb = _affine(rng, device, c)
+    xk = x
+    if mode == "pre_padded":
+        xk = _framed(x, 1)
+        kw["pre_padded_c"] = c
+    if "arena_in" in mode:
+        xk = _framed(x, 8)
+        kw["arena_in"] = True
+    if "arena_g" in mode:
+        g = _framed(g, 8)
+        kw.update(arena_g=True, logical_hw=(h, wd))
+    return (xk, g, pa, pb), kw, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode", _SM90_WGRAD)
+def test_sm90_f32_wgrad_matches_plain(cuda_device, shape, o, mode):
+    args, kw, x = _f32_wgrad_case(cuda_device, shape, o, mode)
+    xk, g, pa, pb = args
+    before = dict(conv3x3_wgrad.launches_by_path)
+    dw, dw2 = (conv3x3_wgrad(*args, **kw) for _ in range(2))
+    sync = conv3x3_wgrad(*args, _legacy=True, **kw)
+    assert _path_delta(conv3x3_wgrad, before) == {"sm90": 2, "legacy": 1}
+    ref = conv3x3_wgrad_reference(*args, **kw)
+    scale = conv3x3_wgrad_reference(xk.abs() if pa is None else xk, g.abs(), pa, pb, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dw).all()) and torch.equal(dw, dw2)
+    _assert_sums_close(dw, ref, scale, F32_REL)
+    _assert_sums_close(dw, sync, scale, F32_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode", [
+    ((2, 608, 968, 64), 64, "prologue"), ((2, 304, 484, 64), 128, "plain"),
+    ((2, 304, 484, 128), 128, "prologue"), ((2, 152, 242, 128), 256, "plain"),
+    ((2, 152, 242, 256), 256, "prologue"), ((2, 304, 484, 256), 128, "plain"),
+    ((2, 608, 968, 128), 64, "plain"), ((2, 608, 968, 238), 64, "pre_padded")])
+def test_sm90_f32_wgrad_one_signed_terms(cuda_device, shape, o, mode):
+    """Every float32 weight gradient of the UNET and CubeNET-64 steps on a
+    cotangent with a per-channel offset (one-signed terms, where float32
+    rounding along the accumulator chains shows): both bodies within F32_REL
+    of a float64 dW."""
+    args, kw, x = _f32_wgrad_case(cuda_device, shape, o, mode)
+    xk, g, pa, pb = args
+    offset = torch.from_numpy(np.random.default_rng(1).normal(size=(o,)).astype(np.float32))
+    g = g + offset.to(cuda_device)
+    z = (torch.relu(x * pa + pb) if pa is not None else x).double()
+    zp = torch.nn.functional.pad(z, (0, 0, 1, 1, 1, 1))
+    g2 = g.double().reshape(-1, o)
+    h, w, c = shape[1], shape[2], shape[3]
+    taps = [zp[:, dh:dh + h, dw:dw + w, :].reshape(-1, c).t() for dh in range(3) for dw in range(3)]
+    exact = torch.stack([t @ g2 for t in taps]).reshape(3, 3, c, o)
+    scale = torch.stack([t.abs() @ g2.abs() for t in taps]).reshape(3, 3, c, o)
+    before = dict(conv3x3_wgrad.launches_by_path)
+    dw = conv3x3_wgrad(xk, g, pa, pb, **kw)
+    dw_sync = conv3x3_wgrad(xk, g, pa, pb, _legacy=True, **kw)
+    assert _path_delta(conv3x3_wgrad, before) == {"sm90": 1, "legacy": 1}
+    torch.cuda.synchronize()
+    _assert_sums_close(dw, exact, scale, F32_REL)
+    _assert_sums_close(dw_sync, exact, scale, F32_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(64, 128), (256, 256), (5, 12)])
+def test_split_weights_tf32_matches_plain_exactly(cuda_device, c, o):
+    """The float32 Hopper conv's weight split on the card, bit for bit its
+    plain version."""
+    from hyperpri_tpu_torch.ops.kernels import _plain
+    from hyperpri_tpu_torch.ops.kernels.conv3x3 import split_weights_tf32
+
+    _, w, _, _ = _conv_inputs(cuda_device, (1, 1, 1, c), o, dtype=torch.float32)
+    planes = split_weights_tf32(w)
+    torch.cuda.synchronize()
+    assert torch.equal(planes, _plain.split_weights_tf32_reference(w))
 
 
 @pytest.mark.cuda

@@ -1,13 +1,16 @@
 """The host-side plan of the Hopper conv kernels (ops/kernels/sm90_plan.py):
 which kernel body a conv3x3_bias_act or conv3x3_wgrad call takes, and its
 tiling, ring depth and pixel splits. The plan is a pure function of shape,
-dtype, mode and layout, so it is held here without a card."""
+dtype, mode and layout, so it is held here without a card. Also the plain
+TF32 split that the float32 Hopper bodies apply to their operands."""
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from hyperpri_tpu_torch.ops.kernels import framing, sm90_plan
+from hyperpri_tpu_torch.ops.kernels import _plain, framing, sm90_plan
+from hyperpri_tpu_torch.ops.kernels.conv3x3 import split_weights_tf32
 from hyperpri_tpu_torch.ops.kernels.framing import Frame
 
 
@@ -20,18 +23,19 @@ def _x_pitch(call):
     return c
 
 
-def _plans(model):
-    """(conv3x3_bias_act plans, conv3x3_wgrad plans) of one bf16 training
-    step of `model`, from the routing's walk of the model."""
-    calls = chip_smoke.training_calls(model, ingest=model == "CubeNET", dtype="bf16")
+def _plans(model, dtype="bf16"):
+    """(conv3x3_bias_act plans, conv3x3_wgrad plans) of one training step of
+    `model` in `dtype`, from the routing's walk of the model."""
+    calls = chip_smoke.training_calls(model, ingest=model == "CubeNET", dtype=dtype)
+    torch_dtype = chip_smoke.DTYPES[dtype]
     bias_act, wgrad = [], []
     for call in calls:
         n, h, w, c = call["shape"]
         o = call["o"]
         if call["kernel"] == "conv3x3_bias_act":
-            bias_act.append(sm90_plan.bias_act_plan(n, h, w, c, o, torch.bfloat16))
+            bias_act.append(sm90_plan.bias_act_plan(n, h, w, c, o, torch_dtype))
         elif call["kernel"] == "conv3x3_wgrad":
-            wgrad.append(sm90_plan.wgrad_plan(n, h, w, c, o, torch.bfloat16, _x_pitch(call), o))
+            wgrad.append(sm90_plan.wgrad_plan(n, h, w, c, o, torch_dtype, _x_pitch(call), o))
     return bias_act, wgrad
 
 
@@ -43,8 +47,47 @@ def test_every_bf16_step_call_takes_sm90(model):
     assert {p.path for p in wgrad} == {"sm90"}
 
 
+@pytest.mark.parametrize("model", ["CubeNET", "UNET"])
+def test_every_float32_step_call_takes_sm90(model):
+    """Every float32 call of conv3x3_bias_act and conv3x3_wgrad in the step
+    of the CLI's default run takes the Hopper bodies: 12 + 10 calls for UNET,
+    12 + 11 for CubeNET-64 (whose first conv's weight gradient reads the
+    host pre-padded ingest buffer), with the float32 plans' tiles and
+    shared memory."""
+    bias_act, wgrad = _plans(model, "f32")
+    assert (len(bias_act), len(wgrad)) == (12, 11 if model == "CubeNET" else 10)
+    assert {p.path for p in bias_act} == {"sm90"}
+    assert {p.path for p in wgrad} == {"sm90"}
+    assert {(p.tile_o, p.smem) for p in bias_act} == {
+        (sm90_plan.K2F_N, sm90_plan.k2f_smem_bytes(sm90_plan.K2F_MAX_STAGES))}
+    assert {(p.stages, p.smem) for p in wgrad} == {
+        (sm90_plan.K3F_HSTAGES, sm90_plan.k3f_smem_bytes())}
+
+
+def test_float32_ingest_weight_gradient_takes_sm90():
+    """CubeNET-64's first-conv weight gradient reads the float32 ingest buffer:
+    a 256-channel pitch is 1,024-byte pixels, which TMA can address; the same
+    C = 238 unframed is 952-byte pixels, which it cannot."""
+    (hp, wp, cp), _, _ = framing.ingest_spec(608, 968, 238)
+    assert cp * 4 == 1024
+    assert sm90_plan.wgrad_plan(2, 608, 968, 238, 64, torch.float32, cp, 64).path == "sm90"
+    assert sm90_plan.wgrad_plan(2, 608, 968, 238, 64, torch.float32, 238, 64).path == "legacy"
+
+
+def test_float32_shared_memory_sums_fit_an_h100_block():
+    """The float32 bodies' shared memory (k2f_smem_bytes, k3f_smem_bytes,
+    mirroring the kernels' sums) fits one block: kernel 2's weight ring at
+    its deepest, kernel 3's fixed layout."""
+    assert sm90_plan.k2f_smem_bytes(sm90_plan.K2F_MAX_STAGES) <= sm90_plan.SMEM_LIMIT
+    assert sm90_plan.k2f_smem_bytes(sm90_plan.K2F_MAX_STAGES + 1) > sm90_plan.SMEM_LIMIT
+    assert sm90_plan.k3f_smem_bytes() <= sm90_plan.SMEM_LIMIT
+    # kernel 3: two halo stages of 64 channels, the raw g quarter, two planes
+    assert sm90_plan.k3f_smem_bytes() == (1024 + 2 * 2 * sm90_plan.HALO_SLOT + 16384
+                                          + 2 * 16384 + 512 + 24)
+
+
 @pytest.mark.parametrize("case", [
-    dict(dtype=torch.float32, c=128, o=128),              # float32: 3xTF32 kernel
+    dict(dtype=torch.float32, c=238, o=128),              # 952-byte float32 pixels
     dict(dtype=torch.bfloat16, c=238, o=64),              # 476-byte pixels
     dict(dtype=torch.bfloat16, c=61, o=64),               # 122-byte pixels
     dict(dtype=torch.bfloat16, c=64, o=64, aligned=False),  # origin off 16 bytes
@@ -59,7 +102,21 @@ def test_bias_act_legacy_cases(case):
 
 
 @pytest.mark.parametrize("case", [
-    dict(dtype=torch.float32, c=64, o=64, xp=64, gp=64),
+    dict(c=66, o=64),                 # a pitch that is not a multiple of 4: 264-byte pixels
+    dict(c=64, o=66),                 # 264-byte rows of the weights' planes
+    dict(c=320, o=64),                # past the prologue's affine buffer (C <= 256)
+    dict(c=64, o=64, aligned=False),  # origin off 16 bytes
+])
+def test_bias_act_float32_legacy_cases(case):
+    """Float32 layouts the Hopper body does not take stay on the synchronous
+    one."""
+    plan = sm90_plan.bias_act_plan(2, 37, 53, case["c"], case["o"], torch.float32,
+                                   case.get("aligned", True))
+    assert plan.path == "legacy" and plan.stages == 0
+
+
+@pytest.mark.parametrize("case", [
+    dict(dtype=torch.float32, c=238, o=64, xp=238, gp=64),    # 952-byte float32 pixels
     dict(dtype=torch.bfloat16, c=64, o=64, xp=64, gp=64, fold=True),
     dict(dtype=torch.bfloat16, c=238, o=64, xp=238, gp=64),   # C = 238 unframed
     dict(dtype=torch.bfloat16, c=64, o=20, xp=64, gp=20),     # 40-byte g pixels
@@ -67,6 +124,20 @@ def test_bias_act_legacy_cases(case):
 ])
 def test_wgrad_legacy_cases(case):
     plan = sm90_plan.wgrad_plan(2, 37, 53, case["c"], case["o"], case["dtype"], case["xp"],
+                                case["gp"], case.get("fold", False), case.get("aligned", True))
+    assert plan.path == "legacy" and plan.stages == 0
+
+
+@pytest.mark.parametrize("case", [
+    dict(c=64, o=64, xp=64, gp=64, fold=True),   # the fold mode has no Hopper body
+    dict(c=64, o=66, xp=64, gp=66),              # g pitch not a multiple of 4
+    dict(c=61, o=64, xp=61, gp=64),              # 244-byte x pixels
+    dict(c=64, o=64, xp=64, gp=64, aligned=False),
+])
+def test_wgrad_float32_legacy_cases(case):
+    """Float32 weight gradients the Hopper body does not take stay on the
+    synchronous one, with the synchronous plan's splits."""
+    plan = sm90_plan.wgrad_plan(2, 37, 53, case["c"], case["o"], torch.float32, case["xp"],
                                 case["gp"], case.get("fold", False), case.get("aligned", True))
     assert plan.path == "legacy" and plan.stages == 0
 
@@ -94,10 +165,16 @@ def test_plans_fit_shared_memory(shape):
         for plan in (k2, k3):
             assert 0 < plan.smem <= sm90_plan.SMEM_LIMIT
             assert plan.stages >= (2 if plan.path == "sm90" else 0)
-        if k2.path == "sm90":
+        if k2.path == "sm90" and dtype == torch.bfloat16:
             assert k2.smem == sm90_plan.k2_smem_bytes(-(-c // 64), k2.stages)
             assert k2.stages == sm90_plan.K2_MAX_STAGES or sm90_plan.k2_smem_bytes(
                 -(-c // 64), k2.stages + 1) > sm90_plan.SMEM_LIMIT
+        elif k2.path == "sm90":
+            assert k2.smem == sm90_plan.k2f_smem_bytes(k2.stages)
+            assert k2.stages == sm90_plan.K2F_MAX_STAGES or sm90_plan.k2f_smem_bytes(
+                k2.stages + 1) > sm90_plan.SMEM_LIMIT
+        if k3.path == "sm90" and dtype == torch.float32:
+            assert (k3.stages, k3.smem) == (sm90_plan.K3F_HSTAGES, sm90_plan.k3f_smem_bytes())
 
 
 @pytest.mark.parametrize("shape", _SHAPES)
@@ -162,8 +239,10 @@ def test_switching_sm90_off_takes_the_synchronous_kernels():
     k2 = sm90_plan.bias_act_plan(2, 304, 484, 128, 128, torch.bfloat16, sm90=False)
     k3 = sm90_plan.wgrad_plan(2, 304, 484, 128, 128, torch.bfloat16, 128, 128, sm90=False)
     assert (k2.path, k3.path) == ("legacy", "legacy")
-    assert k3.splits == sm90_plan.wgrad_plan(2, 304, 484, 128, 128, torch.float32, 128,
-                                             128).splits
+    k3f = sm90_plan.wgrad_plan(2, 304, 484, 128, 128, torch.float32, 128, 128, sm90=False)
+    assert k3.splits == k3f.splits and k3f.path == "legacy"
+    k2f = sm90_plan.bias_act_plan(2, 304, 484, 128, 128, torch.float32, sm90=False)
+    assert (k2f.path, k2f.tile_o) == ("legacy", 128)
 
 
 # conv3x3_packed (kernel 1): the Hopper body's persistent plan.
@@ -266,3 +345,55 @@ def test_packed_walk_covers_every_tile_once(shape):
     walked = [t for b in range(plan.grid[0]) for t in sm90_plan.packed_tiles(plan, n, h, w, b)]
     assert sorted(walked) == tiles
     assert all(sm90_plan.packed_tiles(plan, n, h, w, b) for b in range(plan.grid[0]))
+
+
+# The plain TF32 split of the float32 Hopper bodies' operands.
+
+def _rna_tf32_numpy(x):
+    """cvt.rna.tf32.f32 emulated in float64 arithmetic, independently of the
+    port's bit manipulation: 11 significant bits (1 implicit + 10 stored),
+    rounded to nearest with ties away from zero; normal float32 inputs."""
+    x = np.asarray(x, dtype=np.float32).astype(np.float64)
+    m, e = np.frexp(np.abs(x))                 # |x| = m * 2**e, m in [0.5, 1)
+    r = np.floor(m * 2.0 ** 11 + 0.5) / 2.0 ** 11
+    return (np.sign(x) * np.ldexp(r, e)).astype(np.float32)
+
+
+def test_tf32_split_matches_a_numpy_emulation_bit_for_bit():
+    """hi = rna_tf32(x) and lo = rna_tf32(x - hi), on random normal numbers of
+    many magnitudes and on exact ties (the 13 dropped bits 0x1000), bit for
+    bit; hi + lo within 2**-21 of x relative."""
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=4096) * np.exp2(rng.integers(-60, 60, size=4096))).astype(np.float32)
+    ties = ((rng.integers(0x0A000000, 0x7F000000, size=512) & ~0x1FFF) | 0x1000).astype(np.uint32)
+    ties = np.concatenate([ties, ties | 0x80000000]).view(np.float32)
+    x = np.concatenate([x, ties, np.float32([1.0, -1.0, 0.0, 3.0e38, -2.5e-30])])
+    hi, lo = _plain.split_tf32_reference(torch.from_numpy(x))
+    want_hi = _rna_tf32_numpy(x)
+    want_lo = _rna_tf32_numpy((x - want_hi).astype(np.float32))
+    assert np.array_equal(hi.numpy().view(np.uint32), want_hi.view(np.uint32))
+    # equal values: the same bits, but for the sign of a zero remainder
+    assert np.array_equal(lo.numpy(), want_lo)
+    assert np.all(hi.numpy().view(np.uint32) & 0x1FFF == 0)
+    assert np.all(lo.numpy().view(np.uint32) & 0x1FFF == 0)
+    total = hi.double() + lo.double()
+    rel = ((total - torch.from_numpy(x).double()).abs()
+           / torch.from_numpy(x).double().abs().clamp_min(1e-300))
+    assert float(rel.max()) <= 2.0 ** -21
+
+
+def test_split_weights_plain_version_is_the_k_major_planes():
+    """split_weights_tf32 on CPU tensors (its plain version): (3, 3, C, O) ->
+    (2, 9, O, C), plane 0 the hi and plane 1 the lo half of w[dh][dw][c][o]
+    at [tap = 3*dh + dw][o][c]."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.normal(size=(3, 3, 5, 7)).astype(np.float32))
+    planes = split_weights_tf32(w)
+    assert planes.shape == (2, 9, 7, 5) and planes.dtype == torch.float32
+    for dh in range(3):
+        for dw in range(3):
+            hi, lo = _plain.split_tf32_reference(w[dh, dw].t())
+            assert torch.equal(planes[0, 3 * dh + dw], hi)
+            assert torch.equal(planes[1, 3 * dh + dw], lo)
+    with pytest.raises(ValueError, match="float32"):
+        split_weights_tf32(w.to(torch.bfloat16))
