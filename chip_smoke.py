@@ -9,17 +9,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
       kernel by name, with any wgmma serialization (C75xx) it reports;
   (c) each kernel and each of its modes and framings, in bf16 and in float32,
       against its plain PyTorch version on the card (TF32 off), at the shapes
-      the main paths give it and at ragged ones; every reducing kernel twice,
-      for identical bits (the bf16 calls of conv3x3_packed, conv3x3_bias_act
-      and conv3x3_wgrad and the float32 calls of conv3x3_bias_act and
-      conv3x3_wgrad take their Hopper kernels, "sm90": TMA staging and
-      wgmma, 3xTF32 in float32, conv3x3_packed with persistent blocks, in
-      every mode and framing at ragged shapes too; conv3x3_packed in
-      float32 and layouts TMA cannot address take the synchronous ones,
-      "legacy"; each check of the three conv kernels holds the body it took
-      against the plan's, and each float32 Hopper call is also held against
-      the synchronous body on the same inputs; the float32 conv's weight
-      split bit for bit against its plain version);
+      the main paths give it and at ragged ones; every conv call twice,
+      for identical bits (the bf16 and float32 calls of conv3x3_packed,
+      conv3x3_bias_act and conv3x3_wgrad take their Hopper kernels, "sm90":
+      TMA staging and wgmma, 3xTF32 in float32, conv3x3_packed with
+      persistent blocks, in every mode and framing at ragged shapes too,
+      C = 61 and 238 included; layouts TMA cannot address take the
+      synchronous ones, "legacy"; each check of the three conv kernels holds
+      the body it took against the plan's, and each float32 Hopper call is
+      also held against the synchronous body on the same inputs; the float32
+      convs' weight split, with the pitch C and with whole 32-channel
+      chunks, bit for bit against its plain version);
       the kernels on no model path too: the weight
       gradient's fold mode (every framing, its dW bit-equal to the non-fold
       synchronous kernel on the materialized g_eff), the shift conv, the dh-fold probe's
@@ -43,8 +43,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   (f) times (CUDA events, median of repeated runs after warm-up): every kernel
       call of a training step and of a serving forward beside its bound, its
       plain version and one library call (float32 convs also with cuDNN's TF32
-      on, and with cudnn.benchmark on, labelled; bf16 conv3x3_packed calls
-      and float32 conv3x3_bias_act and conv3x3_wgrad calls also on the
+      on, and with cudnn.benchmark on, labelled; conv3x3_packed calls and
+      float32 conv3x3_bias_act and conv3x3_wgrad calls also on the
       synchronous body); the serving forward and the training
       step with kernels on and off; peak memory of a step; the element probe
       beside one PyTorch op; the kernels on no model path (the weight
@@ -139,11 +139,14 @@ FOLD_FRAMED = [("fold", ("pre_padded",)), ("fold", ("arena_g",)),
 # test_ingest.py take them.
 RAGGED_FRAMED = [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 20), ((1, 17, 33, 24), 64),
                  ((1, 13, 21, 61), 24)]
-# conv3x3_packed's Hopper body at ragged shapes, where pixel tiles, two-tile
+# conv3x3_packed's Hopper bodies at ragged shapes, where pixel tiles, two-tile
 # units and TMA boxes overhang every edge: resident weights (C <= 64),
-# streamed weights with two-tile units (C = 128) and 128 outputs; every mode
-# in every framing, framed inputs on NaN frames.
-PACKED_SM90_RAGGED = [((1, 13, 37, 64), 64), ((2, 29, 71, 128), 48), ((1, 21, 40, 96), 128)]
+# streamed weights with two-tile units (C = 128) and 128 outputs in bf16, one
+# or two O tiles of 64 in float32; C = 61 and 238, whose framed views TMA
+# addresses (arena pitch 64 and 240, ingest pitch 64 and 256) and unframed
+# ones it cannot; every mode in every framing, framed inputs on NaN frames.
+PACKED_SM90_RAGGED = [((1, 13, 37, 64), 64), ((2, 29, 71, 128), 48), ((1, 21, 40, 96), 128),
+                      ((1, 13, 21, 61), 24), ((1, 11, 45, 238), 64)]
 PACKED_SM90_MODES = [
     ("relu", ()), ("stats", ()), ("stats+prologue", ()), ("bwd_x", ()), ("adjoint", ()),
     ("stats", ("pre_padded",)), ("stats", ("pre_padded", "arena_out")),
@@ -380,10 +383,10 @@ def count_by_body(calls):
     TMA can address the views; the bf16 exceptions on a path are the unframed
     first conv of phase e and of serving (C = 238: 476-byte pixels), forward
     and weight gradient, which the product loop's ingest buffer (channel
-    pitch 256) avoids. float32 takes them for conv3x3_bias_act and
-    conv3x3_wgrad (every call of the UNET and CubeNET-64 steps, CubeNET-64's
-    first-conv weight gradient through the float32 ingest buffer's
-    1,024-byte pixels) and the synchronous body for conv3x3_packed."""
+    pitch 256) avoids. float32 takes them for all three (every call of the
+    UNET and CubeNET-64 steps: 8 / 9 conv3x3_packed, 12 conv3x3_bias_act and
+    10 / 11 conv3x3_wgrad, CubeNET-64's first conv, forward and weight
+    gradient, through the float32 ingest buffer's 1,024-byte pixels)."""
     from hyperpri_tpu_torch.ops.kernels import framing, sm90_plan
 
     counts = {"conv3x3_packed": {}, "conv3x3_bias_act": {}, "conv3x3_wgrad": {}}
@@ -725,7 +728,7 @@ class Case:
                 f"{c.get('layer', 'ragged'):17s} {n}x{h}x{w} {ch:3d}->{c['o']:3d}")
 
     def verify(self):
-        """Kernel vs plain version; reducing modes twice for identical bits.
+        """Kernel vs plain version; every conv call twice for identical bits.
         bf16 outputs within one bf16 ulp; float32 outputs, and every float32
         sum, within SUM_REL of the sum of the absolute values of its terms.
         -> (max abs error of the main output, the largest error against the
@@ -779,6 +782,8 @@ class Case:
             out2, sums2 = self.run()
             check(torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(sums, sums2)),
                   f"{self.label()}: two runs differ")
+        else:
+            check(torch.equal(out, self.run()), f"{self.label()}: two runs differ")
         return abs_err, max(rel, rel_out)
 
 
@@ -870,7 +875,7 @@ def phase_kernel_check(calls):
             body = case.body()
             taken = {k for k, v in case.fn.launches_by_path.items() if v != before.get(k, 0)}
             check(taken == {body}, f"{case.label()}: launched {taken}, the plan says {body}")
-            if call["dtype"] == "f32" and body == "sm90" and call["kernel"] != "conv3x3_packed":
+            if call["dtype"] == "f32" and body == "sm90":
                 vs = case.versus_legacy()
                 check(vs <= SUM_REL, f"{case.label()}: {vs} of |terms| off the synchronous body")
                 body += f", vs synchronous {vs:.2e}"
@@ -896,23 +901,27 @@ ELEMENT_OUT_SHAPES = [(2, H, W, 64), (1, 13, 21, 5), (1, 16, 24, 128)]
 
 
 def check_split_weights(calls):
-    """The float32 Hopper conv's weight split (the TF32 hi and lo planes it
-    writes before each conv3x3_bias_act call) on the card, bit for bit its
-    plain version, at the weight shapes of the float32 steps' calls and a
-    ragged one."""
+    """The float32 Hopper convs' weight split (the TF32 hi and lo planes they
+    write before each call: conv3x3_bias_act's with the pitch C,
+    conv3x3_packed's with C rounded up to whole 32-channel chunks, zero past
+    C) on the card, bit for bit its plain version, at the weight shapes of
+    the float32 steps' calls and ragged ones."""
     from hyperpri_tpu_torch.ops.kernels import _plain
     from hyperpri_tpu_torch.ops.kernels.conv3x3 import split_weights_tf32
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    shapes = sorted({(c["shape"][-1], c["o"]) for c in calls
-                     if c["kernel"] == "conv3x3_bias_act" and c["dtype"] == "f32"} | {(5, 12)})
-    for c, o in shapes:
+    f32 = [c for c in calls if c["dtype"] == "f32"]
+    shapes = sorted({(c["shape"][-1], c["o"], c["shape"][-1]) for c in f32
+                     if c["kernel"] == "conv3x3_bias_act"} | {(5, 12, 5)}
+                    | {(c["shape"][-1], c["o"], -(-c["shape"][-1] // 32) * 32) for c in f32
+                       if c["kernel"] == "conv3x3_packed"} | {(61, 24, 64)})
+    for c, o, pitch in shapes:
         w = torch.randn((3, 3, c, o), generator=gen, device="cuda")
-        planes = split_weights_tf32(w)
+        planes = split_weights_tf32(w, pitch)
         torch.cuda.synchronize()
-        check(torch.equal(planes, _plain.split_weights_tf32_reference(w)),
-              f"split_weights_tf32 {c}->{o}: differs from the plain version")
-    print(f"split_weights_tf32 at {shapes}: exact")
+        check(torch.equal(planes, _plain.split_weights_tf32_reference(w, pitch)),
+              f"split_weights_tf32 {c}->{o}, pitch {pitch}: differs from the plain version")
+    print(f"split_weights_tf32 at (C, O, pitch) {shapes}: exact")
 
 
 def check_dh_fold():
@@ -1387,7 +1396,7 @@ def phase_times(calls, card):
                      "library_tf32_ms": library_tf32_ms,
                      "library_benchmark_ms": library_bench_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
-        if ((call["kernel"] == "conv3x3_packed" and call["dtype"] == "bf16")
+        if (call["kernel"] == "conv3x3_packed"
                 or (call["kernel"] in ("conv3x3_bias_act", "conv3x3_wgrad")
                     and call["dtype"] == "f32")):
             # the body the plan chose, and the synchronous body on the same call
@@ -1896,8 +1905,16 @@ REPLACES = {
     "probe_mosaic_ops": ("hyperpri_tpu_torch/csrc/probe_mosaic_ops.cu",
                          "scripts/probe_mosaic_ops.py:24"),
 }
-# Kernels whose bound takes the float32 rate outside the tensor cores.
-SIMT_KERNELS = ("max_pool_2x2_bwd", "probe_element_out", "probe_mosaic_ops")
+
+
+def summed_bound(rows):
+    """(bound_ms, bound_by) of a set of calls: the sum of each call's bound
+    times its count (every call takes at least its own bound, whether bytes
+    or operations bound it), by what bounds the larger share of that sum."""
+    parts = {"bytes": 0.0, "operations": 0.0}
+    for r in rows:
+        parts[r["bound_by"]] += r["bound_ms"] * r["count"]
+    return sum(parts.values()), max(parts, key=parts.get)
 
 
 def kernel_summary(rows, errors, launches_by_path, framings_by_path):
@@ -1907,9 +1924,11 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     of each main path of that dtype (bf16: one serving forward and one
     product-loop training step; float32: one UNET step and one CubeNET-64
     step); launches are those counted during the paths' runs, by path and,
-    for the framed kernels, by framing. The float32 bound takes the TF32
-    tensor rate. legacy_ms sums the same calls on the synchronous body where
-    phase f timed it (bf16 conv3x3_packed, float32 conv3x3_bias_act and
+    for the framed kernels, by framing. bound_ms sums each call's bound (its
+    operations or its bytes, whichever takes longer; bound_by names what
+    bounds the larger share), the float32 ones at the TF32 tensor rate.
+    legacy_ms sums the same calls on the synchronous body where
+    phase f timed it (conv3x3_packed, float32 conv3x3_bias_act and
     conv3x3_wgrad), else null. The fold mode of the weight gradient and the shift conv are
     on no path (launches 0): their numbers are summed over the conv3x3_wgrad
     and conv3x3_bias_act calls of one product-loop step (bf16) and of one
@@ -1924,11 +1943,7 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
             mine = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype]
             if not mine:
                 continue
-            flops = sum(r["flops"] * r["count"] for r in mine)
-            nbytes = sum(r["bytes"] * r["count"] for r in mine)
-            peak = (PEAK_F32_FLOPS if name in SIMT_KERNELS
-                    else PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS)
-            bound_ms, bound_by = bound(flops, nbytes, peak)
+            bound_ms, bound_by = summed_bound(mine)
             by_path = {path: counts.get(name, 0) for path, counts in
                        launches_by_path[dtype].items()}
             library = [r["library_ms"] for r in mine]
@@ -1944,9 +1959,7 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                     one[key] = (None if one[key] is None or r.get(key) is None
                                 else one[key] + r[key] * r["count"])
             for path, one in times_by_path.items():
-                on_path = [r for r in mine if r["path"] == path]
-                one["bound_ms"] = bound(sum(r["flops"] * r["count"] for r in on_path),
-                                        sum(r["bytes"] * r["count"] for r in on_path), peak)[0]
+                one["bound_ms"] = summed_bound([r for r in mine if r["path"] == path])[0]
             kernels.append({
                 "name": name, "dtype": dtype, "route": "cuda", "source": source,
                 "replaces": replaces,

@@ -65,7 +65,8 @@
 // every float32 call of a training step). The same implicit GEMM and block
 // shape in 3xTF32 (conv3x3_sm90.cuh):
 //   - the tf32 wgmma (m64n64k8) takes B from shared memory only K-major, so
-//     the weights are first split by split_weights_tf32_kernel into two
+//     the weights are first split by split_weights_tf32_kernel
+//     (conv3x3_sm90.cuh, shared with conv3x3_packed's float32 body) into two
 //     planes (2, 9, O, C), hi and lo, the input channels contiguous; TMA
 //     loads a (tap, 32-channel chunk) slice of 64 outputs from each plane
 //     (16 KiB) into a ring of up to 8 stages;
@@ -81,7 +82,7 @@
 //     words gives the tf32 A fragment), split into hi and lo in registers;
 //     each (tap, chunk) slice and m-tile is one chain of 4 K steps (12
 //     wgmmas: lo*hi, hi*lo, hi*hi) into a fresh fragment, which is added to
-//     the accumulators with float32 adds rounded to nearest (K2F_GROUP = 4,
+//     the accumulators with float32 adds rounded to nearest (F32_GROUP = 4,
 //     the whole slice; chip_smoke.py's phase c found every output and sum
 //     within 2.0e-7 of the sum of its absolute terms on an H100, PERF.md §6);
 //   - epilogue and statistics as in the bf16 kernel, per O tile of 64.
@@ -407,18 +408,13 @@ int bias_act_sm90(const void* x, const void* w, const void* b, void* y, const vo
 // The float32 Hopper body (see the note at the top).
 
 using conv3x3::sm90::F32_CHUNK;
+using conv3x3::sm90::F32_GROUP;
+using conv3x3::sm90::F32_UNITS;
+using conv3x3::sm90::F32_WSTAGE;
 
-constexpr int K2F_N = 64;                          // output channels of one pass (O tile)
-constexpr int K2F_PLANE = K2F_N * conv3x3::sm90::BOX_ROW;  // one (tap, chunk) slice, one plane
-constexpr int K2F_WSTAGE = 2 * K2F_PLANE;          // its hi and lo planes
+constexpr int K2F_N = conv3x3::sm90::F32_N;        // output channels of one pass (O tile)
 constexpr int K2F_HSTAGES = 2;                     // halo ring: one 32-channel chunk a stage
 constexpr int K2F_MAX_C = 256;
-// K steps (8 channels each) chained through the tensor cores into one fresh
-// fragment before it is added to the accumulators; a (tap, chunk) slice holds
-// 4, so K2F_UNITS fragments a slice and m-tile.
-constexpr int K2F_GROUP = 4;
-constexpr int K2F_UNITS = 4 / K2F_GROUP;
-static_assert(4 % K2F_GROUP == 0, "a slice's K steps split into whole groups");
 constexpr int K2F_RED_FLOATS = conv3x3::TH * K2F_N;  // one statistic of the 8 warps
 constexpr int K2F_AFFINE_FLOATS = 2 * K2F_MAX_C;
 
@@ -426,69 +422,8 @@ constexpr int K2F_AFFINE_FLOATS = 2 * K2F_MAX_C;
 // cross-warp buffer, the prologue's affine and the barriers
 // (ops/kernels/sm90_plan.py mirrors this).
 constexpr int k2f_smem_bytes(int stages) {
-  return conv3x3::sm90::ALIGN_SLACK + K2F_HSTAGES * HALO_SLOT + stages * K2F_WSTAGE +
+  return conv3x3::sm90::ALIGN_SLACK + K2F_HSTAGES * HALO_SLOT + stages * F32_WSTAGE +
          (K2F_RED_FLOATS + K2F_AFFINE_FLOATS) * 4 + (3 * K2F_HSTAGES + 2 * stages) * 8;
-}
-
-// planes[plane][tap][o][c] = hi (plane 0) and lo (plane 1) of w[tap][c][o]
-// (w HWIO (3, 3, C, O) float32): the weights K-major in TF32 halves, as the
-// tf32 wgmma reads B; split_tf32 of conv3x3_common.cuh.
-__global__ void split_weights_tf32_kernel(const float* __restrict__ w, float* __restrict__ planes,
-                                          int C, int O) {
-  const int total = 9 * C * O;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-    const int c = i % C;
-    const int o = (i / C) % O;
-    const int tap = i / (C * O);
-    uint32_t hi, lo;
-    conv3x3::split_tf32(__float_as_uint(w[(tap * C + c) * O + o]), hi, lo);
-    planes[i] = __uint_as_float(hi);
-    planes[total + i] = __uint_as_float(lo);
-  }
-}
-
-cudaError_t split_weights_tf32(const float* w, float* planes, int C, int O, cudaStream_t s) {
-  const int total = 9 * C * O;
-  const int blocks = (total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024;
-  split_weights_tf32_kernel<<<blocks, 256, 0, s>>>(w, planes, C, O);
-  return cudaGetLastError();
-}
-
-// A of m-tile mt for K steps unit*K2F_GROUP.. of a staged 32-channel halo
-// chunk: the 16 pixels of this warp's output row `wrow`, shifted by the tap
-// (dh, dw), split into TF32 halves. The b16 ldmatrix of 32-bit words gives
-// the m16n8k8 tf32 A fragment (conv3x3_common.cuh, conv3x3_kernel).
-__device__ __forceinline__ void k2f_load_a(uint32_t (&a_hi)[K2F_GROUP][4],
-                                           uint32_t (&a_lo)[K2F_GROUP][4], uint32_t halo,
-                                           int wrow, int dh, int dw, int mt, int unit, int lane) {
-  using namespace conv3x3::sm90;
-  const int p = (wrow + dh) * conv3x3::HALO_W + mt * 16 + dw + (lane & 15);
-#pragma unroll
-  for (int j = 0; j < K2F_GROUP; ++j) {
-    uint32_t r[4];
-    ldsm_x4(r, swizzled(halo, p, (unit * K2F_GROUP + j) * 2 + (lane >> 4)));
-    conv3x3::split_tf32(r, a_hi[j], a_lo[j]);
-  }
-}
-
-// The fragment d of K steps unit*K2F_GROUP.. of the weight slice at `stage`
-// (hi plane, then lo plane; 64 output rows of 128-byte-swizzled K each).
-__device__ __forceinline__ void k2f_chain(float (&d)[32], const uint32_t (&a_hi)[K2F_GROUP][4],
-                                          const uint32_t (&a_lo)[K2F_GROUP][4], uint32_t stage,
-                                          int unit) {
-  using namespace conv3x3::sm90;
-#pragma unroll
-  for (int j = 0; j < K2F_GROUP; ++j) {
-    const uint32_t k_off = (unit * K2F_GROUP + j) * 32;
-    wgmma_3xtf32_step(d, a_hi[j], a_lo[j], desc_sw128(stage + k_off, 16, 1024),
-                      desc_sw128(stage + K2F_PLANE + k_off, 16, 1024), j == 0);
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
-#pragma unroll
-  for (int j = 0; j < K; ++j) conv3x3::sm90::fence_regs(a[j]);
 }
 
 // The float32 forward conv on Hopper (see the note at the top).
@@ -506,10 +441,10 @@ conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
   unsigned char* const smem = smem_raw + (base - raw);
   const uint32_t ring = base + K2F_HSTAGES * HALO_SLOT;
   float* const red =
-      reinterpret_cast<float*>(smem + K2F_HSTAGES * HALO_SLOT + d.stages * K2F_WSTAGE);
+      reinterpret_cast<float*>(smem + K2F_HSTAGES * HALO_SLOT + d.stages * F32_WSTAGE);
   float* const pas = red + K2F_RED_FLOATS;
   float* const pbs = pas + K2F_MAX_C;
-  const uint32_t bars = ring + d.stages * K2F_WSTAGE + (K2F_RED_FLOATS + K2F_AFFINE_FLOATS) * 4;
+  const uint32_t bars = ring + d.stages * F32_WSTAGE + (K2F_RED_FLOATS + K2F_AFFINE_FLOATS) * 4;
   auto halo_full = [&](int hs) { return bars + 8 * hs; };                     // TMA landed
   auto halo_ready = [&](int hs) { return bars + 8 * (K2F_HSTAGES + hs); };    // prologue done
   auto halo_empty = [&](int hs) { return bars + 8 * (2 * K2F_HSTAGES + hs); };
@@ -574,11 +509,11 @@ conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
         }
         const int s = it % d.stages;
         mbar_wait(w_empty(s), ((it / d.stages) & 1) ^ 1);
-        mbar_expect_tx(w_full(s), K2F_WSTAGE);
+        mbar_expect_tx(w_full(s), F32_WSTAGE);
         // planes (2, 9, O, C): 64 output rows of 32 channels per box
 #pragma unroll
         for (int plane = 0; plane < 2; ++plane)
-          tma_load_4d(ring + s * K2F_WSTAGE + plane * K2F_PLANE, &wmap, w_full(s),
+          tma_load_4d(ring + s * F32_WSTAGE + plane * conv3x3::sm90::F32_PLANE, &wmap, w_full(s),
                       ch * F32_CHUNK, ot * K2F_N, tap, plane);
       }
     }
@@ -596,7 +531,7 @@ conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
     // one m-tile's fragment while the other's chain is in flight made ptxas
     // serialize the wgmmas, C7514, and ran slower.)
     float acc[2][32], frag[2][32];
-    uint32_t a_hi[2][K2F_GROUP][4], a_lo[2][K2F_GROUP][4];
+    uint32_t a_hi[2][F32_GROUP][4], a_lo[2][F32_GROUP][4];
     int it = 0;
     for (int ot = 0; ot < d.n_otiles; ++ot) {
 #pragma unroll
@@ -613,16 +548,16 @@ conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
           const int dh = tap / 3;
           const int dw = tap % 3;
           const int s = it % d.stages;
-          const uint32_t stage = ring + s * K2F_WSTAGE;
+          const uint32_t stage = ring + s * F32_WSTAGE;
 #pragma unroll
-          for (int unit = 0; unit < K2F_UNITS; ++unit) {
+          for (int unit = 0; unit < F32_UNITS; ++unit) {
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt)
-              k2f_load_a(a_hi[mt], a_lo[mt], halo, wrow, dh, dw, mt, unit, lane);
+              load_a_f32(a_hi[mt], a_lo[mt], halo, wrow, dh, dw, mt, unit, lane);
             if (unit == 0) mbar_wait(w_full(s), (it / d.stages) & 1);
             wgmma_fence();
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) k2f_chain(frag[mt], a_hi[mt], a_lo[mt], stage, unit);
+            for (int mt = 0; mt < 2; ++mt) chain_f32(frag[mt], a_hi[mt], a_lo[mt], stage, unit);
             wgmma_commit();
             wgmma_wait<0>();
 #pragma unroll
@@ -632,7 +567,7 @@ conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
               fence_a(a_lo[mt]);
               add_fragment(acc[mt], frag[mt]);
             }
-            if (unit == K2F_UNITS - 1 && lane == 0) {
+            if (unit == F32_UNITS - 1 && lane == 0) {
               mbar_arrive(w_empty(s));
               if (tap == 8) mbar_arrive(halo_empty(hs));
             }
@@ -734,8 +669,8 @@ int bias_act_sm90_f32(const void* x, const void* w, void* planes, const void* b,
       (mode == MODE_STATS && (partial_rows != rows || partial == nullptr || sums == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = split_weights_tf32(static_cast<const float*>(w), static_cast<float*>(planes),
-                                       C, O, s);
+  cudaError_t err = sm90::split_weights_tf32(static_cast<const float*>(w),
+                                             static_cast<float*>(planes), C, O, C, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap xmap, wmap;
   // planes (2, 9, O, C) as dims (C, O, 9, 2): the input channels contiguous
@@ -842,12 +777,15 @@ extern "C" int conv3x3_bias_act_sm90_f32(const void* x, const void* w, void* pla
                            stages, partial_rows, stream);
 }
 
-// The weight split alone (what conv3x3_bias_act_sm90_f32 runs first), to hold
-// it against its plain version: w (3, 3, C, O) float32 -> planes (2, 9, O, C).
-extern "C" int conv3x3_split_weights_tf32(const void* w, void* planes, int C, int O,
+// The weight split alone (what conv3x3_bias_act_sm90_f32 runs first, and
+// conv3x3_packed_sm90_f32 with a channel pitch of whole 32-channel chunks),
+// to hold it against its plain version: w (3, 3, C, O) float32 -> planes
+// (2, 9, O, Cp), zero from channel C to the pitch Cp >= C.
+extern "C" int conv3x3_split_weights_tf32(const void* w, void* planes, int C, int O, int Cp,
                                           void* stream) {
-  if (C < 1 || O < 1 || 9LL * C * O > 0x3fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(split_weights_tf32(static_cast<const float*>(w),
-                                             static_cast<float*>(planes), C, O,
-                                             static_cast<cudaStream_t>(stream)));
+  if (C < 1 || O < 1 || Cp < C || 9LL * Cp * O > 0x3fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(conv3x3::sm90::split_weights_tf32(
+      static_cast<const float*>(w), static_cast<float*>(planes), C, O, Cp,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the conv kernels redesigned for the
-// H100: conv3x3_packed_sm90_kernel (conv3x3_packed.cu, conv3x3_packed, bf16),
+// H100: conv3x3_packed_sm90_kernel and conv3x3_packed_sm90_f32_kernel
+// (conv3x3_packed.cu, conv3x3_packed, bf16 and float32),
 // conv3x3_sm90_kernel and conv3x3_sm90_f32_kernel (conv3x3.cu,
 // conv3x3_bias_act, bf16 and float32) and conv3x3_wgrad_sm90_kernel and
 // conv3x3_wgrad_sm90_f32_kernel (conv3x3_grad.cu, conv3x3_wgrad).
@@ -96,6 +97,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Bring the 128-byte line holding `p` into L2 (no fault, no register).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 __device__ __forceinline__ void fence_barrier_init() {
@@ -306,6 +312,84 @@ template <int R>
 __device__ __forceinline__ void add_fragment(float (&acc)[R], const float (&frag)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = __fadd_rn(acc[i], frag[i]);
+}
+
+// ---------------------------------------------------------------------------
+// Float32 forward convs (conv3x3_sm90_f32_kernel in conv3x3.cu,
+// conv3x3_packed_sm90_f32_kernel in conv3x3_packed.cu): the A operand from a
+// staged 32-channel halo chunk, the B operand a (tap, chunk) slice of 64
+// outputs in K-major TF32 hi and lo planes, and the weight split that writes
+// those planes.
+
+constexpr int F32_N = 64;                   // output channels of a weight slice
+constexpr int F32_PLANE = F32_N * BOX_ROW;  // one slice, one plane (8 KiB)
+constexpr int F32_WSTAGE = 2 * F32_PLANE;   // its hi and lo planes
+// K steps (8 channels each) chained through the tensor cores into one fresh
+// fragment before it is added to the accumulators; a (tap, chunk) slice holds
+// 4, so F32_UNITS fragments a slice and m-tile.
+constexpr int F32_GROUP = 4;
+constexpr int F32_UNITS = 4 / F32_GROUP;
+static_assert(4 % F32_GROUP == 0, "a slice's K steps split into whole groups");
+
+// planes[plane][tap][o][c] = hi (plane 0) and lo (plane 1) of w[tap][c][o]
+// (w HWIO (3, 3, C, O) float32) for c < C, and zero for C <= c < Cp: the
+// weights K-major in TF32 halves with a channel pitch of Cp, as the tf32
+// wgmma reads B; split_tf32 of conv3x3_common.cuh.
+__global__ void split_weights_tf32_kernel(const float* __restrict__ w, float* __restrict__ planes,
+                                          int C, int O, int Cp) {
+  const int total = 9 * Cp * O;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int c = i % Cp;
+    const int o = (i / Cp) % O;
+    const int tap = i / (Cp * O);
+    uint32_t hi = 0, lo = 0;
+    if (c < C) split_tf32(__float_as_uint(w[(tap * C + c) * O + o]), hi, lo);
+    planes[i] = __uint_as_float(hi);
+    planes[total + i] = __uint_as_float(lo);
+  }
+}
+
+inline cudaError_t split_weights_tf32(const float* w, float* planes, int C, int O, int Cp,
+                                      cudaStream_t s) {
+  const int total = 9 * Cp * O;
+  const int blocks = (total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024;
+  split_weights_tf32_kernel<<<blocks, 256, 0, s>>>(w, planes, C, O, Cp);
+  return cudaGetLastError();
+}
+
+// A of m-tile mt for K steps unit*F32_GROUP.. of a staged 32-channel halo
+// chunk: the 16 pixels of this warp's output row `wrow`, shifted by the tap
+// (dh, dw), split into TF32 halves. The b16 ldmatrix of 32-bit words gives
+// the m16n8k8 tf32 A fragment (conv3x3_common.cuh, conv3x3_kernel).
+__device__ __forceinline__ void load_a_f32(uint32_t (&a_hi)[F32_GROUP][4],
+                                           uint32_t (&a_lo)[F32_GROUP][4], uint32_t halo,
+                                           int wrow, int dh, int dw, int mt, int unit, int lane) {
+  const int p = (wrow + dh) * HALO_W + mt * 16 + dw + (lane & 15);
+#pragma unroll
+  for (int j = 0; j < F32_GROUP; ++j) {
+    uint32_t r[4];
+    ldsm_x4(r, swizzled(halo, p, (unit * F32_GROUP + j) * 2 + (lane >> 4)));
+    split_tf32(r, a_hi[j], a_lo[j]);
+  }
+}
+
+// The fragment d of K steps unit*F32_GROUP.. of the weight slice at `stage`
+// (hi plane, then lo plane; 64 output rows of 128-byte-swizzled K each).
+__device__ __forceinline__ void chain_f32(float (&d)[32], const uint32_t (&a_hi)[F32_GROUP][4],
+                                          const uint32_t (&a_lo)[F32_GROUP][4], uint32_t stage,
+                                          int unit) {
+#pragma unroll
+  for (int j = 0; j < F32_GROUP; ++j) {
+    const uint32_t k_off = (unit * F32_GROUP + j) * 32;
+    wgmma_3xtf32_step(d, a_hi[j], a_lo[j], desc_sw128(stage + k_off, 16, 1024),
+                      desc_sw128(stage + F32_PLANE + k_off, 16, 1024), j == 0);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) fence_regs(a[j]);
 }
 
 // ---------------------------------------------------------------------------

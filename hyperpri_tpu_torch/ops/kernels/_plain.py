@@ -190,13 +190,16 @@ def split_tf32_reference(t: torch.Tensor):
     return hi, tf32_rna(t.float() - hi)
 
 
-def split_weights_tf32_reference(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, O) float32 weights -> (2, 9, O, C): planes[0][tap][o][c] = hi
-    and planes[1][tap][o][c] = lo of w[dh][dw][c][o] (tap = 3*dh + dw), the
-    K-major TF32 halves the float32 Hopper conv reads."""
+def split_weights_tf32_reference(w: torch.Tensor, pitch: Optional[int] = None) -> torch.Tensor:
+    """(3, 3, C, O) float32 weights -> (2, 9, O, pitch): planes[0][tap][o][c] =
+    hi and planes[1][tap][o][c] = lo of w[dh][dw][c][o] (tap = 3*dh + dw) for
+    c < C, zero from C to the pitch (C when None): the K-major TF32 halves
+    the float32 Hopper convs read."""
     _, _, c, o = w.shape
     hi, lo = split_tf32_reference(w.float().permute(0, 1, 3, 2).reshape(9, o, c))
-    return torch.stack([hi, lo])
+    planes = torch.stack([hi, lo])
+    pitch = c if pitch is None else pitch
+    return F.pad(planes, (0, pitch - c)) if pitch > c else planes
 
 
 def count(counts: dict, names) -> None:

@@ -62,22 +62,28 @@ def _lib_sm90(suffix: str):
                        [ctypes.c_void_p] * pointers + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
-def split_weights_tf32(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, O) float32 weights -> their (2, 9, O, C) K-major TF32 hi and
-    lo planes, as the float32 Hopper body of conv3x3_bias_act splits them on
-    the card before each conv (the kernel alone, to hold it against
+def split_weights_tf32(w: torch.Tensor, pitch: Optional[int] = None) -> torch.Tensor:
+    """(3, 3, C, O) float32 weights -> their (2, 9, O, pitch) K-major TF32 hi
+    and lo planes (pitch C when None), zero from channel C to the pitch: what
+    the float32 Hopper bodies split on the card before each conv,
+    conv3x3_bias_act's with pitch C and conv3x3_packed's with C rounded up to
+    whole 32-channel chunks (the kernel alone, to hold it against
     `_plain.split_weights_tf32_reference`, which runs for CPU tensors)."""
     if w.dim() != 4 or w.shape[:2] != (3, 3) or w.dtype != torch.float32:
         raise ValueError(f"need (3, 3, C, O) float32 weights, got {tuple(w.shape)} {w.dtype}")
-    if w.device.type == "cpu":
-        return _plain.split_weights_tf32_reference(w)
-    w = w.contiguous()
     c, o = w.shape[2], w.shape[3]
-    planes = torch.empty((2, 9, o, c), dtype=torch.float32, device=w.device)
+    pitch = c if pitch is None else pitch
+    if pitch < c:
+        raise ValueError(f"pitch {pitch} < C = {c}")
+    if w.device.type == "cpu":
+        return _plain.split_weights_tf32_reference(w, pitch)
+    w = w.contiguous()
+    planes = torch.empty((2, 9, o, pitch), dtype=torch.float32, device=w.device)
     with torch.cuda.device(w.device):
         fn = _plain.bind("conv3x3", "conv3x3_split_weights_tf32",
-                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        err = fn(w.data_ptr(), planes.data_ptr(), c, o, torch.cuda.current_stream().cuda_stream)
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        err = fn(w.data_ptr(), planes.data_ptr(), c, o, pitch,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"split_weights_tf32 kernel launch failed: cudaError_t {err}")
     return planes

@@ -43,11 +43,13 @@ framed input is read: the Hopper kernel's tensor maps cover just that region
 the plain version slices it out.
 
 On the card the call takes one of two kernel bodies, chosen before the launch
-by sm90_plan.packed_plan from its dtype and layout: "sm90", the Hopper kernel
-(persistent blocks, TMA staging into mbarrier rings, wgmma; bf16 views TMA
-can address with O % 8 == 0 and C <= 256; it reads w in place), or
-"legacy", the synchronous mma.sync kernel on packed weights (float32, and
-bf16 layouts TMA cannot take, e.g. C = 238 unframed). The private keyword
+by sm90_plan.packed_plan from its dtype and layout: "sm90", the Hopper
+kernels (persistent blocks, TMA staging into mbarrier rings, wgmma; views
+TMA can address with C <= 256: in bf16 with O % 8 == 0, reading w in place;
+in float32 with an even O, by 3xTF32 on the weights' K-major TF32 hi and lo
+planes, which the call first writes with a pitch of whole 32-channel
+chunks), or "legacy", the synchronous mma.sync kernel on packed weights
+(layouts TMA cannot take, e.g. C = 238 unframed). The private keyword
 `_legacy=True` takes the synchronous body whatever the layout, to hold the
 two bodies against each other.
 
@@ -198,10 +200,15 @@ def _lib(suffix: str):
                        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
-def _lib_sm90():
-    return _plain.bind("conv3x3_packed", "conv3x3_packed_sm90_bf16",
-                       [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)]
-                       + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+def _lib_sm90(suffix: str):
+    if suffix == "bf16":
+        return _plain.bind("conv3x3_packed", "conv3x3_packed_sm90_bf16",
+                           [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)]
+                           + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+    # float32 also takes the weights' planes as scratch
+    return _plain.bind("conv3x3_packed", "conv3x3_packed_sm90_f32",
+                       [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def _plan(x, w, bwd_x, f: _Framing, legacy: bool) -> sm90_plan.PackedPlan:
@@ -253,8 +260,8 @@ def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if n * h * width == 0:
         raise ValueError("conv3x3_packed: empty input")
     mode = _MODE_BWD if bwd_x is not None else _MODE_STATS if with_stats else _MODE_PLAIN
-    w_bf16 = w.to(x.dtype).contiguous() if x.dtype == torch.bfloat16 else w
-    plan = _plan(x, w_bf16, bwd_x, f, _legacy)
+    w_k = w.to(x.dtype).contiguous()   # what the Hopper kernels read (bf16) or split (float32)
+    plan = _plan(x, w_k, bwd_x, f, _legacy)
     np_ = plan.tile_o
     bf, paf, pbf = _plain.f32_vector(b), _plain.f32_vector(pa), _plain.f32_vector(pb)
     partial = sums = None
@@ -264,14 +271,23 @@ def conv3x3_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     frames = framing.frames_arg(f.fx, f.fy, f.fr)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.path == "sm90":
-            # the Hopper kernel reads w in place; the synchronous one packed weights
-            err = _lib_sm90()(
-                x.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
+        if plan.path == "sm90" and suffix == "bf16":
+            # the bf16 Hopper kernel reads w in place, the float32 one its TF32
+            # planes; the synchronous one packed weights
+            err = _lib_sm90(suffix)(
+                x.data_ptr(), w_k.data_ptr(), bf.data_ptr(), y.data_ptr(), _plain.ptr(paf),
                 _plain.ptr(pbf), _plain.ptr(bwd_x), _plain.ptr(partial), _plain.ptr(sums),
                 frames, n, h, width, c, o, np_, plan.tile_rows, int(plan.resident),
                 plan.stages, plan.w_stages, plan.grid[0], int(relu), mode, plan.partial_rows,
                 stream)
+        elif plan.path == "sm90":
+            planes = torch.empty((2, 9, o, framing.round_up(c, sm90_plan.F32_CHUNK)),
+                                 dtype=torch.float32, device=x.device)
+            err = _lib_sm90(suffix)(
+                x.data_ptr(), w_k.data_ptr(), planes.data_ptr(), bf.data_ptr(), y.data_ptr(),
+                _plain.ptr(paf), _plain.ptr(pbf), _plain.ptr(bwd_x), _plain.ptr(partial),
+                _plain.ptr(sums), frames, n, h, width, c, o, np_, plan.w_stages, plan.grid[0],
+                int(relu), mode, plan.partial_rows, stream)
         else:
             wp = _plain.pack_weights(w, np_, x.dtype)
             err = _lib(suffix)(

@@ -7,24 +7,23 @@ Each plan is a pure function of the call's shape, dtype, mode and layout
 card, and the wrappers choose before the launch, never on a failure.
 
   - "sm90": the Hopper kernels (csrc/conv3x3_sm90.cuh;
-    conv3x3_packed_sm90_kernel in csrc/conv3x3_packed.cu, conv3x3_sm90_kernel
-    and conv3x3_sm90_f32_kernel in csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel
-    and conv3x3_wgrad_sm90_f32_kernel in csrc/conv3x3_grad.cu): TMA staging
+    conv3x3_packed_sm90_kernel and conv3x3_packed_sm90_f32_kernel in
+    csrc/conv3x3_packed.cu, conv3x3_sm90_kernel and conv3x3_sm90_f32_kernel
+    in csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel and
+    conv3x3_wgrad_sm90_f32_kernel in csrc/conv3x3_grad.cu): TMA staging
     into mbarrier rings and wgmma products (3xTF32 in float32). They take
     views that TMA can address: every stride a multiple of 16 bytes (a
     channel pitch that is a multiple of 8 in bf16, of 4 in float32) and a
-    16-byte aligned logical origin. conv3x3_packed takes them in bf16 only;
-    conv3x3_bias_act and conv3x3_wgrad (not its fold mode) in bf16 and
-    float32.
+    16-byte aligned logical origin. All three take them in bf16 and float32
+    (conv3x3_wgrad not in its fold mode).
   - "legacy": the synchronous mma.sync kernels (conv3x3_common.cuh), for
-    conv3x3_packed in float32, the weight gradient's fold mode, and layouts
-    TMA cannot take (e.g. C = 238 unframed: 476-byte bf16 or 952-byte
-    float32 pixels).
+    the weight gradient's fold mode and layouts TMA cannot take (e.g. C =
+    238 unframed: 476-byte bf16 or 952-byte float32 pixels).
 
-The shared-memory sums mirror the kernels' (k1_smem_bytes in
-conv3x3_packed.cu, k2_smem_bytes and k2f_smem_bytes in conv3x3.cu,
-k3_smem_bytes and k3f_smem_bytes in conv3x3_grad.cu); each plan's must fit
-an H100 block.
+The shared-memory sums mirror the kernels' (k1_smem_bytes and
+k1f_smem_bytes in conv3x3_packed.cu, k2_smem_bytes and k2f_smem_bytes in
+conv3x3.cu, k3_smem_bytes and k3f_smem_bytes in conv3x3_grad.cu); each
+plan's must fit an H100 block.
 `sm90=False` sends a call to the synchronous kernels whatever its layout:
 the wrappers pass it for their private `_legacy` keyword, with which the
 fold mode (which has no Hopper body) is compared bit for bit with the
@@ -57,6 +56,14 @@ K1_MAX_CHUNKS = 4
 K1_AFFINE_BYTES = 2 * K1_MAX_CHUNKS * CHUNK * 4
 K1_MAX_HSTAGES = 4
 K1_MAX_WSTAGES = 8
+# conv3x3_packed_sm90_f32_kernel: persistent blocks walking work units of one
+# 8x32 tile by one O tile of 64 outputs; the halo streamed in 32-channel
+# chunks through a ring of two stages; (tap, chunk) weight slices of 64
+# outputs in TF32 hi and lo planes (16 KiB) in a ring of 2-8 stages; C <= 256
+# (the prologue's affine buffer). Slices and sums' sizes as kernel 2's below.
+K1F_HSTAGES = 2
+K1F_MAX_WSTAGES = 8
+K1F_MAX_C = 256
 # conv3x3_sm90_kernel: O tiles of 128 walked inside the block, the whole halo
 # resident (at most 4 chunks: C <= 256), weight slices of 16 KiB in a ring of
 # 2-4 stages.
@@ -114,6 +121,7 @@ class PackedPlan(NamedTuple):
     path: str                     # "sm90" or "legacy"
     tile_o: int                   # output channels of the tile (NP)
     tile_rows: int                # pixel rows of a work unit: 8 * TU (8 for legacy)
+    o_units: int                  # work units a tile's NP outputs make (float32 sm90: NP / 64)
     resident: bool                # the weights stay in shared memory (sm90)
     stages: int                   # halo ring depth (sm90), 0 for legacy
     w_stages: int                 # weight ring depth (sm90, streamed), else 0
@@ -146,6 +154,11 @@ def k1_smem_bytes(tile_o: int, tu: int, resident: bool, n_chunks: int, hstages: 
     wbars = 1 if resident else wstages
     return (ALIGN_SLACK + wslots * tile_o * BOX_ROW + hstages * k1_halo_slot(tu)
             + 2 * tu * TH * tile_o * 4 + K1_AFFINE_BYTES + (2 * wbars + 3 * hstages) * 8)
+
+
+def k1f_smem_bytes(wstages: int) -> int:
+    return (ALIGN_SLACK + K1F_HSTAGES * HALO_SLOT + wstages * K2F_WSTAGE
+            + 2 * TH * K2F_N * 4 + K2F_AFFINE_BYTES + (3 * K1F_HSTAGES + 2 * wstages) * 8)
 
 
 def k2_smem_bytes(n_chunks: int, stages: int) -> int:
@@ -187,15 +200,25 @@ def packed_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pi
     and (with the backward epilogue, `bwd`) r in views of y_pitch and r_pitch
     (their frames'; o when None); `aligned`: the data pointers of x's buffer
     and of the (3, 3, c, o) weights, which the Hopper kernel reads in place
-    by TMA, are 16-byte aligned. The Hopper body takes bf16 with a TMA view
-    of x, o % 8 == 0 (TMA strides of the weights), even y and r pitches (its
-    stores and loads take channel pairs) and c <= 256; it launches
-    one persistent block per SM (no more than there are work units), the
-    rings as deep as the shared memory allows."""
+    by TMA, are 16-byte aligned. The Hopper bodies take a TMA view of x,
+    even y and r pitches (their stores and loads take channel pairs) and c
+    <= 256; in bf16 also o % 8 == 0 (TMA strides of the weights), in float32
+    an even o (the weights' TF32 planes, which the call writes, have a
+    pitch of whole 32-channel chunks). They launch one persistent block per
+    SM (no more than there are work units), the rings as deep as the shared
+    memory allows."""
     tile_o = 64 if o <= 64 else 128
     tiles = n * _cdiv(h, TH) * _cdiv(w, TW)
     n_chunks = _cdiv(c, CHUNK)
     pairs = all(p % 2 == 0 for p in (y_pitch or o, r_pitch or o))
+    if (sm90 and dtype == torch.float32 and c <= K1F_MAX_C and pairs and o % 2 == 0
+            and tma_view_ok(x_pitch, aligned, 4)):
+        wstages = max(s for s in range(2, K1F_MAX_WSTAGES + 1)
+                      if s == 2 or k1f_smem_bytes(s) <= SMEM_LIMIT)
+        units = tiles * (tile_o // K2F_N)
+        return PackedPlan("sm90", tile_o, TH, tile_o // K2F_N, False, K1F_HSTAGES, wstages,
+                          (min(units, SMS), 1, 1), units, tiles,
+                          k1f_smem_bytes(wstages))
     if (sm90 and dtype == torch.bfloat16 and n_chunks <= K1_MAX_CHUNKS and pairs
             and tma_view_ok(x_pitch, aligned) and tma_view_ok(o, aligned)):
         resident = tile_o == 64 and k1_smem_bytes(64, 1, True, n_chunks, 2, 0) <= SMEM_LIMIT
@@ -210,25 +233,29 @@ def packed_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pi
                           if s == 2 or k1_smem_bytes(tile_o, tu, False, n_chunks, 2, s)
                           <= SMEM_LIMIT)
         units = n * _cdiv(h, TH * tu) * _cdiv(w, TW)
-        return PackedPlan("sm90", tile_o, TH * tu, resident, hstages, wstages,
+        return PackedPlan("sm90", tile_o, TH * tu, 1, resident, hstages, wstages,
                           (min(units, SMS), 1, 1), units, tiles,
                           k1_smem_bytes(tile_o, tu, resident, n_chunks, hstages, wstages))
-    return PackedPlan("legacy", tile_o, TH, False, 0, 0, (_cdiv(w, TW), _cdiv(h, TH), n), tiles,
+    return PackedPlan("legacy", tile_o, TH, 1, False, 0, 0, (_cdiv(w, TW), _cdiv(h, TH), n), tiles,
                       tiles, (LEGACY_HALO_PIX + 9 * tile_o) * LEGACY_ROW_BYTES)
 
 
 def packed_tiles(plan: PackedPlan, n: int, h: int, w: int, block: int):
-    """The 8x32 pixel tiles (image, tile row, tile column) that block `block`
-    of an sm90 plan computes, in its order: units block, block + grid, ...
-    (the kernel's walk; a unit's tiles past the image are skipped)."""
+    """The (image, tile row, tile column, O tile) of the 8x32 pixel tiles
+    that block `block` of an sm90 plan computes, in its order: units block,
+    block + grid, ... (the kernels' walks: a bf16 unit is 1-2 vertically
+    adjacent tiles, whose tiles past the image are skipped, with all NP
+    outputs, O tile 0; a float32 unit one tile by one O tile of 64, the O
+    tiles of a tile adjacent)."""
     tu = plan.tile_rows // TH
     tiles_h, tiles_w = _cdiv(h, TH), _cdiv(w, TW)
     units_h = _cdiv(h, plan.tile_rows)
     out = []
     for u in range(block, plan.units, plan.grid[0]):
-        t, ux = divmod(u, tiles_w)
+        t, ot = divmod(u, plan.o_units)
+        t, ux = divmod(t, tiles_w)
         image, uy = divmod(t, units_h)
-        out += [(image, uy * tu + j, ux) for j in range(tu) if uy * tu + j < tiles_h]
+        out += [(image, uy * tu + j, ux, ot) for j in range(tu) if uy * tu + j < tiles_h]
     return out
 
 

@@ -10,19 +10,19 @@ same card within one job:
 
 Each run imports hyperpri_tpu_torch from the given tree (building its kernels
 there) and calls, on seeded inputs: the targets, every distinct float32 call
-of conv3x3_bias_act (12 a step) and conv3x3_wgrad (10 a UNET step, 11 a
-CubeNET-64 step, the first reading the host pre-padded ingest buffer) of the
-CLI's default run, a UNET step on RGB and a CubeNET-64 step on HSI, each with
-its multiplicity; as controls, every distinct bf16 call of conv3x3_packed in a
-product-loop step (9 at batch 2, the first reading the ingest buffer) and in
-a served cube (4 at batch 1), every distinct bf16 call of conv3x3_bias_act
-(12 a CubeNET-64 step) and conv3x3_wgrad (11), and the float32 conv3x3_packed
-calls of a CubeNET-64 float32 step. Per call it prints the median wrapper
-time by CUDA events (20 timed calls after 3 warm-ups) and the device time of
-the call's kernels from torch.profiler over 10 calls; then, per kernel, dtype
-and group (unet_f32, cubenet_f32, control), the sums over the calls (time x
-multiplicity). The card's name and power limit come first. Needs a CUDA
-device; imports no JAX.
+of conv3x3_packed (8 a UNET step, 9 a CubeNET-64 step, the first reading the
+host pre-padded ingest buffer) of the CLI's default run, a UNET step on RGB
+and a CubeNET-64 step on HSI, each with its multiplicity; as controls, every
+distinct bf16 call of conv3x3_packed in a product-loop step (9 at batch 2,
+the first reading the ingest buffer) and in a served cube (4 at batch 1),
+and every distinct float32 call of conv3x3_bias_act (12 a step) and
+conv3x3_wgrad (11 a CubeNET-64 step). Per call it prints the median wrapper
+time by CUDA events (20 timed calls after 3 warm-ups), the device time of
+the call's kernels from torch.profiler over 10 calls and a digest of the
+call's output bits (two trees whose digests agree computed the same bits);
+then, per kernel, dtype and group (unet_f32, cubenet_f32, control), the sums
+over the calls (time x multiplicity). The card's name and power limit come
+first. Needs a CUDA device; imports no JAX.
 """
 
 import os
@@ -35,35 +35,22 @@ import torch
 H, W = 608, 968
 # (label, kernel, shape (N, H, W, C), O, mode, dtype, calls, group)
 CALLS = [
-    # targets: the float32 calls of conv3x3_bias_act and conv3x3_wgrad of a UNET
-    # step (608x968x3) and of a CubeNET-64 step (608x968x238, ingest buffer)
-    ("down1.conv1 stats", "halo", (2, 304, 484, 64), 128, "stats", "f32", 1, "unet_f32"),
-    ("down1/up3.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "f32", 2,
+    # targets: the float32 calls of conv3x3_packed of a UNET step (608x968x3)
+    # and of a CubeNET-64 step (608x968x238, ingest buffer)
+    ("inc/up4.conv2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue", "f32", 2,
      "unet_f32"),
-    ("down1/up3.conv2 adjoint", "halo", (2, 304, 484, 128), 128, "adjoint", "f32", 2,
+    ("inc/up4.conv2 bwd_x", "packed", (2, H, W, 64), 64, "bwd_x", "f32", 2, "unet_f32"),
+    ("down1.conv1 adjoint", "packed", (2, 304, 484, 128), 64, "adjoint", "f32", 1, "unet_f32"),
+    ("down2.conv1 adjoint", "packed", (2, 152, 242, 256), 128, "adjoint", "f32", 1,
      "unet_f32"),
-    ("up3.conv1 stats", "halo", (2, 304, 484, 256), 128, "stats", "f32", 1, "unet_f32"),
-    ("up3.conv1 adjoint", "halo", (2, 304, 484, 128), 256, "adjoint", "f32", 1, "unet_f32"),
-    ("down2.conv1 stats", "halo", (2, 152, 242, 128), 256, "stats", "f32", 1, "unet_f32"),
-    ("down2/up2.conv2 stats+prologue", "halo", (2, 152, 242, 256), 256, "prologue", "f32", 2,
-     "unet_f32"),
-    ("down2/up2.conv2 adjoint", "halo", (2, 152, 242, 256), 256, "adjoint", "f32", 2,
-     "unet_f32"),
-    ("inc/up4.conv2 wgrad prologue", "wgrad", (2, H, W, 64), 64, "prologue", "f32", 2,
-     "unet_f32"),
-    ("up4.conv1 wgrad", "wgrad", (2, H, W, 128), 64, "plain", "f32", 1, "unet_f32"),
-    ("down1.conv1 wgrad", "wgrad", (2, 304, 484, 64), 128, "plain", "f32", 1, "unet_f32"),
-    ("down1/up3.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "f32", 2,
-     "unet_f32"),
-    ("up3.conv1 wgrad", "wgrad", (2, 304, 484, 256), 128, "plain", "f32", 1, "unet_f32"),
-    ("down2.conv1 wgrad", "wgrad", (2, 152, 242, 128), 256, "plain", "f32", 1, "unet_f32"),
-    ("down2/up2.conv2 wgrad prologue", "wgrad", (2, 152, 242, 256), 256, "prologue", "f32", 2,
-     "unet_f32"),
-    # the CubeNET-64 step makes the same calls and the first conv's weight
-    # gradient: timed once, counted in both groups by the sums below
-    ("first_conv wgrad pre-padded", "wgrad", (2, H, W, 238), 64, "pre_padded", "f32", 1,
+    ("up4.conv1 stats", "packed", (2, H, W, 128), 64, "stats", "f32", 1, "unet_f32"),
+    ("up4.conv1 adjoint", "packed", (2, H, W, 64), 128, "adjoint", "f32", 1, "unet_f32"),
+    # the CubeNET-64 step makes the same calls and the first conv: timed once,
+    # counted in both groups by the sums below
+    ("first_conv stats pre-padded", "packed", (2, H, W, 238), 64, "pre_padded", "f32", 1,
      "cubenet_f32"),
-    # controls: kernels and forms this comparison does not target
+    # controls: kernels and forms this comparison does not target (kernel 1
+    # in bf16; kernels 2 and 3 in float32, whose shared pieces moved)
     ("first_conv stats pre-padded", "packed", (2, H, W, 238), 64, "pre_padded", "bf16", 1,
      "control"),
     ("inc2/up4.conv2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue", "bf16", 2,
@@ -76,41 +63,30 @@ CALLS = [
     ("serving first_conv", "packed", (1, H, W, 238), 64, "relu", "bf16", 1, "control"),
     ("serving inc2/up4.conv2", "packed", (1, H, W, 64), 64, "relu", "bf16", 2, "control"),
     ("serving up4.conv1", "packed", (1, H, W, 128), 64, "relu", "bf16", 1, "control"),
-    ("down1.conv1 stats", "halo", (2, 304, 484, 64), 128, "stats", "bf16", 1, "control"),
-    ("down1/up3.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "bf16", 2,
+    ("down1.conv1 stats", "halo", (2, 304, 484, 64), 128, "stats", "f32", 1, "control"),
+    ("down1/up3.conv2 stats+prologue", "halo", (2, 304, 484, 128), 128, "prologue", "f32", 2,
      "control"),
-    ("down1/up3.conv2 adjoint", "halo", (2, 304, 484, 128), 128, "adjoint", "bf16", 2,
+    ("down1/up3.conv2 adjoint", "halo", (2, 304, 484, 128), 128, "adjoint", "f32", 2,
      "control"),
-    ("up3.conv1 stats", "halo", (2, 304, 484, 256), 128, "stats", "bf16", 1, "control"),
-    ("up3.conv1 adjoint", "halo", (2, 304, 484, 128), 256, "adjoint", "bf16", 1, "control"),
-    ("down2.conv1 stats", "halo", (2, 152, 242, 128), 256, "stats", "bf16", 1, "control"),
-    ("down2/up2.conv2 stats+prologue", "halo", (2, 152, 242, 256), 256, "prologue", "bf16", 2,
+    ("up3.conv1 stats", "halo", (2, 304, 484, 256), 128, "stats", "f32", 1, "control"),
+    ("up3.conv1 adjoint", "halo", (2, 304, 484, 128), 256, "adjoint", "f32", 1, "control"),
+    ("down2.conv1 stats", "halo", (2, 152, 242, 128), 256, "stats", "f32", 1, "control"),
+    ("down2/up2.conv2 stats+prologue", "halo", (2, 152, 242, 256), 256, "prologue", "f32", 2,
      "control"),
-    ("down2/up2.conv2 adjoint", "halo", (2, 152, 242, 256), 256, "adjoint", "bf16", 2,
+    ("down2/up2.conv2 adjoint", "halo", (2, 152, 242, 256), 256, "adjoint", "f32", 2,
      "control"),
-    ("first_conv wgrad pre-padded", "wgrad", (2, H, W, 238), 64, "pre_padded", "bf16", 1,
+    ("inc/up4.conv2 wgrad prologue", "wgrad", (2, H, W, 64), 64, "prologue", "f32", 2,
      "control"),
-    ("inc2/up4.conv2 wgrad prologue", "wgrad", (2, H, W, 64), 64, "prologue", "bf16", 2,
+    ("up4.conv1 wgrad", "wgrad", (2, H, W, 128), 64, "plain", "f32", 1, "control"),
+    ("down1.conv1 wgrad", "wgrad", (2, 304, 484, 64), 128, "plain", "f32", 1, "control"),
+    ("down1/up3.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "f32", 2,
      "control"),
-    ("up4.conv1 wgrad", "wgrad", (2, H, W, 128), 64, "plain", "bf16", 1, "control"),
-    ("down1.conv1 wgrad", "wgrad", (2, 304, 484, 64), 128, "plain", "bf16", 1, "control"),
-    ("down1/up3.conv2 wgrad prologue", "wgrad", (2, 304, 484, 128), 128, "prologue", "bf16", 2,
+    ("up3.conv1 wgrad", "wgrad", (2, 304, 484, 256), 128, "plain", "f32", 1, "control"),
+    ("down2.conv1 wgrad", "wgrad", (2, 152, 242, 128), 256, "plain", "f32", 1, "control"),
+    ("down2/up2.conv2 wgrad prologue", "wgrad", (2, 152, 242, 256), 256, "prologue", "f32", 2,
      "control"),
-    ("up3.conv1 wgrad", "wgrad", (2, 304, 484, 256), 128, "plain", "bf16", 1, "control"),
-    ("down2.conv1 wgrad", "wgrad", (2, 152, 242, 128), 256, "plain", "bf16", 1, "control"),
-    ("down2/up2.conv2 wgrad prologue", "wgrad", (2, 152, 242, 256), 256, "prologue", "bf16", 2,
+    ("first_conv wgrad pre-padded", "wgrad", (2, H, W, 238), 64, "pre_padded", "f32", 1,
      "control"),
-    ("f32 first_conv stats pre-padded", "packed", (2, H, W, 238), 64, "pre_padded", "f32", 1,
-     "control"),
-    ("f32 inc2/up4.conv2 stats+prologue", "packed", (2, H, W, 64), 64, "prologue", "f32", 2,
-     "control"),
-    ("f32 inc2/up4.conv2 bwd_x", "packed", (2, H, W, 64), 64, "bwd_x", "f32", 2, "control"),
-    ("f32 down1.conv1 adjoint", "packed", (2, 304, 484, 128), 64, "adjoint", "f32", 1,
-     "control"),
-    ("f32 down2.conv1 adjoint", "packed", (2, 152, 242, 256), 128, "adjoint", "f32", 1,
-     "control"),
-    ("f32 up4.conv1 stats", "packed", (2, H, W, 128), 64, "stats", "f32", 1, "control"),
-    ("f32 up4.conv1 adjoint", "packed", (2, H, W, 64), 128, "adjoint", "f32", 1, "control"),
 ]
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -141,6 +117,18 @@ def device_ms(fn, reps=10):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and "conv3x3" in e.key) / reps / 1e3
+
+
+def digest(out) -> str:
+    """A digest of the bits of a call's output tensors (nested tuples too):
+    per tensor, the sum of its 16- or 32-bit words and of each word times
+    its position modulo a prime, as hex."""
+    if isinstance(out, (tuple, list)):
+        return "-".join(digest(t) for t in out)
+    words = out.contiguous().view(-1).view(torch.int16 if out.element_size() == 2
+                                           else torch.int32).to(torch.int64)
+    pos = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return f"{int(words.sum()) & 0xffffffff:08x}{int((words * pos).sum()) & 0xffffffff:08x}"
 
 
 def ingest_buffer(x):
@@ -212,6 +200,7 @@ def main():
     sums = {}
     for label, kernel, shape, o, mode, dtype, count, group in CALLS:
         fn = make_call(kernels, kernel, shape, o, mode, DTYPES[dtype], gen)
+        bits = digest(fn())
         ms, dev = cuda_ms(fn), device_ms(fn)
         # a UNET step's float32 calls are also calls of the CubeNET-64 step
         for g in ((group, "cubenet_f32") if group == "unet_f32" else (group,)):
@@ -219,8 +208,8 @@ def main():
             total[0] += ms * count
             total[1] += dev * count
             total[2] += count
-        print(f"  {label:34s} {dtype:4s} x{count} wrapper {ms:.4f} ms, device {dev:.4f} ms",
-              flush=True)
+        print(f"  {label:34s} {kernel:6s} {dtype:4s} x{count} wrapper {ms:.4f} ms, device "
+              f"{dev:.4f} ms, bits {bits}", flush=True)
         del fn
         torch.cuda.empty_cache()
     for key, (ms, dev, count) in sums.items():

@@ -678,10 +678,10 @@ def test_sm90_wgrad_matches_plain(cuda_device, shape, o, mode):
 def test_legacy_body_takes_float32_and_untma_layouts(cuda_device, kernel):
     """Views TMA cannot address take the synchronous kernel, chosen before
     the launch: C = 238 unframed, 476-byte bf16 and 952-byte float32 pixels;
-    and conv3x3_packed in float32, which has no Hopper body."""
+    and for conv3x3_packed also C = 61 in float32 (244-byte pixels)."""
     fn = {"bias_act": conv3x3_bias_act, "wgrad": conv3x3_wgrad, "packed": conv3x3_packed}[kernel]
     cases = [(torch.float32, 238), (torch.bfloat16, 238)]
-    for dtype, c in cases + ([(torch.float32, 64)] if kernel == "packed" else []):
+    for dtype, c in cases + ([(torch.float32, 61)] if kernel == "packed" else []):
         x, w, b, rng = _conv_inputs(cuda_device, (1, 13, 37, c), 64, dtype=dtype)
         before = dict(fn.launches_by_path)
         if kernel == "wgrad":
@@ -818,17 +818,21 @@ def test_sm90_f32_wgrad_one_signed_terms(cuda_device, shape, o, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,o", [(64, 128), (256, 256), (5, 12)])
-def test_split_weights_tf32_matches_plain_exactly(cuda_device, c, o):
-    """The float32 Hopper conv's weight split on the card, bit for bit its
-    plain version."""
+@pytest.mark.parametrize("c,o,pitch", [(64, 128, None), (256, 256, None), (5, 12, None),
+                                       (61, 24, 64), (238, 64, 256), (64, 128, 64)])
+def test_split_weights_tf32_matches_plain_exactly(cuda_device, c, o, pitch):
+    """The float32 Hopper convs' weight split on the card, bit for bit its
+    plain version: conv3x3_bias_act's with the pitch C (None) and
+    conv3x3_packed's with whole 32-channel chunks, zero from C to the
+    pitch."""
     from hyperpri_tpu_torch.ops.kernels import _plain
     from hyperpri_tpu_torch.ops.kernels.conv3x3 import split_weights_tf32
 
     _, w, _, _ = _conv_inputs(cuda_device, (1, 1, 1, c), o, dtype=torch.float32)
-    planes = split_weights_tf32(w)
+    planes = split_weights_tf32(w, pitch)
     torch.cuda.synchronize()
-    assert torch.equal(planes, _plain.split_weights_tf32_reference(w))
+    assert torch.equal(planes, _plain.split_weights_tf32_reference(w, pitch))
+    assert not bool(planes[..., c:].any())
 
 
 @pytest.mark.cuda
@@ -896,11 +900,11 @@ _SM90_PACKED = [
 ]
 
 
-def _packed_case(device, shape, o, mode, framing, seed=0):
-    """Arguments and keywords of one conv3x3_packed call on seeded inputs:
-    (x, w, b, pa, pb, r) with x, r framed as `framing` says, the logical x
-    and r, and the kwargs."""
-    x, w, b, rng = _conv_inputs(device, shape, o, seed=seed)
+def _packed_case(device, shape, o, mode, framing, seed=0, dtype=torch.bfloat16):
+    """Arguments and keywords of one conv3x3_packed call on seeded inputs of
+    `dtype`: (x, w, b, pa, pb, r) with x, r framed as `framing` says, the
+    logical x and r, and the kwargs."""
+    x, w, b, rng = _conv_inputs(device, shape, o, seed=seed, dtype=dtype)
     h, wd, c = shape[1], shape[2], shape[3]
     pa = pb = r = None
     kw = dict(relu=mode == "relu", with_stats=mode in ("stats", "prologue"))
@@ -911,7 +915,7 @@ def _packed_case(device, shape, o, mode, framing, seed=0):
     if mode == "bwd_x":
         pa, pb = _affine(rng, device, o)
         r = torch.from_numpy(rng.normal(size=shape[:3] + (o,)).astype(np.float32)).to(
-            device, torch.bfloat16)
+            device, dtype)
         kw["with_stats"] = False
     x_logical, r_logical = x, r
     if framing:
@@ -930,18 +934,36 @@ def _packed_case(device, shape, o, mode, framing, seed=0):
     return (x, w, b, pa, pb, r), x_logical, r_logical, kw
 
 
+def _packed_terms(args, mode, kw):
+    """The plain version on the absolute values of the inputs (a prologue's
+    relu(pa*x + pb) is non-negative already, pa > 0 in the backward
+    epilogue): per output, the sum of the absolute values of its terms, in
+    the output's framing."""
+    x, w, b, pa, pb, r = args
+    out = conv3x3_packed_reference(x if mode == "prologue" else x.abs(), w.abs(), b.abs(), pa,
+                                   pb, r, **dict(kw, relu=False, with_stats=False))
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _check_packed(out, ref, args, x_logical, r_logical, mode, kw, rel=SM90_SUM_REL):
-    """A conv3x3_packed result against its plain version: the output (frame
-    included) within one bf16 ulp and finite; the float32 sums within `rel`
-    of the sums of the absolute values of their terms."""
+    """A conv3x3_packed result against its plain version (or the other
+    body): the output (frame included) finite and, in bf16, within one bf16
+    ulp, in float32 within F32_REL of the sum of the absolute values of its
+    terms; the float32 sums within `rel` of the sums of the absolute values
+    of their terms."""
     from hyperpri_tpu_torch.ops.kernels import _plain
 
     sums = ref_sums = None
     if isinstance(out, tuple):
         (out, sums), (ref, ref_sums) = out, ref
-    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert out.shape == ref.shape and out.dtype == ref.dtype == x_logical.dtype
     assert bool(torch.isfinite(out).all())
-    assert _bf16_ulp_error(out, ref) <= 1.0
+    terms = None
+    if out.dtype == torch.bfloat16:
+        assert _bf16_ulp_error(out, ref) <= 1.0
+    else:
+        terms = _packed_terms(args, mode, kw)
+        _assert_sums_close(out, ref, terms, F32_REL)
     if sums is None:
         return
     _, w, _, pa, pb, _ = args
@@ -950,9 +972,12 @@ def _check_packed(out, ref, args, x_logical, r_logical, mode, kw, rel=SM90_SUM_R
         dz = _plain.conv3x3_same_f32(x_logical, w)
         rf = r_logical.float()
         mdz = torch.where(rf * pa + pb > 0, dz, torch.zeros_like(dz)).abs()
+        if terms is not None:   # |m*dz| from the absolute terms of dx = m*dz*pa
+            mdz = (terms[:, 8:8 + h, 8:8 + wd, :o] if kw.get("arena_out") else terms) / pa
         scales = ((mdz * rf.abs()).sum(dim=(0, 1, 2)), mdz.sum(dim=(0, 1, 2)))
     else:
-        y = ref[:, 8:8 + h, 8:8 + wd, :o] if kw.get("arena_out") else ref
+        y = ref if terms is None else terms
+        y = y[:, 8:8 + h, 8:8 + wd, :o] if kw.get("arena_out") else y
         yf = y.float()
         scales = (yf.abs().sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2)))
     for s, rs, sc in zip(sums, ref_sums, scales):
@@ -1001,3 +1026,96 @@ def test_sm90_packed_matches_the_synchronous_body(cuda_device, shape, o, mode, f
     assert _path_delta(conv3x3_packed, before) == {"sm90": 1, "legacy": 1}
     torch.cuda.synchronize()
     _check_packed(hopper, sync, args, x_logical, r_logical, mode, kw)
+
+
+# The float32 Hopper body of conv3x3_packed (3xTF32 on wgmma, TMA rings,
+# persistent units of one 8x32 tile by one O tile of 64): every mode in every
+# framing it takes, at NP = 64 and 128, at ragged shapes where tiles and TMA
+# boxes overhang every edge, with C = 61 (arena pitch 64) and 238 (the ingest
+# buffer's pitch 256) beside whole chunks, and at rows of the steps' calls.
+# Framed buffers hold NaN in their frames; outputs and sums within F32_REL of
+# the sums of the absolute values of their terms, every call twice with
+# identical bits.
+_SM90_PACKED_F32 = [
+    ((1, 13, 37, 64), 64, mode, framing)
+    for mode, framing in (
+        ("relu", ()), ("stats", ()), ("prologue", ()), ("bwd_x", ()), ("adjoint", ()),
+        ("relu", ("arena_out",)), ("stats", ("arena_out",)), ("prologue", ("arena_in",)),
+        ("prologue", ("arena_in", "arena_out")), ("relu", ("arena_g",)), ("stats", ("arena_g",)),
+        ("bwd_x", ("arena_in",)), ("bwd_x", ("arena_in", "arena_out")),
+        ("bwd_x", ("arena_in", "arena_out", "arena_g")), ("bwd_x", ("arena_g",)))
+] + [
+    ((2, 29, 71, 128), 48, mode, framing)
+    for mode, framing in (("stats", ()), ("prologue", ()), ("bwd_x", ()),
+                          ("stats", ("arena_out",)))
+] + [
+    ((1, 13, 21, 61), 24, mode, framing)
+    for mode, framing in (("prologue", ("arena_in",)), ("relu", ("arena_g",)),
+                          ("stats", ("pre_padded",)), ("bwd_x", ("arena_g",)),
+                          ("bwd_x", ("arena_in", "arena_out", "arena_g")))
+] + [
+    ((1, 11, 45, 238), 64, mode, framing)
+    for mode, framing in (("stats", ("pre_padded",)), ("relu", ("pre_padded",)),
+                          ("stats", ("pre_padded", "arena_out")))
+] + [
+    ((1, 13, 37, 64), 128, mode, framing)
+    for mode, framing in (("adjoint", ()), ("relu", ()), ("prologue", ()), ("bwd_x", ()),
+                          ("adjoint", ("arena_g",)), ("bwd_x", ("arena_in", "arena_out")))
+] + [
+    ((1, 19, 50, 256), 96, mode, framing)
+    for mode, framing in (("adjoint", ()), ("stats", ("arena_out",)),
+                          ("prologue", ("arena_in",)), ("relu", ("arena_g",)))
+] + [
+    ((2, 24, 968, 238), 64, "stats", ("pre_padded",)),
+    ((2, 24, 968, 64), 64, "bwd_x", ()),
+    ((2, 24, 968, 64), 128, "adjoint", ()),
+    ((2, 19, 242, 256), 128, "adjoint", ()),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode,framing", _SM90_PACKED_F32)
+def test_sm90_f32_packed_matches_plain(cuda_device, shape, o, mode, framing):
+    """The float32 Hopper body in one mode and framing: it is the body
+    taken, its output (an arena output's zero frame too) and its sums within
+    F32_REL of their absolute terms of the plain version, NaN frames never
+    reach an output, and every call gives the same bits twice."""
+    args, x_logical, r_logical, kw = _packed_case(cuda_device, shape, o, mode, framing,
+                                                  dtype=torch.float32)
+    before = dict(conv3x3_packed.launches_by_path)
+    out, again = (conv3x3_packed(*args, **kw) for _ in range(2))
+    assert _path_delta(conv3x3_packed, before) == {"sm90": 2}
+    ref = conv3x3_packed_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _check_packed(out, ref, args, x_logical, r_logical, mode, kw, F32_REL)
+    if isinstance(out, tuple):
+        assert torch.equal(out[0], again[0])
+        assert all(torch.equal(a, b) for a, b in zip(out[1], again[1]))
+    else:
+        assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,mode,framing", [
+    ((1, 13, 37, 64), 64, "prologue", ()),
+    ((1, 13, 37, 64), 64, "bwd_x", ("arena_in", "arena_out")),
+    ((1, 13, 21, 61), 24, "stats", ("pre_padded",)),
+    ((1, 11, 45, 238), 64, "stats", ("pre_padded",)),
+    ((1, 13, 37, 64), 128, "adjoint", ("arena_g",)),
+    ((2, 24, 968, 64), 64, "bwd_x", ()),
+    ((2, 32, 484, 128), 64, "adjoint", ()),
+    ((2, 19, 242, 256), 128, "adjoint", ()),
+])
+def test_sm90_f32_packed_matches_the_synchronous_body(cuda_device, shape, o, mode, framing):
+    """The float32 Hopper and synchronous bodies on the same inputs (the
+    synchronous one through `_legacy`): outputs and sums within F32_REL of
+    their absolute terms of each other."""
+    args, x_logical, r_logical, kw = _packed_case(cuda_device, shape, o, mode, framing, seed=1,
+                                                  dtype=torch.float32)
+    before = dict(conv3x3_packed.launches_by_path)
+    hopper = conv3x3_packed(*args, **kw)
+    sync = conv3x3_packed(*args, _legacy=True, **kw)
+    assert _path_delta(conv3x3_packed, before) == {"sm90": 1, "legacy": 1}
+    torch.cuda.synchronize()
+    _check_packed(hopper, sync, args, x_logical, r_logical, mode, kw, F32_REL)
+

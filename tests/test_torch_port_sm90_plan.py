@@ -273,12 +273,39 @@ def test_packed_bf16_calls_take_sm90(path):
 
 @pytest.mark.parametrize("model", ["CubeNET", "UNET"])
 def test_packed_float32_and_legacy_flag_take_the_synchronous_body(model):
+    """Every float32 conv3x3_packed call of the UNET and CubeNET-64 steps (8
+    and 9, CubeNET-64's first conv through the float32 ingest buffer's
+    1,024-byte pixels) takes the float32 Hopper body; sm90=False (the
+    wrappers' `_legacy`) sends them, and their bf16 forms, to the
+    synchronous one."""
     calls = [c for c in chip_smoke.training_calls(model, ingest=model == "CubeNET", dtype="f32")
              if c["kernel"] == "conv3x3_packed"]
     assert len(calls) == (9 if model == "CubeNET" else 8)
-    assert {_packed_plan(call).path for call in calls} == {"legacy"}
+    plans = [_packed_plan(call) for call in calls]
+    assert {p.path for p in plans} == {"sm90"}
+    assert {(p.stages, p.smem) for p in plans} == {
+        (sm90_plan.K1F_HSTAGES, sm90_plan.k1f_smem_bytes(sm90_plan.K1F_MAX_WSTAGES))}
+    assert {_packed_plan(call, sm90=False).path for call in calls} == {"legacy"}
     bf16 = [dict(call, dtype="bf16") for call in calls]
     assert {_packed_plan(call, sm90=False).path for call in bf16} == {"legacy"}
+
+
+@pytest.mark.parametrize("case", [
+    dict(c=238, o=64, xp=238),                   # unframed C = 238: 952-byte pixels
+    dict(c=66, o=64, xp=66),                     # a pitch not a multiple of 4: 264 bytes
+    dict(c=320, o=64, xp=320),                   # past the prologue's affine buffer
+    dict(c=64, o=64, xp=64, aligned=False),      # origin off 16 bytes
+    dict(c=64, o=63, xp=64),                     # odd O: no channel pairs
+    dict(c=64, o=64, xp=64, bwd=True, r_pitch=65),
+])
+def test_packed_float32_legacy_cases(case):
+    """Float32 layouts the Hopper body does not take stay on the synchronous
+    one."""
+    plan = sm90_plan.packed_plan(2, 37, 53, case["c"], case["o"], torch.float32, case["xp"],
+                                 bwd=case.get("bwd", False), aligned=case.get("aligned", True),
+                                 r_pitch=case.get("r_pitch"))
+    assert plan.path == "legacy" and plan.stages == plan.w_stages == 0
+    assert plan.o_units == 1 and plan.partial_rows == 2 * 5 * 2
 
 
 @pytest.mark.parametrize("case", [
@@ -338,12 +365,48 @@ def test_packed_walk_covers_every_tile_once(shape):
     per tile, whatever the unit size."""
     n, h, w, c, o, xp, bwd = shape
     plan = sm90_plan.packed_plan(n, h, w, c, o, torch.bfloat16, xp, bwd=bwd)
-    tiles = [(i, ty, tx) for i in range(n) for ty in range(-(-h // 8)) for tx in range(-(-w // 32))]
+    tiles = [(i, ty, tx, 0) for i in range(n) for ty in range(-(-h // 8))
+             for tx in range(-(-w // 32))]
     assert plan.partial_rows == len(tiles)
     assert plan.units == n * -(-h // plan.tile_rows) * -(-w // 32)
     assert plan.grid == (min(plan.units, sm90_plan.SMS), 1, 1)
     walked = [t for b in range(plan.grid[0]) for t in sm90_plan.packed_tiles(plan, n, h, w, b)]
     assert sorted(walked) == tiles
+    assert all(sm90_plan.packed_tiles(plan, n, h, w, b) for b in range(plan.grid[0]))
+
+
+@pytest.mark.parametrize("shape", _PACKED_SHAPES)
+def test_packed_float32_plans_fit_shared_memory(shape):
+    """The float32 Hopper plan (k1f_smem_bytes, mirroring the kernel's sum)
+    fits an H100 block with the deepest weight ring that fits beside two
+    halo stages; it takes one unit a tile and O tile of 64 (two at 128
+    outputs) and streams its weights."""
+    n, h, w, c, o, xp, bwd = shape
+    plan = sm90_plan.packed_plan(n, h, w, c, o, torch.float32, xp, bwd=bwd)
+    assert plan.path == "sm90" and plan.tile_o == (64 if o <= 64 else 128)
+    assert (plan.tile_rows, plan.o_units, plan.resident) == (8, plan.tile_o // 64, False)
+    assert plan.stages == sm90_plan.K1F_HSTAGES
+    assert plan.smem == sm90_plan.k1f_smem_bytes(plan.w_stages) <= sm90_plan.SMEM_LIMIT
+    deeper = sm90_plan.k1f_smem_bytes(plan.w_stages + 1)
+    assert plan.w_stages == sm90_plan.K1F_MAX_WSTAGES or deeper > sm90_plan.SMEM_LIMIT
+    # the halo ring, the weight ring, both sums of 8 warps, the affine, barriers
+    assert plan.smem == (1024 + plan.stages * sm90_plan.HALO_SLOT + plan.w_stages * 16384
+                         + 2 * 8 * 64 * 4 + 2 * 256 * 4 + (3 * plan.stages + 2 * plan.w_stages) * 8)
+
+
+@pytest.mark.parametrize("shape", _PACKED_SHAPES)
+def test_packed_float32_walk_covers_every_unit_once(shape):
+    """The float32 body's persistent blocks walk every (8x32 tile, O tile of
+    64) unit exactly once, and the sums' partial buffer has one row per
+    tile."""
+    n, h, w, c, o, xp, bwd = shape
+    plan = sm90_plan.packed_plan(n, h, w, c, o, torch.float32, xp, bwd=bwd)
+    units = [(i, ty, tx, ot) for i in range(n) for ty in range(-(-h // 8))
+             for tx in range(-(-w // 32)) for ot in range(plan.o_units)]
+    assert plan.partial_rows == len(units) // plan.o_units
+    assert plan.units == len(units) and plan.grid == (min(plan.units, sm90_plan.SMS), 1, 1)
+    walked = [t for b in range(plan.grid[0]) for t in sm90_plan.packed_tiles(plan, n, h, w, b)]
+    assert sorted(walked) == units
     assert all(sm90_plan.packed_tiles(plan, n, h, w, b) for b in range(plan.grid[0]))
 
 
@@ -397,3 +460,27 @@ def test_split_weights_plain_version_is_the_k_major_planes():
             assert torch.equal(planes[1, 3 * dh + dw], lo)
     with pytest.raises(ValueError, match="float32"):
         split_weights_tf32(w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("c", [61, 238])
+def test_split_weights_with_a_chunk_pitch_matches_the_numpy_emulation(c):
+    """The split that conv3x3_packed's float32 body runs first, with the
+    channel pitch of whole 32-channel chunks (64 for C = 61, 256 for C =
+    238: a 952-byte plane row is no TMA stride), on CPU tensors (its plain
+    version): hi and lo bit for bit the numpy emulation of cvt.rna.tf32 at
+    [tap][o][c], zero from C to the pitch."""
+    rng = np.random.default_rng(c)
+    o = 24
+    w = (rng.normal(size=(3, 3, c, o)) * np.exp2(rng.integers(-20, 20, size=(3, 3, c, o)))
+         ).astype(np.float32)
+    pitch = -(-c // 32) * 32
+    planes = split_weights_tf32(torch.from_numpy(w), pitch).numpy()
+    assert planes.shape == (2, 9, o, pitch) and planes.dtype == np.float32
+    k_major = w.reshape(9, c, o).transpose(0, 2, 1)
+    want_hi = _rna_tf32_numpy(k_major)
+    want_lo = _rna_tf32_numpy((k_major - want_hi).astype(np.float32))
+    assert np.array_equal(planes[0, :, :, :c].view(np.uint32), want_hi.view(np.uint32))
+    assert np.array_equal(planes[1, :, :, :c], want_lo)
+    assert not planes[:, :, :, c:].any()
+    with pytest.raises(ValueError, match="pitch"):
+        split_weights_tf32(torch.from_numpy(w), c - 1)
