@@ -22,9 +22,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
       chunks, bit for bit against its plain version);
       the kernels on no model path too: the weight
       gradient's fold mode (every framing, its dW bit-equal to the non-fold
-      synchronous kernel on the materialized g_eff), the shift conv, the dh-fold probe's
-      two kernels at the probe's shapes and the eight Mosaic-op kernels
-      (exactly);
+      synchronous kernel on the materialized g_eff), the shift conv (at the
+      ragged shapes and every conv3x3_bias_act call shape of the paths, bf16
+      x also written as float32; its Hopper body, "sm90", wherever TMA can
+      address x and the weights, C = 238 and 61 on the synchronous one, each
+      check's body held against its plan and each Hopper call against the
+      synchronous body, within one bf16 ulp or 2e-5 of |terms|), the dh-fold
+      probe's two kernels at the probe's shapes and the eight Mosaic-op
+      kernels (exactly);
   (d) serving: CubeNET-64 answering two full-resolution 608x968x238 bf16 cubes
       through the folded, kernel-routed model, with the launch count read
       around that run and the
@@ -44,13 +49,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
       call of a training step and of a serving forward beside its bound, its
       plain version and one library call (float32 convs also with cuDNN's TF32
       on, and with cudnn.benchmark on, labelled; conv3x3_packed calls and
-      float32 conv3x3_bias_act and conv3x3_wgrad calls also on the
-      synchronous body); the serving forward and the training
+      float32 conv3x3_bias_act and conv3x3_wgrad calls and the shift conv's
+      also on the synchronous body); the serving forward and the training
       step with kernels on and off; peak memory of a step; the element probe
       beside one PyTorch op; the kernels on no model path (the weight
       gradient's fold mode at the step's conv3x3_wgrad calls, the shift conv
-      at its conv3x3_bias_act calls, bf16 and float32; the dh-fold probe's two
-      kernels; the eight Mosaic-op kernels);
+      at its conv3x3_bias_act calls, beside the halo kernel on the same
+      inputs: bf16 at the product-loop step's, float32 at the UNET and the
+      CubeNET-64 step's; the dh-fold probe's two kernels; the eight
+      Mosaic-op kernels);
   (l) the fold mode against today's route at each conv3x3_wgrad call of one
       bf16 product-loop step and one CubeNET-64 float32 step, in turns: g_eff
       materialized, then dW and db, against dW and db from the raw cotangent
@@ -115,6 +122,9 @@ PEAK_TF32_FLOPS = 494.7e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# The conv kernels with two bodies, "sm90" and "legacy", chosen by their plans
+# (hyperpri_tpu_torch/ops/kernels/sm90_plan.py).
+BODIES = ("conv3x3_packed", "conv3x3_bias_act", "conv3x3_wgrad", "conv3x3_bias_act_shift")
 
 H, W, D = 608, 968, 238
 N_REQUESTS = 2
@@ -508,6 +518,7 @@ class Case:
         pixels = n * h * w
         self.peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS
         self.kwargs = {}
+        self.out_dtype = dt
         self.out_view = lambda t: t
         self.library_tf32 = None
         if kernel == "max_pool_2x2_bwd":
@@ -536,7 +547,10 @@ class Case:
             x, wk, b = conv_inputs(shape, o, gen, dt)
             self.fn = conv3x3_shift.conv3x3_bias_act_shift
             self.ref = conv3x3_shift.conv3x3_bias_act_shift_reference
-            self.args, self.kwargs = (x, wk, b), dict(relu=mode == "relu")
+            # "conv+f32out": bf16 x written as float32
+            self.out_dtype = torch.float32 if mode.endswith("f32out") else dt
+            self.args = (x, wk, b)
+            self.kwargs = dict(relu=mode == "relu", out_dtype=self.out_dtype)
             w_oihw = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             x_cl, b_dt = x.permute(0, 3, 1, 2), b.to(dt)
             self.library = lambda: F.conv2d(x_cl, w_oihw, b_dt, padding=1)
@@ -673,14 +687,18 @@ class Case:
 
     def body(self) -> str:
         """The kernel body ("sm90" or "legacy") a conv3x3_packed,
-        conv3x3_bias_act or conv3x3_wgrad call takes, by its plan."""
-        from hyperpri_tpu_torch.ops.kernels import sm90_plan
+        conv3x3_bias_act, conv3x3_wgrad or conv3x3_bias_act_shift call takes,
+        by its plan."""
+        from hyperpri_tpu_torch.ops.kernels import conv3x3_shift, sm90_plan
         from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import call_plan
 
         kernel = self.call["kernel"]
         if kernel == "conv3x3_packed":
             x, wk, _, pa, _, r = self.args
             return call_plan(x, wk, pa, r, **self.kwargs).path
+        if kernel == "conv3x3_bias_act_shift":
+            x, wk, _ = self.args
+            return conv3x3_shift.call_plan(x, wk.to(x.dtype).contiguous()).path
         n, h, w, c = self.call["shape"]
         x, other = self.args[:2]   # (x, w) or (x, g), as the wrapper sees them
         aligned = x.data_ptr() % 16 == 0 and other.data_ptr() % 16 == 0
@@ -689,20 +707,25 @@ class Case:
         return sm90_plan.wgrad_plan(n, h, w, c, self.call["o"], self.dtype, x.shape[-1],
                                     other.shape[-1], False, aligned).path
 
-    def versus_legacy(self) -> float:
-        """A float32 Hopper call against the synchronous body on the same
-        inputs (`_legacy=True`): the largest difference of the main output
-        over the sum of the absolute values of its terms."""
+    def versus_legacy(self):
+        """A Hopper call against the synchronous body on the same inputs
+        (`_legacy=True`) -> (error, limit): a bf16 main output in bf16 ulps
+        of max(|a|, |b|, 2**-6), limit 1; a float32 one (or dW) as its
+        largest difference over the sum of the absolute values of its terms,
+        limit SUM_REL."""
         out = self.run()
         sync = self.fn(*self.args, _legacy=True, **self.kwargs)
         if self.call["kernel"] == "conv3x3_wgrad":
             x, g, pa, pb = self.args
             scale = self.ref(x.abs() if pa is None else x, g.abs(), pa, pb, **self.kwargs)
         else:
-            scale = self.abs_terms()
             out, sync = (t[0] if isinstance(t, tuple) else t for t in (out, sync))
+            if out.dtype == torch.bfloat16:
+                torch.cuda.synchronize()
+                return bf16_ulp_error(out, sync)[0], 1.0
+            scale = self.abs_terms()
         torch.cuda.synchronize()
-        return sum_error(out, sync, scale)
+        return sum_error(out, sync, scale), SUM_REL
 
     def plain(self):
         return self.ref(*self.args, **self.kwargs)
@@ -713,7 +736,7 @@ class Case:
         sum of the absolute values of its terms."""
         if self.call["kernel"] == "conv3x3_bias_act_shift":
             x, wk, b = self.args
-            return self.ref(x.abs(), wk.abs(), b.abs(), relu=False)
+            return self.ref(x.abs(), wk.abs(), b.abs(), relu=False, out_dtype=self.out_dtype)
         x, wk, b, pa, pb = self.args[:5]
         prologue = pa is not None and self.call["mode"] != "bwd_x"
         out = self.ref(x if prologue else x.abs(), wk.abs(), b.abs(), pa, pb, *self.args[5:],
@@ -753,11 +776,11 @@ class Case:
         sums = ref_sums = None
         if isinstance(out, tuple):
             (out, sums), (ref, ref_sums) = out, ref
-        check(out.shape == ref.shape and out.dtype == self.dtype,
+        check(out.shape == ref.shape and out.dtype == self.out_dtype,
               f"{self.label()}: output {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(out).all()), f"{self.label()}: non-finite output")
         terms, rel_out = None, 0.0
-        if self.dtype == torch.bfloat16:
+        if self.out_dtype == torch.bfloat16:
             ulps, abs_err = bf16_ulp_error(out, ref)
             check(ulps <= 1.0, f"{self.label()}: {ulps} bf16 ulp > 1")
         else:
@@ -861,23 +884,34 @@ def phase_kernel_check(calls):
                for shape, o in RAGGED_FRAMED for mode, flags in FOLD_FRAMED]
     ragged += [dict(kernel="conv3x3_bias_act_shift", mode=mode, shape=shape, o=o)
                for shape, o in RAGGED_CONV for mode in ("relu", "conv")]
+    # the shift conv at every conv3x3_bias_act call shape of the paths (once a
+    # dtype), and bf16 x written as float32 at the ragged shapes
+    shift = {}
+    for call in unrouted_calls(calls):
+        if call["kernel"] == "conv3x3_bias_act_shift":
+            shift.setdefault((call["dtype"], call["shape"], call["o"]),
+                             dict(call, count=1, layers=[call["layer"]]))
+    shift_f32out = [dict(kernel="conv3x3_bias_act_shift", mode="conv+f32out", shape=shape, o=o,
+                         path="ragged", layer="ragged", dtype="bf16") for shape, o in RAGGED_CONV]
     ragged += [dict(kernel="conv3x3_packed", mode=mode, framing=flags, shape=shape, o=o)
                for shape, o in PACKED_SM90_RAGGED for mode, flags in PACKED_SM90_MODES]
     errors = {}   # {(kernel, dtype): [max abs error, max sums rel error]}
-    for call in distinct(calls) + [dict(c, path="ragged", layer="ragged", dtype=dtype)
-                                   for dtype in DTYPES for c in ragged]:
+    for call in (distinct(calls) + list(shift.values()) + shift_f32out
+                 + [dict(c, path="ragged", layer="ragged", dtype=dtype)
+                    for dtype in DTYPES for c in ragged]):
         case = Case(call, gen)
         before = dict(getattr(case.fn, "launches_by_path", {}))
         abs_err, rel = case.verify()
         body = ""
-        if call["kernel"] in ("conv3x3_packed", "conv3x3_bias_act", "conv3x3_wgrad"):
+        if call["kernel"] in BODIES:
             # every launch of the check took the body the plan names
             body = case.body()
             taken = {k for k, v in case.fn.launches_by_path.items() if v != before.get(k, 0)}
             check(taken == {body}, f"{case.label()}: launched {taken}, the plan says {body}")
-            if call["dtype"] == "f32" and body == "sm90":
-                vs = case.versus_legacy()
-                check(vs <= SUM_REL, f"{case.label()}: {vs} of |terms| off the synchronous body")
+            if body == "sm90" and (call["dtype"] == "f32"
+                                   or call["kernel"] == "conv3x3_bias_act_shift"):
+                vs, limit = case.versus_legacy()
+                check(vs <= limit, f"{case.label()}: {vs} (limit {limit}) off the synchronous body")
                 body += f", vs synchronous {vs:.2e}"
             body = f" [{body}]"
         print(f"{case.label()}{body}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e}")
@@ -1396,7 +1430,7 @@ def phase_times(calls, card):
                      "library_tf32_ms": library_tf32_ms,
                      "library_benchmark_ms": library_bench_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
-        if (call["kernel"] == "conv3x3_packed"
+        if (call["kernel"] in ("conv3x3_packed", "conv3x3_bias_act_shift")
                 or (call["kernel"] in ("conv3x3_bias_act", "conv3x3_wgrad")
                     and call["dtype"] == "f32")):
             # the body the plan chose, and the synchronous body on the same call
@@ -1409,7 +1443,8 @@ def phase_times(calls, card):
             # the halo kernel (kernel 2) on the same inputs in the same mode
             from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act
 
-            rows[-1]["halo_ms"] = cuda_ms(lambda: conv3x3_bias_act(*case.args, **case.kwargs))
+            rows[-1]["halo_ms"] = cuda_ms(lambda: conv3x3_bias_act(
+                *case.args, relu=case.kwargs["relu"]))
             print(f"  the halo kernel on the same inputs: {rows[-1]['halo_ms']:.4f} ms")
         rate = (f"{case.flops / ms / 1e9:6.1f} TFLOP/s" if call["kernel"] != "max_pool_2x2_bwd"
                 else f"{case.nbytes / ms / 1e9:6.3f} TB/s")
@@ -1929,11 +1964,14 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     bounds the larger share), the float32 ones at the TF32 tensor rate.
     legacy_ms sums the same calls on the synchronous body where
     phase f timed it (conv3x3_packed, float32 conv3x3_bias_act and
-    conv3x3_wgrad), else null. The fold mode of the weight gradient and the shift conv are
-    on no path (launches 0): their numbers are summed over the conv3x3_wgrad
-    and conv3x3_bias_act calls of one product-loop step (bf16) and of one
-    CubeNET-64 float32 step, and no single PyTorch call computes the fold
-    mode's (dW, db). The probes are no part of a path either (launches 0):
+    conv3x3_wgrad, the shift conv), else null; times_by_path holds these
+    sums by path, and for the shift conv halo_ms, the halo kernel on the
+    same inputs. The fold mode of the weight
+    gradient and the shift conv are on no path (launches 0): their numbers
+    are summed over the conv3x3_wgrad and conv3x3_bias_act calls of one
+    product-loop step (bf16) and of one UNET and one CubeNET-64 float32 step
+    (times_by_path splits them), and no single PyTorch call computes the
+    fold mode's (dW, db). The probes are no part of a path either (launches 0):
     the element probe is one call at 2x608x968x64, each dh-fold kernel one
     call at the probe's 2x610x1032 buffers, the Mosaic ops one call of each
     of the eight."""
@@ -1954,7 +1992,8 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                 one = times_by_path.setdefault(r["path"], {"ms": 0.0, "plain_ms": 0.0,
                                                            "library_ms": 0.0,
                                                            "library_tf32_ms": 0.0,
-                                                           "library_benchmark_ms": 0.0})
+                                                           "library_benchmark_ms": 0.0,
+                                                           "legacy_ms": 0.0, "halo_ms": 0.0})
                 for key in one:
                     one[key] = (None if one[key] is None or r.get(key) is None
                                 else one[key] + r[key] * r["count"])
@@ -2006,7 +2045,8 @@ def main():
     training_launches, training_framings, step_ms, peak, step, batch = phase_training(
         train_calls)
     rows = phase_times(serve_calls + loop_calls + unet_calls + cube32_calls
-                       + unrouted_calls(loop_calls) + unrouted_calls(cube32_calls), card)
+                       + unrouted_calls(loop_calls) + unrouted_calls(unet_calls)
+                       + unrouted_calls(cube32_calls), card)
     fold_ab = phase_fold_ab({"bf16": loop_calls, "f32": cube32_calls})
     phase_profile(step, batch)
     del step, batch

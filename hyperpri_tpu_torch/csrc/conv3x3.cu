@@ -66,7 +66,8 @@
 // shape in 3xTF32 (conv3x3_sm90.cuh):
 //   - the tf32 wgmma (m64n64k8) takes B from shared memory only K-major, so
 //     the weights are first split by split_weights_tf32_kernel
-//     (conv3x3_sm90.cuh, shared with conv3x3_packed's float32 body) into two
+//     (conv3x3_sm90.cuh, shared with conv3x3_packed's and the shift conv's
+//     float32 bodies) into two
 //     planes (2, 9, O, C), hi and lo, the input channels contiguous; TMA
 //     loads a (tap, 32-channel chunk) slice of 64 outputs from each plane
 //     (16 KiB) into a ring of up to 8 stages;
@@ -119,9 +120,8 @@ constexpr int K2_THREADS = K2_CONSUMERS + 128;  // and the producer warpgroup
 constexpr int K2_PRODUCER_REGS = 40;           // setmaxnreg: 128*40 + 256*232 <= 64K
 constexpr int K2_CONSUMER_REGS = 232;
 constexpr int K2_PROLOGUE_THREADS = 96;        // the producer warpgroup's other warps
-constexpr int K2_N = 128;                      // output channels of one pass (O tile)
-constexpr int K2_WSTAGE = conv3x3::sm90::CHUNK * 2 * K2_N;  // one (O tile, chunk, tap) slice
-constexpr int K2_WBOX = K2_WSTAGE / 2;  // its TMA box: 64 input x 64 output channels
+constexpr int K2_N = conv3x3::sm90::BF16_N;    // output channels of one pass (O tile)
+constexpr int K2_WSTAGE = conv3x3::sm90::BF16_WSTAGE;  // one (O tile, chunk, tap) slice
 constexpr int K2_MAX_CHUNKS = 4;               // C <= 256: the halo stays resident
 constexpr int K2_RED_FLOATS = conv3x3::TH * K2_N;  // one statistic of the 8 warps
 static_assert(K2_RED_FLOATS >= 2 * K2_MAX_CHUNKS * 64, "the affine fits the statistics buffer");
@@ -219,11 +219,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
         const int s = it % d.stages;
         mbar_wait(w_empty(s), ((it / d.stages) & 1) ^ 1);
         mbar_expect_tx(w_full(s), K2_WSTAGE);
-        // w[tap][c][o]: 64 rows (c) of 64 outputs per box, two boxes a slice
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-          tma_load_3d(ring + s * K2_WSTAGE + half * K2_WBOX, &wmap, w_full(s),
-                      ot * K2_N + half * (K2_N / 2), ch * CHUNK, tap);
+        load_slice_bf16(ring + s * K2_WSTAGE, &wmap, w_full(s), ot * K2_N, ch * CHUNK, tap);
       }
     }
   } else {
@@ -244,76 +240,17 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
         if (ot == 0) mbar_wait(prologue ? halo_ready(ch) : halo_full(ch), 0);
 #pragma unroll 1
         for (int tap = 0; tap < 9; ++tap, ++it) {
-          const int dh = tap / 3;
-          const int dw = tap % 3;
           const int s = it % d.stages;
-          // A: the 16 pixels of this warp's row in each 16-column half,
-          // shifted by the tap, 64 channels as four k16 steps.
-          uint32_t a[2][4][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const int p = (wrow + dh) * HALO_W + mt * 16 + dw + (lane & 15);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[mt][kk], swizzled(halo, p, kk * 2 + (lane >> 4)));
-          }
-          mbar_wait(w_full(s), (it / d.stages) & 1);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            // B: 16 rows (c) of the slice's two 64-output boxes
-            const uint64_t desc = desc_sw128(ring + s * K2_WSTAGE + kk * 16 * BOX_ROW, K2_WBOX,
-                                             1024);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) wgmma_m64n128k16_rs_tb(acc[mt], a[mt][kk], desc);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            fence_regs(acc[mt]);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) fence_regs(a[mt][kk]);
-          }
+          tap_bf16(acc, halo, wrow, tap / 3, tap % 3, ring + s * K2_WSTAGE, w_full(s),
+                   (it / d.stages) & 1, lane);
           if (lane == 0) mbar_arrive(w_empty(s));
         }
       }
 
-      // Epilogue of O tile ot. Accumulator element i of m-tile mt is pixel
-      // column w0 + mt*16 + g + 8*((i%4)/2) of row oh, output channel
-      // o0 + 8*(i/4) + 2q + i%2 (the m16n8 layout of each 8-column block).
+      // Epilogue of O tile ot (store_tile: O % 8 == 0, so channel pairs).
       const int o0 = ot * K2_N;
-      const bool pairs = (d.O & 1) == 0;
-      __nv_bfloat16* const yn = y + static_cast<size_t>(n) * d.H * d.W * d.O;
-      if (oh < d.H) {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int ow = w0 + mt * 16 + g + half * 8;
-            if (ow >= d.W) continue;
-            __nv_bfloat16* yp = yn + static_cast<size_t>(oh * d.W + ow) * d.O;
-#pragma unroll
-            for (int nb = 0; nb < K2_N / 8; ++nb) {
-              const int o = o0 + nb * 8 + 2 * q;
-              if (o >= d.O) continue;
-              float v0 = acc[mt][nb * 4 + half * 2] + bias[o];
-              if (d.relu) v0 = fmaxf(v0, 0.0f);
-              if (pairs) {
-                float v1 = acc[mt][nb * 4 + half * 2 + 1] + bias[o + 1];
-                if (d.relu) v1 = fmaxf(v1, 0.0f);
-                store_pair(yp + o, v0, v1);
-              } else {
-                yp[o] = __float2bfloat16_rn(v0);
-                if (o + 1 < d.O) {
-                  float v1 = acc[mt][nb * 4 + half * 2 + 1] + bias[o + 1];
-                  if (d.relu) v1 = fmaxf(v1, 0.0f);
-                  yp[o + 1] = __float2bfloat16_rn(v1);
-                }
-              }
-            }
-          }
-        }
-      }
+      store_tile<__nv_bfloat16, K2_N>(acc, y + static_cast<size_t>(n) * d.H * d.W * d.O, bias,
+                                      oh, w0, o0, d.H, d.W, d.O, d.relu, lane);
       if (d.mode == MODE_STATS) {
         // sum(v) then sum(v*v), v = acc + bias unrounded: each thread's four
         // pixels, the eight lanes of a channel pair by shuffles, the eight
@@ -379,14 +316,8 @@ int bias_act_sm90(const void* x, const void* w, const void* b, void* y, const vo
       (mode == MODE_STATS && (partial_rows != rows || partial == nullptr || sums == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap, wmap;
-  // w (3, 3, C, O) as dims (O, C, 9): the output channels contiguous, zero
-  // past O and C
-  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(O), static_cast<cuuint64_t>(C), 9};
-  const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(O) * 2,
-                                  static_cast<cuuint64_t>(O) * C * 2};
-  const cuuint32_t wbox[3] = {K2_N / 2, static_cast<cuuint32_t>(sm90::CHUNK), 1};
   if (!sm90::nhwc_map(&xmap, x, unframed(H, W, C), N, H, W, C, HALO_W, TH + 2) ||
-      !sm90::encode_bf16(&wmap, w, 3, wdims, wstrides, wbox))
+      !sm90::weight_map_bf16(&wmap, w, C, O))
     return static_cast<int>(cudaErrorInvalidValue);
   const Sm90Dims d{H, W, C, O, OP, n_chunks, n_otiles, relu, mode, stages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -409,7 +340,6 @@ int bias_act_sm90(const void* x, const void* w, const void* b, void* y, const vo
 
 using conv3x3::sm90::F32_CHUNK;
 using conv3x3::sm90::F32_GROUP;
-using conv3x3::sm90::F32_UNITS;
 using conv3x3::sm90::F32_WSTAGE;
 
 constexpr int K2F_N = conv3x3::sm90::F32_N;        // output channels of one pass (O tile)
@@ -510,11 +440,7 @@ conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
         const int s = it % d.stages;
         mbar_wait(w_empty(s), ((it / d.stages) & 1) ^ 1);
         mbar_expect_tx(w_full(s), F32_WSTAGE);
-        // planes (2, 9, O, C): 64 output rows of 32 channels per box
-#pragma unroll
-        for (int plane = 0; plane < 2; ++plane)
-          tma_load_4d(ring + s * F32_WSTAGE + plane * conv3x3::sm90::F32_PLANE, &wmap, w_full(s),
-                      ch * F32_CHUNK, ot * K2F_N, tap, plane);
+        load_slice_f32(ring + s * F32_WSTAGE, &wmap, w_full(s), ot * K2F_N, ch * F32_CHUNK, tap);
       }
     }
   } else {
@@ -545,64 +471,20 @@ conv3x3_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_wait(prologue ? halo_ready(hs) : halo_full(hs), (f / K2F_HSTAGES) & 1);
 #pragma unroll 1
         for (int tap = 0; tap < 9; ++tap, ++it) {
-          const int dh = tap / 3;
-          const int dw = tap % 3;
           const int s = it % d.stages;
-          const uint32_t stage = ring + s * F32_WSTAGE;
-#pragma unroll
-          for (int unit = 0; unit < F32_UNITS; ++unit) {
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              load_a_f32(a_hi[mt], a_lo[mt], halo, wrow, dh, dw, mt, unit, lane);
-            if (unit == 0) mbar_wait(w_full(s), (it / d.stages) & 1);
-            wgmma_fence();
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) chain_f32(frag[mt], a_hi[mt], a_lo[mt], stage, unit);
-            wgmma_commit();
-            wgmma_wait<0>();
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              fence_regs(frag[mt]);
-              fence_a(a_hi[mt]);
-              fence_a(a_lo[mt]);
-              add_fragment(acc[mt], frag[mt]);
-            }
-            if (unit == F32_UNITS - 1 && lane == 0) {
-              mbar_arrive(w_empty(s));
-              if (tap == 8) mbar_arrive(halo_empty(hs));
-            }
+          tap_f32(acc, frag, a_hi, a_lo, halo, wrow, tap / 3, tap % 3, ring + s * F32_WSTAGE,
+                  w_full(s), (it / d.stages) & 1, lane);
+          if (lane == 0) {
+            mbar_arrive(w_empty(s));
+            if (tap == 8) mbar_arrive(halo_empty(hs));
           }
         }
       }
 
-      // Epilogue of O tile ot. Accumulator element i of m-tile mt is pixel
-      // column w0 + mt*16 + g + 8*((i%4)/2) of row oh, output channel
-      // o0 + 8*(i/4) + 2q + i%2.
+      // Epilogue of O tile ot (store_tile: O % 4 == 0, so channel pairs).
       const int o0 = ot * K2F_N;
-      float* const yn = y + static_cast<size_t>(n) * d.H * d.W * d.O;
-      if (oh < d.H) {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int ow = w0 + mt * 16 + g + half * 8;
-            if (ow >= d.W) continue;
-            float* yp = yn + static_cast<size_t>(oh * d.W + ow) * d.O;
-#pragma unroll
-            for (int nb = 0; nb < K2F_N / 8; ++nb) {
-              const int o = o0 + nb * 8 + 2 * q;
-              if (o >= d.O) continue;  // O is even: o + 1 < O too
-              float v0 = acc[mt][nb * 4 + half * 2] + bias[o];
-              float v1 = acc[mt][nb * 4 + half * 2 + 1] + bias[o + 1];
-              if (d.relu) {
-                v0 = fmaxf(v0, 0.0f);
-                v1 = fmaxf(v1, 0.0f);
-              }
-              store_pair(yp + o, v0, v1);
-            }
-          }
-        }
-      }
+      store_tile<float, K2F_N>(acc, y + static_cast<size_t>(n) * d.H * d.W * d.O, bias, oh, w0,
+                               o0, d.H, d.W, d.O, d.relu, lane);
       if (d.mode == MODE_STATS) {
         // sum(v) then sum(v*v), v = acc + bias: each thread's four pixels,
         // the eight lanes of a channel pair by shuffles, the eight warps in
@@ -673,15 +555,8 @@ int bias_act_sm90_f32(const void* x, const void* w, void* planes, const void* b,
                                              static_cast<float*>(planes), C, O, C, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap xmap, wmap;
-  // planes (2, 9, O, C) as dims (C, O, 9, 2): the input channels contiguous
-  // (K-major), zero past C and O
-  const cuuint64_t wdims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(O), 9, 2};
-  const cuuint64_t wstrides[3] = {static_cast<cuuint64_t>(C) * 4,
-                                  static_cast<cuuint64_t>(O) * C * 4,
-                                  static_cast<cuuint64_t>(9) * O * C * 4};
-  const cuuint32_t wbox[4] = {static_cast<cuuint32_t>(F32_CHUNK), K2F_N, 1, 1};
   if (!sm90::nhwc_map_f32(&xmap, x, unframed(H, W, C), N, H, W, C, HALO_W, TH + 2) ||
-      !sm90::encode_f32(&wmap, planes, 4, wdims, wstrides, wbox))
+      !sm90::planes_map_f32(&wmap, planes, C, O))
     return static_cast<int>(cudaErrorInvalidValue);
   const Sm90Dims d{H, W, C, O, OP, n_chunks, n_otiles, relu, mode, stages};
   auto* part = static_cast<float*>(partial);

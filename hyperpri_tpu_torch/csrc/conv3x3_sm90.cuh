@@ -2,8 +2,10 @@
 // H100: conv3x3_packed_sm90_kernel and conv3x3_packed_sm90_f32_kernel
 // (conv3x3_packed.cu, conv3x3_packed, bf16 and float32),
 // conv3x3_sm90_kernel and conv3x3_sm90_f32_kernel (conv3x3.cu,
-// conv3x3_bias_act, bf16 and float32) and conv3x3_wgrad_sm90_kernel and
-// conv3x3_wgrad_sm90_f32_kernel (conv3x3_grad.cu, conv3x3_wgrad).
+// conv3x3_bias_act, bf16 and float32), conv3x3_wgrad_sm90_kernel and
+// conv3x3_wgrad_sm90_f32_kernel (conv3x3_grad.cu, conv3x3_wgrad) and
+// conv3x3_shift_sm90_kernel and conv3x3_shift_sm90_f32_kernel
+// (conv3x3_shift.cu, conv3x3_bias_act_shift, bf16 and float32).
 //
 //   - Staging is asynchronous: one thread keeps TMA loads
 //     (cp.async.bulk.tensor) in flight into a ring of shared-memory stages,
@@ -392,6 +394,135 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
   for (int j = 0; j < K; ++j) fence_regs(a[j]);
 }
 
+// One tap of a float32 forward conv whose warp r computes output row r (two
+// m-tiles of 16 pixels): A from the staged 32-channel box `box` (load_a_f32;
+// a dh band is a box of rows wrow + 0), wait for the weight slice at `stage`
+// (its full barrier `full` in phase `parity`), one chain a K-step group and
+// m-tile into a fresh fragment, waited for, then added to the accumulators.
+// The caller declares the fragments and A registers, and releases the stage.
+__device__ __forceinline__ void tap_f32(float (&acc)[2][32], float (&frag)[2][32],
+                                        uint32_t (&a_hi)[2][F32_GROUP][4],
+                                        uint32_t (&a_lo)[2][F32_GROUP][4], uint32_t box,
+                                        int wrow, int dh, int dw, uint32_t stage, uint32_t full,
+                                        uint32_t parity, int lane) {
+#pragma unroll
+  for (int unit = 0; unit < F32_UNITS; ++unit) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) load_a_f32(a_hi[mt], a_lo[mt], box, wrow, dh, dw, mt, unit, lane);
+    if (unit == 0) mbar_wait(full, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) chain_f32(frag[mt], a_hi[mt], a_lo[mt], stage, unit);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      fence_regs(frag[mt]);
+      fence_a(a_hi[mt]);
+      fence_a(a_lo[mt]);
+      add_fragment(acc[mt], frag[mt]);
+    }
+  }
+}
+
+// TMA load of the (tap, 32-channel chunk) slice of 64 outputs from o0 of
+// the planes (2, 9, O, C) into `dst`: the hi plane, then the lo plane.
+__device__ __forceinline__ void load_slice_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int o0, int c0, int tap) {
+#pragma unroll
+  for (int plane = 0; plane < 2; ++plane)
+    tma_load_4d(dst + plane * F32_PLANE, map, bar, c0, o0, tap, plane);
+}
+
+// ---------------------------------------------------------------------------
+// Bf16 forward convs (conv3x3_sm90_kernel in conv3x3.cu,
+// conv3x3_shift_sm90_kernel in conv3x3_shift.cu): the A operand from a
+// staged 64-channel box of HALO_W-pixel rows, the B operand a (tap, chunk)
+// slice of 64 inputs x 128 outputs of w (3, 3, C, O) read in place.
+
+constexpr int BF16_N = 128;                      // output channels of a slice (O tile)
+constexpr int BF16_WSTAGE = CHUNK * 2 * BF16_N;  // one slice (16 KiB)
+constexpr int BF16_WBOX = BF16_WSTAGE / 2;       // its TMA box: 64 inputs x 64 outputs
+
+// TMA load of the (tap, 64-channel chunk) slice of 128 outputs from o0:
+// w[tap][c][o], 64 rows (c) of 64 outputs a box, two boxes.
+__device__ __forceinline__ void load_slice_bf16(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int o0, int c0, int tap) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+    tma_load_3d(dst + half * BF16_WBOX, map, bar, o0 + half * (BF16_N / 2), c0, tap);
+}
+
+// One tap of a bf16 forward conv whose warp r computes output row r: A, the
+// 16 pixels of this warp's row `wrow` in each 16-column half, shifted by the
+// tap (dh, dw), 64 channels as four k16 steps, by ldmatrix from the
+// swizzled box (a dh band is a box of rows wrow + 0); wait for the weight
+// slice at `stage` (its full barrier `full` in phase `parity`); acc += A * B
+// by eight wgmma m64n128k16, waited for. The caller releases the stage.
+__device__ __forceinline__ void tap_bf16(float (&acc)[2][64], uint32_t box, int wrow, int dh,
+                                         int dw, uint32_t stage, uint32_t full, uint32_t parity,
+                                         int lane) {
+  uint32_t a[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int p = (wrow + dh) * HALO_W + mt * 16 + dw + (lane & 15);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[mt][kk], swizzled(box, p, kk * 2 + (lane >> 4)));
+  }
+  mbar_wait(full, parity);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // B: 16 rows (c) of the slice's two 64-output boxes
+    const uint64_t desc = desc_sw128(stage + kk * 16 * BOX_ROW, BF16_WBOX, 1024);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) wgmma_m64n128k16_rs_tb(acc[mt], a[mt][kk], desc);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    fence_regs(acc[mt]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a[mt][kk]);
+  }
+}
+
+// Epilogue of one O tile of N outputs from o0 (O even), for output row oh of
+// image yn (H, W, O): accumulator element i of m-tile mt is pixel column
+// w0 + mt*16 + g + 8*((i%4)/2), output channel o0 + 8*(i/4) + 2q + i%2 (the
+// m16n8 layout of each 8-column block); v = acc + bias in float32, ReLU if
+// relu, rounded once to TO and stored as channel pairs.
+template <typename TO, int N>
+__device__ __forceinline__ void store_tile(const float (&acc)[2][N / 2], TO* yn,
+                                           const float* bias, int oh, int w0, int o0, int H,
+                                           int W, int O, int relu, int lane) {
+  if (oh >= H) return;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ow = w0 + mt * 16 + g + half * 8;
+      if (ow >= W) continue;
+      TO* yp = yn + static_cast<size_t>(oh * W + ow) * O;
+#pragma unroll
+      for (int nb = 0; nb < N / 8; ++nb) {
+        const int o = o0 + nb * 8 + 2 * q;
+        if (o >= O) continue;  // O is even: o + 1 < O too
+        float v0 = acc[mt][nb * 4 + half * 2] + bias[o];
+        float v1 = acc[mt][nb * 4 + half * 2 + 1] + bias[o + 1];
+        if (relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        store_pair(yp + o, v0, v1);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The prologue on a staged box, after it has landed
 
@@ -542,6 +673,29 @@ inline bool nhwc_map_f32(CUtensorMap* map, const void* buf, const Frame& f, int 
                              static_cast<cuuint32_t>(box_h), 1};
   const char* origin = static_cast<const char*>(buf) + image_offset(f, 0) * 4;
   return encode_f32(map, origin, 4, dims, strides, box);
+}
+
+// The map of bf16 weights w (3, 3, C, O), read in place, as dims (O, C, 9):
+// the output channels contiguous, zero past O and C; boxes of 64 outputs x
+// 64 input channels of one tap (load_slice_bf16).
+inline bool weight_map_bf16(CUtensorMap* map, const void* w, int C, int O) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(O), static_cast<cuuint64_t>(C), 9};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(O) * 2,
+                                 static_cast<cuuint64_t>(O) * C * 2};
+  const cuuint32_t box[3] = {BF16_N / 2, static_cast<cuuint32_t>(CHUNK), 1};
+  return encode_bf16(map, w, 3, dims, strides, box);
+}
+
+// The map of the TF32 planes (2, 9, O, C) of float32 weights as dims (C, O,
+// 9, 2): the input channels contiguous (K-major), zero past C and O; boxes
+// of 32 channels x 64 outputs of one tap and plane (load_slice_f32).
+inline bool planes_map_f32(CUtensorMap* map, const void* planes, int C, int O) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(O), 9, 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 4,
+                                 static_cast<cuuint64_t>(O) * C * 4,
+                                 static_cast<cuuint64_t>(9) * O * C * 4};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(F32_CHUNK), F32_N, 1, 1};
+  return encode_f32(map, planes, 4, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -1,6 +1,6 @@
-"""How a conv3x3_packed, conv3x3_bias_act or conv3x3_wgrad call runs on the
-card: which kernel body, with which tiling, ring depths, weight residency,
-persistent grid and pixel splits.
+"""How a conv3x3_packed, conv3x3_bias_act, conv3x3_wgrad or
+conv3x3_bias_act_shift call runs on the card: which kernel body, with which
+tiling, ring depths, weight residency, persistent grid and pixel splits.
 
 Each plan is a pure function of the call's shape, dtype, mode and layout
 (frames, strides, alignment), so that the CPU tests can hold it without a
@@ -10,20 +10,21 @@ card, and the wrappers choose before the launch, never on a failure.
     conv3x3_packed_sm90_kernel and conv3x3_packed_sm90_f32_kernel in
     csrc/conv3x3_packed.cu, conv3x3_sm90_kernel and conv3x3_sm90_f32_kernel
     in csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel and
-    conv3x3_wgrad_sm90_f32_kernel in csrc/conv3x3_grad.cu): TMA staging
-    into mbarrier rings and wgmma products (3xTF32 in float32). They take
-    views that TMA can address: every stride a multiple of 16 bytes (a
-    channel pitch that is a multiple of 8 in bf16, of 4 in float32) and a
-    16-byte aligned logical origin. All three take them in bf16 and float32
-    (conv3x3_wgrad not in its fold mode).
+    conv3x3_wgrad_sm90_f32_kernel in csrc/conv3x3_grad.cu,
+    conv3x3_shift_sm90_kernel and conv3x3_shift_sm90_f32_kernel in
+    csrc/conv3x3_shift.cu): TMA staging into mbarrier rings and wgmma
+    products (3xTF32 in float32). They take views that TMA can address:
+    every stride a multiple of 16 bytes (a channel pitch that is a multiple
+    of 8 in bf16, of 4 in float32) and a 16-byte aligned logical origin. All
+    four take them in bf16 and float32 (conv3x3_wgrad not in its fold mode).
   - "legacy": the synchronous mma.sync kernels (conv3x3_common.cuh), for
     the weight gradient's fold mode and layouts TMA cannot take (e.g. C =
     238 unframed: 476-byte bf16 or 952-byte float32 pixels).
 
 The shared-memory sums mirror the kernels' (k1_smem_bytes and
 k1f_smem_bytes in conv3x3_packed.cu, k2_smem_bytes and k2f_smem_bytes in
-conv3x3.cu, k3_smem_bytes and k3f_smem_bytes in conv3x3_grad.cu); each
-plan's must fit an H100 block.
+conv3x3.cu, k3_smem_bytes and k3f_smem_bytes in conv3x3_grad.cu,
+k6_smem_bytes in conv3x3_shift.cu); each plan's must fit an H100 block.
 `sm90=False` sends a call to the synchronous kernels whatever its layout:
 the wrappers pass it for their private `_legacy` keyword, with which the
 fold mode (which has no Hopper body) is compared bit for bit with the
@@ -100,6 +101,19 @@ K3_MAX_CHAIN = 19
 K3F_HSTAGES = 2
 K3F_RAW = 2 * 2 * TW * BOX_ROW
 K3F_PLANE = 2 * 64 * BOX_ROW
+# conv3x3_shift_sm90_kernel and conv3x3_shift_sm90_f32_kernel: persistent
+# blocks, one per SM, walking work units of one 8x32 tile by one O tile (128
+# outputs in bf16, 64 in float32), the O tiles of a pixel tile adjacent in
+# the walk; the three dh bands of each chunk
+# (8 x 34 pixels of one 128-byte box row: 64 bf16 or 32 float32 channels) in
+# a ring of one slot per dh, the (tap, chunk) weight slices (16 KiB in
+# either dtype) in a ring of six stages, the slices of two bands; a fixed
+# layout, so every ring address is a constant offset. Bands stream, so C has
+# no cap.
+K6_BAND_BYTES = TH * (TW + 2) * BOX_ROW
+K6_BSTAGES = 3
+K6_WSTAGES = 6
+K6_WSTAGE = K2_WSTAGE
 # the synchronous kernels
 LEGACY_ROW_BYTES = 80
 LEGACY_HALO_PIX = (TH + 2) * (TW + 2)
@@ -128,6 +142,16 @@ class PackedPlan(NamedTuple):
     grid: Tuple[int, int, int]
     units: int                    # work units the blocks walk (legacy: one per block)
     partial_rows: int             # rows of the sums' partial buffer: one per 8x32 tile
+    smem: int                     # dynamic shared memory of a block
+
+
+class ShiftPlan(NamedTuple):
+    path: str                     # "sm90" or "legacy"
+    tile_o: int                   # output channels of a work unit or block (NP)
+    band_stages: int              # band ring depth (sm90), 0 for legacy
+    stages: int                   # weight ring depth (sm90), 0 for legacy
+    grid: Tuple[int, int, int]
+    units: int                    # (8x32 tile, O tile) work units
     smem: int                     # dynamic shared memory of a block
 
 
@@ -169,6 +193,11 @@ def k2_smem_bytes(n_chunks: int, stages: int) -> int:
 def k2f_smem_bytes(stages: int) -> int:
     return (ALIGN_SLACK + K2F_HSTAGES * HALO_SLOT + stages * K2F_WSTAGE + K2F_RED_BYTES
             + K2F_AFFINE_BYTES + (3 * K2F_HSTAGES + 2 * stages) * 8)
+
+
+def k6_smem_bytes() -> int:
+    return (ALIGN_SLACK + K6_BSTAGES * K6_BAND_BYTES + K6_WSTAGES * K6_WSTAGE
+            + 2 * (K6_BSTAGES + K6_WSTAGES) * 8)
 
 
 def k3_smem_bytes(stages: int) -> int:
@@ -286,6 +315,52 @@ def bias_act_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,
     return BiasActPlan("legacy", tile_o, 0, (tiles_w, tiles_h, n * _cdiv(o, tile_o)),
                        n * tiles_h * tiles_w,
                        (LEGACY_HALO_PIX + 9 * tile_o) * LEGACY_ROW_BYTES)
+
+
+def shift_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype,
+               aligned: bool = True, sm90: bool = True) -> ShiftPlan:
+    """The plan of conv3x3_bias_act_shift on an unframed (n, h, w, c) x with o
+    outputs; `aligned`: the data pointers of x and of the (3, 3, c, o)
+    weights in x's dtype are 16-byte aligned. The Hopper bodies take TMA
+    views of x and of the weights' rows (c and o multiples of 8 in bf16, of
+    4 in float32) and launch one persistent block per SM (no more than there
+    are units); other layouts (e.g. c = 238 in bf16, c = 61) take the
+    synchronous body, one block per (pixel tile, O tile), the O tiles on
+    grid z."""
+    tiles_h, tiles_w = _cdiv(h, TH), _cdiv(w, TW)
+    esize = _esize(dtype)
+    if (sm90 and dtype in (torch.bfloat16, torch.float32)
+            and tma_view_ok(c, aligned, esize) and tma_view_ok(o, aligned, esize)):
+        tile_o = K2_N if dtype == torch.bfloat16 else K2F_N
+        units = n * tiles_h * tiles_w * _cdiv(o, tile_o)
+        return ShiftPlan("sm90", tile_o, K6_BSTAGES, K6_WSTAGES, (min(units, SMS), 1, 1), units,
+                         k6_smem_bytes())
+    tile_o = 64 if o <= 64 else 128
+    n_otiles = _cdiv(o, tile_o)
+    return ShiftPlan("legacy", tile_o, 0, 0, (tiles_w, tiles_h, n * n_otiles),
+                     n * tiles_h * tiles_w * n_otiles,
+                     (3 * TH * (TW + 2) + 9 * tile_o) * LEGACY_ROW_BYTES)
+
+
+def shift_tiles(plan: ShiftPlan, n: int, h: int, w: int, o: int, block: int):
+    """The (image, tile row, tile column, O tile) units that block `block` of
+    the plan's grid (x-major) computes, in its order: for sm90 the units
+    block, block + grid, ... of a walk whose O tiles run fastest, then tile
+    columns, rows and images (the kernels' unit_at); for legacy its one
+    unit."""
+    n_otiles = _cdiv(o, plan.tile_o)
+    tiles_h, tiles_w = _cdiv(h, TH), _cdiv(w, TW)
+    if plan.path == "legacy":
+        x, rest = block % plan.grid[0], block // plan.grid[0]
+        y, z = rest % plan.grid[1], rest // plan.grid[1]
+        return [(z // n_otiles, y, x, z % n_otiles)]
+    out = []
+    for u in range(block, plan.units, plan.grid[0]):
+        t, ot = divmod(u, n_otiles)
+        t, tx = divmod(t, tiles_w)
+        image, ty = divmod(t, tiles_h)
+        out.append((image, ty, tx, ot))
+    return out
 
 
 def wgrad_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pitch: int,

@@ -1,7 +1,9 @@
 """The port's conv3x3_bias_act_shift (the 3x3 SAME conv + bias + ReLU built
 from three H-shifted input bands) against the JAX package's Pallas kernel,
 run in interpret mode: C = 24 and 130 (one and two 128-lane chunks of the
-TPU kernel), ragged H and W, ReLU on and off, float32 and bf16.
+TPU kernel), and C = 64 with O = 256 (two O tiles of the card's bf16 Hopper
+body, whose second tile stages the bands again, four of its float32 one),
+ragged H and W, ReLU on and off, float32 and bf16.
 
 Inputs come from a numpy seed. On CPU tensors the wrapper runs its plain
 version: the code that chip_smoke.py holds the CUDA kernel against.
@@ -45,7 +47,8 @@ def _bf16_ulps(out, ref):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("n,h,w,c,o", [(1, 13, 21, 24, 40), (2, 9, 19, 130, 72)])
+@pytest.mark.parametrize("n,h,w,c,o", [(1, 13, 21, 24, 40), (2, 9, 19, 130, 72),
+                                       (1, 11, 35, 64, 256)])
 def test_shift_matches_pallas(rng, n, h, w, c, o, relu, dtype):
     tdt, jdt = DTYPES[dtype]
     x, wk, b = _inputs(rng, n, h, w, c, o)

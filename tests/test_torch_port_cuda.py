@@ -507,28 +507,78 @@ def test_conv3x3_wgrad_fold_matches_plain(cuda_device, shape, o, mode, dtype):
     assert torch.equal(dw, materialized)
 
 
-_SHIFT_CASES = [((1, 37, 53, 238), 48, False), ((2, 29, 71, 64), 64, True),
-                ((1, 17, 33, 61), 131, True), ((2, 29, 71, 64), 256, False)]
+# conv3x3_bias_act_shift: ragged shapes (C = 238 in bf16 and C = 61 take the
+# synchronous body, "legacy"), every distinct kernel-2 call shape of a
+# training step (bf16 product loop, float32 UNET and CubeNET-64: the same
+# shapes), and the overhang shapes where the band box, the pixel tile and the
+# O tile overhang every edge; in every (x, out) dtype pair, ReLU on and off.
+_SHIFT_CASES = [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 64), ((1, 17, 33, 61), 131),
+                ((2, 29, 71, 64), 256),
+                ((2, 304, 484, 64), 128), ((2, 304, 484, 128), 128), ((2, 304, 484, 256), 128),
+                ((2, 304, 484, 128), 256), ((2, 152, 242, 128), 256), ((2, 152, 242, 256), 256),
+                ((1, 13, 37, 64), 128), ((1, 13, 37, 128), 256)]
+_SHIFT_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                 (torch.float32, torch.float32)]
+
+
+def _shift_case(device, shape, o, dtypes):
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import call_plan
+
+    x, w, b, _ = _conv_inputs(device, shape, o, dtype=dtypes[0])
+    return x, w, b, call_plan(x, w.contiguous()).path
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape,o,relu", _SHIFT_CASES)
-def test_conv3x3_bias_act_shift_matches_plain(cuda_device, shape, o, relu, dtype):
+@pytest.mark.parametrize("dtypes", _SHIFT_DTYPES, ids=["bf16", "bf16-f32", "f32"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape,o", _SHIFT_CASES)
+def test_conv3x3_bias_act_shift_matches_plain(cuda_device, shape, o, relu, dtypes):
+    """The body the plan names, against the plain version; twice with
+    identical bits."""
     from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import (
         conv3x3_bias_act_shift,
         conv3x3_bias_act_shift_reference,
     )
 
-    x, w, b, _ = _conv_inputs(cuda_device, shape, o, dtype=dtype)
+    x, w, b, body = _shift_case(cuda_device, shape, o, dtypes)
+    # 476- and 122-byte bf16 pixels, 952- and 244-byte float32 ones
+    assert body == ("legacy" if shape[-1] in (238, 61) else "sm90")
+    kw = dict(relu=relu, out_dtype=dtypes[1])
     launches = conv3x3_bias_act_shift.launches
-    out = conv3x3_bias_act_shift(x, w, b, relu=relu)
-    assert conv3x3_bias_act_shift.launches == launches + 1
-    ref = conv3x3_bias_act_shift_reference(x, w, b, relu=relu)
-    terms = conv3x3_bias_act_shift_reference(x.abs(), w.abs(), b.abs(), relu=False)
+    before = dict(conv3x3_bias_act_shift.launches_by_path)
+    out, again = (conv3x3_bias_act_shift(x, w, b, **kw) for _ in range(2))
+    assert conv3x3_bias_act_shift.launches == launches + 2
+    assert _path_delta(conv3x3_bias_act_shift, before) == {body: 2}
+    ref = conv3x3_bias_act_shift_reference(x, w, b, **kw)
+    terms = conv3x3_bias_act_shift_reference(x.abs(), w.abs(), b.abs(), relu=False,
+                                             out_dtype=dtypes[1])
     torch.cuda.synchronize()
-    assert bool(torch.isfinite(out).all())
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
     _assert_out_close(out, ref, terms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _SHIFT_DTYPES, ids=["bf16", "bf16-f32", "f32"])
+@pytest.mark.parametrize("shape,o", [case for case in _SHIFT_CASES if case[0][-1] % 8 == 0])
+def test_sm90_shift_matches_the_synchronous_body(cuda_device, shape, o, dtypes):
+    """The Hopper body against the synchronous one (`_legacy=True`) on the
+    same inputs: bf16 outputs within one bf16 ulp of each other, float32
+    ones within F32_REL of the sum of their absolute terms."""
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import (
+        conv3x3_bias_act_shift,
+        conv3x3_bias_act_shift_reference,
+    )
+
+    x, w, b, body = _shift_case(cuda_device, shape, o, dtypes)
+    assert body == "sm90"
+    before = dict(conv3x3_bias_act_shift.launches_by_path)
+    out = conv3x3_bias_act_shift(x, w, b, relu=False, out_dtype=dtypes[1])
+    sync = conv3x3_bias_act_shift(x, w, b, relu=False, out_dtype=dtypes[1], _legacy=True)
+    assert _path_delta(conv3x3_bias_act_shift, before) == {"sm90": 1, "legacy": 1}
+    terms = conv3x3_bias_act_shift_reference(x.abs(), w.abs(), b.abs(), relu=False,
+                                             out_dtype=dtypes[1])
+    torch.cuda.synchronize()
+    _assert_out_close(out, sync, terms)
 
 
 @pytest.mark.cuda
@@ -546,6 +596,21 @@ def test_conv3x3_bias_act_shift_float32_out_from_bf16(cuda_device):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32
     _assert_sums_close(out, ref, terms, F32_REL)
+
+
+@pytest.mark.cuda
+def test_shift_legacy_layouts(cuda_device):
+    """Layouts TMA cannot address take the synchronous body, chosen before the
+    launch: C = 238 bf16 (476-byte pixels), C = 61 in both dtypes, and O = 20
+    in bf16 (40-byte weight rows)."""
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import conv3x3_bias_act_shift
+
+    for dtype, c, o in ((torch.bfloat16, 238, 64), (torch.bfloat16, 61, 64),
+                        (torch.float32, 61, 64), (torch.bfloat16, 64, 20)):
+        x, w, b, _ = _conv_inputs(cuda_device, (1, 13, 37, c), o, dtype=dtype)
+        before = dict(conv3x3_bias_act_shift.launches_by_path)
+        conv3x3_bias_act_shift(x, w, b)
+        assert _path_delta(conv3x3_bias_act_shift, before) == {"legacy": 1}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The host-side plan of the Hopper conv kernels (ops/kernels/sm90_plan.py):
-which kernel body a conv3x3_bias_act or conv3x3_wgrad call takes, and its
-tiling, ring depth and pixel splits. The plan is a pure function of shape,
+which kernel body a conv3x3_packed, conv3x3_bias_act, conv3x3_wgrad or
+conv3x3_bias_act_shift call takes, and its tiling, ring depths, grid and
+pixel splits. The plan is a pure function of shape,
 dtype, mode and layout, so it is held here without a card. Also the plain
 TF32 split that the float32 Hopper bodies apply to their operands."""
 
@@ -484,3 +485,90 @@ def test_split_weights_with_a_chunk_pitch_matches_the_numpy_emulation(c):
     assert not planes[:, :, :, c:].any()
     with pytest.raises(ValueError, match="pitch"):
         split_weights_tf32(torch.from_numpy(w), c - 1)
+
+
+# conv3x3_bias_act_shift (kernel 6): the Hopper bodies' plan. No model path
+# calls it; its calls are measured at the kernel-2 calls of the steps.
+
+@pytest.mark.parametrize("model,ingest,dtype", [("CubeNET", True, "bf16"), ("UNET", False, "f32"),
+                                                ("CubeNET", True, "f32")])
+def test_shift_plan_takes_sm90_at_every_kernel2_step_call(model, ingest, dtype):
+    """Every conv3x3_bias_act call shape of the bf16 product-loop step and of
+    the float32 UNET and CubeNET-64 steps (12 each) takes the Hopper body,
+    with its O tile (128 bf16, 64 float32), a band slot per dh and six
+    weight stages."""
+    calls = [c for c in chip_smoke.training_calls(model, ingest=ingest, dtype=dtype)
+             if c["kernel"] == "conv3x3_bias_act"]
+    assert len(calls) == 12
+    torch_dtype = chip_smoke.DTYPES[dtype]
+    for call in calls:
+        plan = sm90_plan.shift_plan(*call["shape"], call["o"], torch_dtype)
+        assert plan.path == "sm90"
+        assert plan.tile_o == (128 if dtype == "bf16" else 64)
+        assert (plan.band_stages, plan.stages) == (3, 6)
+
+
+@pytest.mark.parametrize("case", [
+    dict(dtype=torch.bfloat16, c=238, o=64),              # 476-byte pixels
+    dict(dtype=torch.bfloat16, c=61, o=64),               # 122-byte pixels
+    dict(dtype=torch.float32, c=61, o=64),                # 244-byte pixels
+    dict(dtype=torch.float32, c=238, o=128),              # 952-byte pixels
+    dict(dtype=torch.bfloat16, c=64, o=20),               # 40-byte weight rows
+    dict(dtype=torch.float32, c=64, o=66),                # 264-byte plane rows
+    dict(dtype=torch.bfloat16, c=64, o=64, aligned=False),  # origin off 16 bytes
+    dict(dtype=torch.float32, c=64, o=64, aligned=False),
+])
+def test_shift_plan_legacy_cases(case):
+    """Layouts TMA cannot address take the synchronous body, whose blocks
+    walk O tiles of 64 or 128 on grid z."""
+    plan = sm90_plan.shift_plan(2, 37, 53, case["c"], case["o"], case["dtype"],
+                                case.get("aligned", True))
+    assert plan.path == "legacy" and (plan.band_stages, plan.stages) == (0, 0)
+    assert plan.tile_o == (64 if case["o"] <= 64 else 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_shift_plan_sm90_off_takes_the_synchronous_body(dtype):
+    """sm90=False (what the wrapper passes for `_legacy=True`)."""
+    assert sm90_plan.shift_plan(2, 304, 484, 128, 256, dtype).path == "sm90"
+    plan = sm90_plan.shift_plan(2, 304, 484, 128, 256, dtype, sm90=False)
+    assert (plan.path, plan.tile_o, plan.grid) == ("legacy", 128, (16, 38, 4))
+    assert plan.units == 16 * 38 * 4
+
+
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_shift_plans_fit_shared_memory(shape):
+    """Both bodies' shared memory fits one H100 block; the Hopper body's sum
+    is csrc/conv3x3_shift.cu's k6_smem_bytes term by term: the 1 KiB
+    alignment slack, three 8x34-pixel bands of 128-byte rows, six 16 KiB
+    weight slices and a full and an empty barrier for each stage of both
+    rings."""
+    n, h, w, c, o = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = sm90_plan.shift_plan(n, h, w, c, o, dtype)
+        assert 0 < plan.smem <= sm90_plan.SMEM_LIMIT
+        if plan.path == "legacy":
+            assert plan.smem == (3 * 8 * 34 + 9 * plan.tile_o) * 80
+            continue
+        assert plan.smem == 1024 + 3 * 8 * 34 * 128 + 6 * 16384 + 2 * (3 + 6) * 8
+        assert plan.smem == sm90_plan.k6_smem_bytes()
+
+
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_shift_grid_covers_every_tile_once(shape):
+    """Each (image, 8x32 pixel tile, O tile) unit is computed exactly once, on
+    either body, at main-path and ragged shapes: by the Hopper body's
+    persistent blocks (one per SM, every block with a unit) or by the
+    synchronous body's one block each."""
+    n, h, w, c, o = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        for sm90 in (True, False):
+            plan = sm90_plan.shift_plan(n, h, w, c, o, dtype, sm90=sm90)
+            want = [(i, ty, tx, ot) for i in range(n) for ty in range(-(-h // 8))
+                    for tx in range(-(-w // 32)) for ot in range(-(-o // plan.tile_o))]
+            gx, gy, gz = plan.grid
+            walks = [sm90_plan.shift_tiles(plan, n, h, w, o, b) for b in range(gx * gy * gz)]
+            assert plan.units == len(want) and all(walks)
+            assert sorted(t for walk in walks for t in walk) == want
+            if plan.path == "sm90":
+                assert plan.grid == (min(len(want), sm90_plan.SMS), 1, 1)
