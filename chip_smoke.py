@@ -28,7 +28,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
       address x and the weights, C = 238 and 61 on the synchronous one, each
       check's body held against its plan and each Hopper call against the
       synchronous body, within one bf16 ulp or 2e-5 of |terms|), the dh-fold
-      probe's two kernels at the probe's shapes and the eight Mosaic-op
+      probe's two kernels at the probe's shapes (on their Hopper body, "sm90",
+      as the plan names it, each within one bf16 ulp of its plain version
+      and of the synchronous body, twice bit-equal) and the eight Mosaic-op
       kernels (exactly);
   (d) serving: CubeNET-64 answering two full-resolution 608x968x238 bf16 cubes
       through the folded, kernel-routed model, with the launch count read
@@ -56,8 +58,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
       gradient's fold mode at the step's conv3x3_wgrad calls, the shift conv
       at its conv3x3_bias_act calls, beside the halo kernel on the same
       inputs: bf16 at the product-loop step's, float32 at the UNET and the
-      CubeNET-64 step's; the dh-fold probe's two kernels; the eight
-      Mosaic-op kernels);
+      CubeNET-64 step's; the dh-fold probe's two kernels on both bodies
+      beside cuDNN's VALID conv; the eight Mosaic-op kernels and their
+      PyTorch ops by CUDA events and by the profiler's device time);
   (l) the fold mode against today's route at each conv3x3_wgrad call of one
       bf16 product-loop step and one CubeNET-64 float32 step, in turns: g_eff
       materialized, then dW and db, against dW and db from the raw cotangent
@@ -960,8 +963,10 @@ def check_split_weights(calls):
 
 def check_dh_fold():
     """Both dh-fold probe kernels at the probe's shapes (2x610x1032 buffers)
-    against their plain versions, within one bf16 ulp; and against each
-    other (the TPU probe's max |cur - folded|)."""
+    on the body their plan names (the Hopper one, "sm90"), against their
+    plain versions and against the synchronous body on the same inputs,
+    each within one bf16 ulp; each kernel twice with identical bits; and the
+    two kernels against each other (the TPU probe's max |cur - folded|)."""
     from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
 
     (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=2, h=H, w=W, device="cuda")
@@ -970,15 +975,29 @@ def check_dh_fold():
     outs = {}
     for name, fn, ref, args in (("current", cur, probe_dh_fold.current_reference, a_cur),
                                 ("folded", fold, probe_dh_fold.folded_reference, a_fold)):
+        body = probe_dh_fold.call_plan(*args).path
+        before = dict(fn.launches_by_path)
         out = outs[name] = fn(*args)
+        again = fn(*args)
+        taken = {k: v - before.get(k, 0) for k, v in fn.launches_by_path.items()
+                 if v != before.get(k, 0)}
+        check(body == "sm90" and taken == {body: 2},
+              f"dh-fold {name}: launched {taken}, the plan says {body}")
+        legacy = fn(*args, _legacy=True)
         expect = ref(*args)
         torch.cuda.synchronize()
         check(tuple(out.shape) == out_shape, f"dh-fold {name}: {tuple(out.shape)}")
+        check(torch.equal(out.view(torch.int16), again.view(torch.int16)),
+              f"dh-fold {name}: two runs differ")
         ulps, abs_err = bf16_ulp_error(out, expect)
         check(ulps <= 1.0, f"dh-fold {name}: {ulps} bf16 ulp > 1")
-        print(f"probe_dh_fold      {name:7s} {tuple(args[0].shape)} -> {tuple(out.shape)}: "
-              f"max abs {abs_err:.3e} ({ulps:.2f} bf16 ulp)")
+        vs_ulps, vs_abs = bf16_ulp_error(out, legacy)
+        check(vs_ulps <= 1.0, f"dh-fold {name}: {vs_ulps} bf16 ulp off the synchronous body")
+        print(f"probe_dh_fold      {name:7s} {tuple(args[0].shape)} -> {tuple(out.shape)} "
+              f"[{body}]: max abs {abs_err:.3e} ({ulps:.2f} bf16 ulp), vs synchronous "
+              f"{vs_abs:.3e} ({vs_ulps:.2f} ulp), two runs bit-equal")
         errors[f"probe_dh_fold_{name}", "bf16"] = [abs_err, 0.0]
+        del again, legacy, expect
     diff = (outs["current"].float() - outs["folded"].float()).abs().max().item()
     print(f"probe_dh_fold      max |cur - folded| = {diff:.3e}")
     return errors
@@ -1478,21 +1497,20 @@ def unrouted_calls(calls):
 
 
 def time_dh_fold():
-    """Both dh-fold probe kernels at the probe's shapes, one call each,
-    beside one cuDNN call of the same function (a VALID 3x3 conv of the
-    64 real lanes, cut to the output's 1024 columns). Bound: the function's
-    operations (64 real input channels) and each kernel's own bytes."""
+    """Both dh-fold probe kernels at the probe's shapes, one call each, on
+    the Hopper body and on the synchronous one, beside one cuDNN call of the
+    same function (probe_dh_fold.cudnn_conv: a VALID 3x3 conv of the 64 real
+    lanes, cut to the output's 1024 columns); the Hopper kernel's and
+    cuDNN's device time by the profiler beside their CUDA-event times (the
+    wrapper's host path is in the latter). Bound: the function's operations
+    (64 real input channels) and each kernel's own bytes."""
     from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
 
     (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=2, h=H, w=W, device="cuda")
-    x64, w01, w2 = a_fold
+    x64 = a_fold[0]
     n, hp, wp, _ = x64.shape
     ho, wo = hp - 2, wp - 8
-    # W[dh][c, dw*64 + o] -> OIHW weights of the real 64 lanes
-    w_full = a_cur[1][:, :64].reshape(3, 64, 3, 64).permute(3, 1, 0, 2)
-    w_oihw = w_full.contiguous(memory_format=torch.channels_last)
-    x_cl = x64.permute(0, 3, 1, 2)[..., :wo + 2]
-    library = lambda: F.conv2d(x_cl, w_oihw)   # noqa: E731
+    library = probe_dh_fold.cudnn_conv(x64, a_cur[1])
     y_lib, y_cur = library().permute(0, 2, 3, 1).float(), cur(*a_cur).float()
     check(float((y_lib - y_cur).norm() / y_cur.norm()) <= 1e-2,
           "dh-fold: cuDNN's conv is not the probe's function")
@@ -1501,45 +1519,90 @@ def time_dh_fold():
     rows = []
     for name, fn, ref, args in (("current", cur, probe_dh_fold.current_reference, a_cur),
                                 ("folded", fold, probe_dh_fold.folded_reference, a_fold)):
+        body = probe_dh_fold.call_plan(*args).path
         ms = cuda_ms(lambda: fn(*args))
+        legacy_ms = cuda_ms(lambda: fn(*args, _legacy=True))
         plain_ms = cuda_ms(lambda: ref(*args), reps=3, warmup=1)
         library_ms = cuda_ms(library)
+        dev_ms, _ = device_ms(lambda: fn(*args))
+        library_dev_ms, _ = device_ms(library)
         nbytes = sum(2.0 * t.numel() for t in args) + out_bytes
         bound_ms, bound_by = bound(flops, nbytes)
-        print(f"probe_dh_fold {name:7s} {tuple(args[0].shape)}: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s of the 64-lane function), bound {bound_ms:.4f} ms "
+        print(f"probe_dh_fold {name:7s} {tuple(args[0].shape)}: kernel [{body}] {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms, {flops / dev_ms / 1e9:.1f} TFLOP/s of the 64-lane "
+              f"function), synchronous body {legacy_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.3f} ms, library (cuDNN VALID conv) "
-              f"{library_ms:.4f} ms")
+              f"{library_ms:.4f} ms (device {library_dev_ms:.4f} ms)")
         rows.append({"kernel": f"probe_dh_fold_{name}", "dtype": "bf16", "path": "probe",
                      "mode": name, "framing": [], "library_tf32_ms": None, "layers": [],
                      "count": 1, "shape": list(args[0].shape), "o": 64, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "flops": flops, "bytes": nbytes})
+                     "bound_by": bound_by, "flops": flops, "bytes": nbytes, "body": body,
+                     "legacy_ms": legacy_ms, "device_ms": dev_ms,
+                     "library_device_ms": library_dev_ms})
     return rows
+
+
+def device_ms(fn, reps: int = 20):
+    """Device milliseconds a call of fn by torch.profiler (the sum of every
+    CUDA kernel it launches, over reps calls after a warm-up, per call), and
+    {kernel name: launches a call}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
+            {e.key: e.count / reps for e in kernels})
 
 
 def time_mosaic_ops():
     """The eight Mosaic-op kernels, one call each, summed; their plain
     versions are the PyTorch ops themselves, so the library time is the
-    plain time. Each moves 8x16x128 float32 in and out (bytes; at this size
-    the launch is the time)."""
+    plain time. Each op twice: the wrapper by CUDA events (at this size the
+    host's launch path), and the device time by torch.profiler, the kernel's
+    against the sum of the kernels the PyTorch op launches. Each moves
+    8x16x128 float32 in and out (bytes)."""
     from hyperpri_tpu_torch.ops.kernels import probe_mosaic_ops
 
     x = probe_mosaic_ops.probe_input("cuda")
-    ms = plain_ms = 0.0
+    ms = plain_ms = dev = plain_dev = 0.0
+    per_op = {}
     for name in probe_mosaic_ops.OPS:
-        ms += cuda_ms(lambda: probe_mosaic_ops.run_case(name, x))
-        plain_ms += cuda_ms(lambda: probe_mosaic_ops.run_case_reference(name, x))
+        kernel = lambda: probe_mosaic_ops.run_case(name, x)   # noqa: E731
+        op = lambda: probe_mosaic_ops.run_case_reference(name, x)   # noqa: E731
+        one = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(op)}
+        one["device_ms"], names = device_ms(kernel)
+        one["plain_device_ms"], plain_names = device_ms(op)
+        check(one["device_ms"] > 0 and one["plain_device_ms"] > 0,
+              f"mosaic op {name}: the profiler recorded no device time")
+        per_op[name] = one
+        ms += one["ms"]
+        plain_ms += one["plain_ms"]
+        dev += one["device_ms"]
+        plain_dev += one["plain_device_ms"]
+        verdict = "at or below" if one["device_ms"] <= one["plain_device_ms"] else "above"
+        print(f"probe_mosaic_ops {name:20s} events: kernel {one['ms']:.4f} ms, PyTorch op "
+              f"{one['plain_ms']:.4f} ms; device: kernel {one['device_ms'] * 1e3:.2f} us "
+              f"{names}, PyTorch op {one['plain_device_ms'] * 1e3:.2f} us {plain_names} "
+              f"({verdict} the PyTorch op's)")
     n_ops = len(probe_mosaic_ops.OPS)
     nbytes = n_ops * 8.0 * x.numel()
     bound_ms, bound_by = bound(n_ops * float(x.numel()), nbytes, PEAK_F32_FLOPS)
-    print(f"probe_mosaic_ops {n_ops} ops on {tuple(x.shape)}: kernels {ms:.4f} ms in all, bound "
-          f"{bound_ms:.6f} ms ({bound_by}), plain (the PyTorch ops) {plain_ms:.4f} ms")
+    print(f"probe_mosaic_ops {n_ops} ops on {tuple(x.shape)}: kernels {ms:.4f} ms in all "
+          f"(device {dev * 1e3:.2f} us), bound {bound_ms:.6f} ms ({bound_by}), plain (the "
+          f"PyTorch ops) {plain_ms:.4f} ms (device {plain_dev * 1e3:.2f} us)")
     return {"kernel": "probe_mosaic_ops", "dtype": "f32", "path": "probe", "mode": "8 ops",
             "framing": [], "library_tf32_ms": None, "layers": [], "count": 1,
             "shape": list(x.shape), "o": x.shape[-1], "ms": ms, "plain_ms": plain_ms,
             "library_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "flops": n_ops * float(x.numel()), "bytes": nbytes}
+            "flops": n_ops * float(x.numel()), "bytes": nbytes, "device_ms": dev,
+            "plain_device_ms": plain_dev, "library_device_ms": plain_dev, "per_op": per_op}
 
 
 def phase_fold_ab(calls_by_dtype):
@@ -1964,9 +2027,13 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     bounds the larger share), the float32 ones at the TF32 tensor rate.
     legacy_ms sums the same calls on the synchronous body where
     phase f timed it (conv3x3_packed, float32 conv3x3_bias_act and
-    conv3x3_wgrad, the shift conv), else null; times_by_path holds these
-    sums by path, and for the shift conv halo_ms, the halo kernel on the
-    same inputs. The fold mode of the weight
+    conv3x3_wgrad, the shift conv, the dh-fold probe), else null;
+    times_by_path holds these sums by path, and for the shift conv halo_ms,
+    the halo kernel on the same inputs; bodies, the bodies the timed calls
+    took where phase f read them; device_ms, plain_device_ms and
+    library_device_ms, the profiler's device time of the kernels, of the
+    plain versions and of the library call, where phase f took it (the
+    probes), else null. The fold mode of the weight
     gradient and the shift conv are on no path (launches 0): their numbers
     are summed over the conv3x3_wgrad and conv3x3_bias_act calls of one
     product-loop step (bf16) and of one UNET and one CubeNET-64 float32 step
@@ -2018,6 +2085,12 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
                 # the same calls on the synchronous body, where it was timed too
                 "legacy_ms": (sum(r["legacy_ms"] * r["count"] for r in mine)
                               if all("legacy_ms" in r for r in mine) else None),
+                # the bodies the timed calls took, where phase f read them
+                "bodies": sorted({r["body"] for r in mine if "body" in r}),
+                # device time by the profiler, where phase f took it (the probes)
+                **{key: (sum(r[key] * r["count"] for r in mine)
+                         if all(key in r for r in mine) else None)
+                   for key in ("device_ms", "plain_device_ms", "library_device_ms")},
                 "times_by_path": times_by_path, "calls": mine,
             })
     return kernels

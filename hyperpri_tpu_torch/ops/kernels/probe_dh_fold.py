@@ -17,14 +17,25 @@ are kept: HP - 2 must be a multiple of 8 and WP - 8 of 64. `build` makes the
 probe's inputs as the TPU probe does, at its shapes (n=2, h=608, w=968 give
 (2, 610, 1032, lanes) buffers and a (2, 608, 1024, 64) output).
 
+On the card a call takes one of two kernel bodies, chosen before the launch
+by sm90_plan.dh_fold_plan: "sm90", the Hopper kernel (TMA boxes of the
+pre-padded buffer in an mbarrier ring, wgmma products, the weights read in
+place by TMA: no packing pass), for 16-byte aligned weights; or "legacy",
+the synchronous mma.sync kernel on weights packed each call (`_pack`). Both
+read x in 16-byte units: its data pointer must be 16-byte aligned. The
+private keyword `_legacy=True` takes the synchronous body whatever the
+layout, to hold the two against each other. `current.launches` and
+`folded.launches` count launches, `launches_by_path` by body.
+
     python -m hyperpri_tpu_torch.ops.kernels.probe_dh_fold
 
-runs both on the card and prints max |current - folded|, the median of ten
-CUDA-event timings of each, and the card's name and power limit.
+runs both kernels on both bodies on the card and prints max |current -
+folded|, the median of ten CUDA-event timings of each, and of one cuDNN call
+of the same function (`cudnn_conv`), and the card's name and power limit.
 
 `current` and `folded` run their plain versions, `current_reference` and
 `folded_reference`, only for tensors on the CPU. For CUDA tensors they launch
-the kernel or raise.
+a kernel or raise.
 """
 
 from __future__ import annotations
@@ -35,8 +46,9 @@ import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
-from hyperpri_tpu_torch.ops.kernels import _plain
+from hyperpri_tpu_torch.ops.kernels import _plain, sm90_plan
 
 TH, TW = 8, 64
 TWB = TW + 8
@@ -84,20 +96,47 @@ def folded_reference(x64: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor) -> 
 
 def _pack(w: torch.Tensor) -> torch.Tensor:
     """(taps_dh, 128, 192) -> [dh][chunk][dw][o][32 lanes]: the B rows the
-    kernel stages, one 32-lane chunk of K at a time."""
+    synchronous kernel stages, one 32-lane chunk of K at a time."""
     d = w.shape[0]
     return (w.reshape(d, 4, 32, 3, LS).permute(0, 1, 3, 4, 2).contiguous()
             .to(torch.bfloat16))
 
 
-def _launch(entry: str, x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+def cudnn_conv(x64: torch.Tensor, w: torch.Tensor):
+    """The probe's function as one cuDNN call, the yardstick beside the
+    kernels (no kernel path calls it): a VALID 3x3 conv (F.conv2d) of the 64
+    real lanes of x64 with w's real rows, cut to the output's WP - 8 columns.
+    Returns a callable, the weights rearranged once outside it, whose result
+    is (N, 64, HP-2, WP-8) in channels-last memory."""
+    _, _, wo = _out_shape(x64)
+    # W[dh][c, dw*64 + o] -> OIHW weights of the real 64 lanes
+    w_oihw = (w[:, :64].reshape(3, 64, 3, LS).permute(3, 1, 0, 2)
+              .contiguous(memory_format=torch.channels_last))
+    x_cl = x64.permute(0, 3, 1, 2)[..., :wo + 2]
+    return lambda: F.conv2d(x_cl, w_oihw)
+
+
+def call_plan(x: torch.Tensor, *ws: torch.Tensor, _legacy: bool = False):
+    """The sm90_plan.DhFoldPlan of a call on x with the weights ws: the
+    Hopper body reads the weights in place, so unaligned weights take the
+    synchronous body, which packs them (x must be aligned for both)."""
+    n, hp, wp, lanes = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x,) + ws)
+    return sm90_plan.dh_fold_plan(n, hp, wp, lanes, aligned, sm90=not _legacy)
+
+
+def _launch(entry: str, x: torch.Tensor, ws, blocks=None) -> torch.Tensor:
+    """Launch `entry` on x and the weight operands ws (the packed weights
+    for the synchronous body; w, or w01 and w2, for the Hopper body, which
+    takes the persistent grid `blocks` too)."""
     n, ho, wo = _out_shape(x)
     y = torch.empty((n, ho, wo, LS), dtype=torch.bfloat16, device=x.device)
-    fn = _plain.bind("probe_dh_fold", entry, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p])
+    extra = [] if blocks is None else [blocks]
+    fn = _plain.bind("probe_dh_fold", entry, [ctypes.c_void_p] * (2 + len(ws))
+                     + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, x.shape[1], x.shape[2],
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(x.data_ptr(), *[w.data_ptr() for w in ws], y.data_ptr(), n, x.shape[1],
+                 x.shape[2], *extra, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError_t {err}")
     return y
@@ -112,42 +151,59 @@ def _check(x, lanes, *ws):
             raise ValueError(f"need (taps, 128, {3 * LS}) weights, got {tuple(w.shape)}")
     if x.device.type == "cuda":
         for t in (x,) + ws:
-            if t.device != x.device or not t.is_contiguous():
-                raise ValueError("operands must be contiguous on x's CUDA device")
+            if t.device != x.device or not t.is_contiguous() or t.dtype != torch.bfloat16:
+                raise ValueError("operands must be contiguous bf16 on x's CUDA device")
+        if x.data_ptr() % 16:   # both bodies read x in 16-byte vectors or TMA boxes
+            raise ValueError("x's data pointer must be 16-byte aligned")
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
 
 
-def current(x128: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def current(x128: torch.Tensor, w: torch.Tensor, *, _legacy: bool = False) -> torch.Tensor:
     """Three K = 128 products, half of K zero; `current.launches` counts
-    launches of the CUDA kernel."""
+    launches of the CUDA kernels, `launches_by_path` by body ("sm90",
+    "legacy")."""
     _check(x128, 128, w)
     if w.shape[0] != 3:
         raise ValueError(f"need w (3, 128, {3 * LS}), got {tuple(w.shape)}")
     if x128.device.type == "cpu":
         return current_reference(x128, w)
-    wk = _pack(w).permute(1, 0, 2, 3, 4).contiguous()   # [chunk][dh][dw][o][k]
-    y = _launch("dh_fold_current", x128, wk)
+    plan = call_plan(x128, w, _legacy=_legacy)
+    if plan.path == "sm90":
+        y = _launch("dh_fold_sm90_current", x128, (w,), plan.grid[0])
+    else:
+        wk = _pack(w).permute(1, 0, 2, 3, 4).contiguous()   # [chunk][dh][dw][o][k]
+        y = _launch("dh_fold_current", x128, (wk,))
     current.launches += 1
+    _plain.count(current.launches_by_path, (plan.path,))
     return y
 
 
-def folded(x64: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def folded(x64: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor, *,
+           _legacy: bool = False) -> torch.Tensor:
     """Two K = 128 products, the first with both halves of K real;
-    `folded.launches` counts launches of the CUDA kernel."""
+    `folded.launches` counts launches of the CUDA kernels, `launches_by_path`
+    by body ("sm90", "legacy")."""
     _check(x64, 64, w01, w2)
     if w01.shape[0] != 1 or w2.shape[0] != 1:
         raise ValueError("need w01 and w2 of shape (1, 128, 192)")
     if x64.device.type == "cpu":
         return folded_reference(x64, w01, w2)
-    wk = torch.cat([_pack(w01), _pack(w2)]).reshape(8, 3, LS, 32)   # [w01 | w2 chunks]
-    y = _launch("dh_fold_folded", x64, wk)
+    plan = call_plan(x64, w01, w2, _legacy=_legacy)
+    if plan.path == "sm90":
+        y = _launch("dh_fold_sm90_folded", x64, (w01, w2), plan.grid[0])
+    else:
+        wk = torch.cat([_pack(w01), _pack(w2)]).reshape(8, 3, LS, 32)   # [w01 | w2 chunks]
+        y = _launch("dh_fold_folded", x64, (wk,))
     folded.launches += 1
+    _plain.count(folded.launches_by_path, (plan.path,))
     return y
 
 
 current.launches = 0
+current.launches_by_path = {}
 folded.launches = 0
+folded.launches_by_path = {}
 
 
 def build(n: int = 2, h: int = 608, w: int = 968, device=None, seed: int = 0):
@@ -191,13 +247,18 @@ def main() -> int:
     (cur, a_cur), (fold, a_fold) = build()
     ya, yb = cur(*a_cur), fold(*a_fold)
     err = (ya.float() - yb.float()).abs().max().item()
-    ta, tb = cuda_ms(cur, a_cur), cuda_ms(fold, a_fold)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(f"max |cur - folded| = {err:.3e}")
-    print(f"current (3 half-K products): {ta:.3f} ms")
-    print(f"folded  (2 products):        {tb:.3f} ms  ({(ta - tb) / ta * 100:+.1f}%)")
+    for body, legacy in (("sm90", False), ("legacy", True)):
+        ta = cuda_ms(lambda *a: cur(*a, _legacy=legacy), a_cur)
+        tb = cuda_ms(lambda *a: fold(*a, _legacy=legacy), a_fold)
+        print(f"{body:6s} current (3 half-K products): {ta:.3f} ms")
+        print(f"{body:6s} folded  (2 products):        {tb:.3f} ms  "
+              f"({(ta - tb) / ta * 100:+.1f}%)")
+    print(f"cuDNN VALID conv of the 64 real lanes:  "
+          f"{cuda_ms(cudnn_conv(a_fold[0], a_cur[1]), ()):.3f} ms")
     print(card)
     return 0
 

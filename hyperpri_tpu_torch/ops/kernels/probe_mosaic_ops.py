@@ -2,7 +2,8 @@
 a -inf select, a strided concatenate, stack and broadcast reshapes) on an
 (8, 16, 128) float32 array: the port of the TPU probe
 scripts/probe_mosaic_ops.py:run_case (the JAX package's), one hand-written
-CUDA kernel per op in csrc/probe_mosaic_ops.cu.
+CUDA kernel per op in csrc/probe_mosaic_ops.cu (one thread a float4 of a
+row, gathered from the op's source row; one launch per op).
 
     python -m hyperpri_tpu_torch.ops.kernels.probe_mosaic_ops
 
@@ -64,8 +65,9 @@ def run_case(name: str, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"need an {S} float32 x, got {tuple(x.shape)} {x.dtype}")
     if x.device.type == "cpu":
         return run_case_reference(name, x)
-    if x.device.type != "cuda" or not x.is_contiguous():
-        raise ValueError(f"run_case: need a contiguous CUDA tensor, got {x.device}")
+    if x.device.type != "cuda" or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"run_case: need a contiguous, 16-byte aligned CUDA tensor, got "
+                         f"{x.device}")
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _lib()(list(OPS).index(name), x.data_ptr(), y.data_ptr(),

@@ -1,6 +1,7 @@
 """How a conv3x3_packed, conv3x3_bias_act, conv3x3_wgrad or
-conv3x3_bias_act_shift call runs on the card: which kernel body, with which
-tiling, ring depths, weight residency, persistent grid and pixel splits.
+conv3x3_bias_act_shift call, or a dh-fold probe call, runs on the card:
+which kernel body, with which tiling, ring depths, weight residency,
+persistent grid and pixel splits.
 
 Each plan is a pure function of the call's shape, dtype, mode and layout
 (frames, strides, alignment), so that the CPU tests can hold it without a
@@ -12,11 +13,13 @@ card, and the wrappers choose before the launch, never on a failure.
     in csrc/conv3x3.cu, conv3x3_wgrad_sm90_kernel and
     conv3x3_wgrad_sm90_f32_kernel in csrc/conv3x3_grad.cu,
     conv3x3_shift_sm90_kernel and conv3x3_shift_sm90_f32_kernel in
-    csrc/conv3x3_shift.cu): TMA staging into mbarrier rings and wgmma
-    products (3xTF32 in float32). They take views that TMA can address:
-    every stride a multiple of 16 bytes (a channel pitch that is a multiple
-    of 8 in bf16, of 4 in float32) and a 16-byte aligned logical origin. All
-    four take them in bf16 and float32 (conv3x3_wgrad not in its fold mode).
+    csrc/conv3x3_shift.cu, dh_fold_sm90_kernel in csrc/probe_dh_fold.cu):
+    TMA staging into mbarrier rings and wgmma products (3xTF32 in float32).
+    They take views that TMA can address: every stride a multiple of 16
+    bytes (a channel pitch that is a multiple of 8 in bf16, of 4 in float32)
+    and a 16-byte aligned logical origin. The four conv kernels take them in
+    bf16 and float32 (conv3x3_wgrad not in its fold mode), the probe in
+    bf16.
   - "legacy": the synchronous mma.sync kernels (conv3x3_common.cuh), for
     the weight gradient's fold mode and layouts TMA cannot take (e.g. C =
     238 unframed: 476-byte bf16 or 952-byte float32 pixels).
@@ -24,7 +27,8 @@ card, and the wrappers choose before the launch, never on a failure.
 The shared-memory sums mirror the kernels' (k1_smem_bytes and
 k1f_smem_bytes in conv3x3_packed.cu, k2_smem_bytes and k2f_smem_bytes in
 conv3x3.cu, k3_smem_bytes and k3f_smem_bytes in conv3x3_grad.cu,
-k6_smem_bytes in conv3x3_shift.cu); each plan's must fit an H100 block.
+k6_smem_bytes in conv3x3_shift.cu, k7_smem_bytes in probe_dh_fold.cu);
+each plan's must fit an H100 block.
 `sm90=False` sends a call to the synchronous kernels whatever its layout:
 the wrappers pass it for their private `_legacy` keyword, with which the
 fold mode (which has no Hopper body) is compared bit for bit with the
@@ -114,6 +118,15 @@ K6_BAND_BYTES = TH * (TW + 2) * BOX_ROW
 K6_BSTAGES = 3
 K6_WSTAGES = 6
 K6_WSTAGE = K2_WSTAGE
+# dh_fold_sm90_kernel (the dh-fold probe, both kernels): persistent blocks,
+# one per SM, walking the 8x32 output tiles; a ring of three halo slots (one
+# 64-lane box of 10 x 34 pixels of the pre-padded buffer each) and twelve
+# 8 KiB weight slots (64 channels x 64 outputs of W, read in place): folded's
+# twelve boxes resident, current's (chunk, dh, dw) slices streamed through
+# them; one fixed layout for both.
+K7_HSTAGES = 3
+K7_WSLOTS = 12
+K7_WBOX = CHUNK * 64 * 2
 # the synchronous kernels
 LEGACY_ROW_BYTES = 80
 LEGACY_HALO_PIX = (TH + 2) * (TW + 2)
@@ -152,6 +165,16 @@ class ShiftPlan(NamedTuple):
     stages: int                   # weight ring depth (sm90), 0 for legacy
     grid: Tuple[int, int, int]
     units: int                    # (8x32 tile, O tile) work units
+    smem: int                     # dynamic shared memory of a block
+
+
+class DhFoldPlan(NamedTuple):
+    path: str                     # "sm90" or "legacy"
+    resident: bool                # the weights stay in shared memory (sm90 folded)
+    halo_stages: int              # halo ring depth (sm90), 0 for legacy
+    w_stages: int                 # weight ring depth (sm90 current), else 0
+    grid: Tuple[int, int, int]
+    tiles: int                    # 8x32 output tiles of the call
     smem: int                     # dynamic shared memory of a block
 
 
@@ -198,6 +221,11 @@ def k2f_smem_bytes(stages: int) -> int:
 def k6_smem_bytes() -> int:
     return (ALIGN_SLACK + K6_BSTAGES * K6_BAND_BYTES + K6_WSTAGES * K6_WSTAGE
             + 2 * (K6_BSTAGES + K6_WSTAGES) * 8)
+
+
+def k7_smem_bytes() -> int:
+    return (ALIGN_SLACK + K7_HSTAGES * HALO_SLOT + K7_WSLOTS * K7_WBOX
+            + 2 * (K7_HSTAGES + K7_WSLOTS) * 8)
 
 
 def k3_smem_bytes(stages: int) -> int:
@@ -360,6 +388,45 @@ def shift_tiles(plan: ShiftPlan, n: int, h: int, w: int, o: int, block: int):
         t, tx = divmod(t, tiles_w)
         image, ty = divmod(t, tiles_h)
         out.append((image, ty, tx, ot))
+    return out
+
+
+def dh_fold_plan(n: int, hp: int, wp: int, lanes: int, aligned: bool = True,
+                 sm90: bool = True) -> DhFoldPlan:
+    """The plan of a dh-fold probe call (probe_dh_fold.current at lanes =
+    128, folded at 64) on an (n, hp, wp, lanes) pre-padded bf16 buffer, its
+    (n, hp - 2, wp - 8, 64) output in 8x32 tiles; `aligned`: the data
+    pointers of x and the weights, which the Hopper kernel reads in place by
+    TMA, are 16-byte aligned. The Hopper body launches one persistent block
+    per SM (no more than there are tiles); the synchronous body one block
+    per 8x64 tile."""
+    ho, wo = hp - 2, wp - 8
+    tiles = n * (ho // TH) * (wo // TW)
+    if sm90 and aligned:
+        resident = lanes == 64
+        return DhFoldPlan("sm90", resident, K7_HSTAGES, 0 if resident else K7_WSLOTS,
+                          (min(tiles, SMS), 1, 1), tiles, k7_smem_bytes())
+    return DhFoldPlan("legacy", False, 0, 0, (wo // (2 * TW), ho // TH, n), tiles,
+                      ((TH + 2) * (2 * TW + 2) + 9 * 64) * LEGACY_ROW_BYTES)
+
+
+def dh_fold_tiles(plan: DhFoldPlan, n: int, hp: int, wp: int, block: int):
+    """The (image, tile row, tile column) of the 8x32 output tiles that block
+    `block` of the plan's grid (x-major) computes, in its order: for sm90 the
+    tiles block, block + grid, ... of a walk whose columns run fastest, then
+    rows and images (the kernel's tile_at); for legacy the two 8x32 halves of
+    its 8x64 tile."""
+    ho, wo = hp - 2, wp - 8
+    tiles_h, tiles_w = ho // TH, wo // TW
+    if plan.path == "legacy":
+        x, rest = block % plan.grid[0], block // plan.grid[0]
+        y, z = rest % plan.grid[1], rest // plan.grid[1]
+        return [(z, y, 2 * x), (z, y, 2 * x + 1)]
+    out = []
+    for u in range(block, plan.tiles, plan.grid[0]):
+        t, tx = divmod(u, tiles_w)
+        image, ty = divmod(t, tiles_h)
+        out.append((image, ty, tx))
     return out
 
 

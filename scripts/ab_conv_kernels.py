@@ -1,26 +1,34 @@
-"""Time the port's 3x3 conv kernels at the training steps' calls for one
-source tree, to compare two commits of hyperpri_tpu_torch on the same card
-within one job:
+"""Time the port's 3x3 conv kernels at the training steps' calls, and the
+dh-fold and Mosaic-op probes, for one source tree, to compare two commits of
+hyperpri_tpu_torch on the same card within one job:
 
     git archive <parent> | tar -x -C build/parent      # a gitignored directory
-    python3 scripts/ab_conv_kernels.py build/parent
-    python3 scripts/ab_conv_kernels.py .
-    python3 scripts/ab_conv_kernels.py .
-    python3 scripts/ab_conv_kernels.py build/parent
+    python3 scripts/ab_conv_kernels.py build/parent [GROUP ...]
+    python3 scripts/ab_conv_kernels.py . [GROUP ...]
+    python3 scripts/ab_conv_kernels.py . [GROUP ...]
+    python3 scripts/ab_conv_kernels.py build/parent [GROUP ...]
 
 Each run imports hyperpri_tpu_torch from the given tree (building its kernels
-there) and calls, on seeded inputs: the targets, conv3x3_bias_act_shift
-(ReLU off) at every distinct conv3x3_bias_act call shape of a training step
-(12 calls a step: the bf16 product-loop step, and the float32 UNET and
-CubeNET-64 steps, which make the same calls), in bf16 (group shift_bf16) and
-in float32 (shift_f32); as controls, conv3x3_bias_act itself at those calls
-in their modes, bf16 and float32 (group control). Per call it prints the
-median wrapper time by CUDA events (20 timed calls after 3 warm-ups), the
-device time of the call's kernels from torch.profiler over 10 calls and a
-digest of the call's output bits (two trees whose digests agree computed the
-same bits); then, per kernel, dtype and group, the sums over the calls (time
-x multiplicity). The card's name and power limit come first. Needs a CUDA
-device; imports no JAX.
+there) and calls, on seeded inputs, the groups named (all when none is):
+  - shift_bf16, shift_f32: conv3x3_bias_act_shift (ReLU off) at every
+    distinct conv3x3_bias_act call shape of a training step (12 calls a
+    step: the bf16 product-loop step, and the float32 UNET and CubeNET-64
+    steps, which make the same calls); control: conv3x3_bias_act itself at
+    those calls in their modes, bf16 and float32;
+  - dh_fold: the dh-fold probe's current and folded kernels at the probe's
+    2x610x1032 buffers, through the public functions only (each tree's
+    default body); dh_fold_control: one cuDNN call of the same function (a
+    VALID 3x3 conv of the 64 real lanes, F.conv2d), built here so that
+    every tree runs the same call;
+  - mosaic: the eight Mosaic-op kernels on the probe's 8x16x128 input;
+    mosaic_control: the eight PyTorch ops.
+Per call it prints the median wrapper time by CUDA events (20 timed calls
+after 3 warm-ups), the device time of the call's kernels from torch.profiler
+over 10 calls (the conv, dh-fold and Mosaic-op kernels by name; every kernel
+of a control call) and a digest of the call's output bits (two trees whose
+digests agree computed the same bits); then, per kernel, dtype and group,
+the sums over the calls (time x multiplicity). The card's name and power
+limit come first. Needs a CUDA device; imports no JAX.
 """
 
 import os
@@ -57,7 +65,21 @@ CALLS = [(label, "shift", shape, o, "conv", dtype, count, f"shift_{dtype}")
          for dtype in ("bf16", "f32") for label, shape, o, count in SHIFT_CALLS]
 CALLS += [(label, "halo", shape, o, mode, dtype, count, "control")
           for dtype in ("bf16", "f32") for label, shape, o, mode, count in STEP_CALLS]
+# The probes: (label, kernel, shape, O, mode, dtype, calls, group); the dh-fold
+# shape is the probe's output, the Mosaic ops' their one input.
+PROBE_SHAPE = (2, 608, 968)
+MOSAIC_OPS = ["roll_axis0", "roll_axis1", "repeat_axis0", "repeat_axis1", "neg_inf_where",
+              "stride2_axis0", "stack_reshape_axis0", "bcast_reshape_axis1"]
+CALLS += [(name, "dh_fold", PROBE_SHAPE, 64, name, "bf16", 1, "dh_fold")
+          for name in ("current", "folded")]
+CALLS += [("cuDNN VALID conv", "cudnn", PROBE_SHAPE, 64, "valid", "bf16", 1, "dh_fold_control")]
+CALLS += [(name, "mosaic", (8, 16, 128), 128, name, "f32", 1, "mosaic") for name in MOSAIC_OPS]
+CALLS += [(name, "torch_op", (8, 16, 128), 128, name, "f32", 1, "mosaic_control")
+          for name in MOSAIC_OPS]
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# the device kernels each call's device time sums (None: every kernel)
+DEVICE_KEYS = {"shift": "conv3x3", "halo": "conv3x3", "dh_fold": "dh_fold",
+               "mosaic": "mosaic_op", "cudnn": None, "torch_op": None}
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -76,7 +98,9 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, key, reps=10):
+    """Device milliseconds a call of the CUDA kernels whose names hold `key`
+    (every kernel when None), by torch.profiler over reps calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -84,8 +108,9 @@ def device_ms(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "conv3x3" in e.key) / reps / 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kernels
+               if key is None or key in e.key) / reps / 1e3
 
 
 def digest(out) -> str:
@@ -101,6 +126,15 @@ def digest(out) -> str:
 
 
 def make_call(kernels, kernel, shape, o, mode, dtype, gen):
+    if kernel in ("dh_fold", "cudnn"):
+        return make_probe_call(kernel, mode)
+    if kernel in ("mosaic", "torch_op"):
+        from hyperpri_tpu_torch.ops.kernels import probe_mosaic_ops
+
+        x = probe_mosaic_ops.probe_input("cuda")
+        if kernel == "mosaic":
+            return lambda: probe_mosaic_ops.run_case(mode, x)
+        return lambda: probe_mosaic_ops.run_case_reference(mode, x)
     conv3x3_bias_act_shift, conv3x3_bias_act = kernels
     n, h, w, c = shape
     x = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
@@ -118,11 +152,33 @@ def make_call(kernels, kernel, shape, o, mode, dtype, gen):
     return lambda: conv3x3_bias_act(x, wk, b, relu=False, with_stats=True)
 
 
+def make_probe_call(kernel, mode):
+    """A dh-fold probe kernel through its public function on the probe's
+    inputs (`build`, seed 0), or the cuDNN call of the same function."""
+    import torch.nn.functional as F
+
+    from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
+
+    n, h, w = PROBE_SHAPE
+    (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=n, h=h, w=w, device="cuda")
+    if kernel == "dh_fold":
+        return (lambda: cur(*a_cur)) if mode == "current" else (lambda: fold(*a_fold))
+    x64 = a_fold[0]
+    wo = x64.shape[2] - 8
+    # W[dh][c, dw*64 + o] -> OIHW weights of the real 64 lanes
+    w_oihw = (a_cur[1][:, :64].reshape(3, 64, 3, 64).permute(3, 1, 0, 2)
+              .contiguous(memory_format=torch.channels_last))
+    x_cl = x64.permute(0, 3, 1, 2)[..., :wo + 2]
+    return lambda: F.conv2d(x_cl, w_oihw)
+
+
 def main():
     args = sys.argv[1:]
-    if len(args) != 1 or not torch.cuda.is_available():
+    groups = {call[-1] for call in CALLS}
+    if not args or not set(args[1:]) <= groups or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
+    wanted = set(args[1:]) or groups
     root = os.path.abspath(args[0])
     sys.path.insert(0, root)
     os.chdir(root)
@@ -137,19 +193,22 @@ def main():
     print(f"{args[0]} on {card}", flush=True)
     sums = {}
     for label, kernel, shape, o, mode, dtype, count, group in CALLS:
+        if group not in wanted:
+            continue
         fn = make_call(kernels, kernel, shape, o, mode, DTYPES[dtype], gen)
         bits = digest(fn())
-        ms, dev = cuda_ms(fn), device_ms(fn)
-        total = sums.setdefault(f"{kernel} {dtype} {group}", [0.0, 0.0, 0])
+        ms, dev = cuda_ms(fn), device_ms(fn, DEVICE_KEYS[kernel])
+        name = f"{kernel} {mode}" if kernel == "dh_fold" else kernel
+        total = sums.setdefault(f"{name} {dtype} {group}", [0.0, 0.0, 0])
         total[0] += ms * count
         total[1] += dev * count
         total[2] += count
-        print(f"  {label:34s} {kernel:6s} {dtype:4s} x{count} wrapper {ms:.4f} ms, device "
+        print(f"  {label:34s} {kernel:8s} {dtype:4s} x{count} wrapper {ms:.4f} ms, device "
               f"{dev:.4f} ms, bits {bits}", flush=True)
         del fn
         torch.cuda.empty_cache()
     for key, (ms, dev, count) in sums.items():
-        print(f"  sum {key:22s} over {count:2d} calls: wrapper {ms:.4f} ms, device {dev:.4f} ms")
+        print(f"  sum {key:32s} over {count:2d} calls: wrapper {ms:.4f} ms, device {dev:.4f} ms")
     return 0
 
 

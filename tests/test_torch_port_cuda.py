@@ -613,21 +613,79 @@ def test_shift_legacy_layouts(cuda_device):
         assert _path_delta(conv3x3_bias_act_shift, before) == {"legacy": 1}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["current", "folded"])
-def test_dh_fold_probe_matches_plain(cuda_device, kernel):
+def _dh_fold_case(device, kernel, size):
+    """(wrapper, args, plain output) of one dh-fold probe kernel on the
+    probe's inputs: "small" 1x66x264 buffers, or "probe" 2x610x1032."""
     from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
 
-    (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=1, h=64, w=200, device=cuda_device)
-    fn, args = (cur, a_cur) if kernel == "current" else (fold, a_fold)
-    ref = (probe_dh_fold.current_reference(*a_cur) if kernel == "current"
-           else probe_dh_fold.folded_reference(*a_fold))
-    launches = fn.launches
+    n, h, w = (1, 64, 200) if size == "small" else (2, 608, 968)
+    (cur, a_cur), (fold, a_fold) = probe_dh_fold.build(n=n, h=h, w=w, device=device)
+    if kernel == "current":
+        return cur, a_cur, probe_dh_fold.current_reference(*a_cur)
+    return fold, a_fold, probe_dh_fold.folded_reference(*a_fold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["small", "probe"])
+@pytest.mark.parametrize("kernel", ["current", "folded"])
+def test_dh_fold_probe_matches_plain(cuda_device, kernel, size):
+    """The Hopper body (the plan's, for aligned operands) within one bf16 ulp
+    of the plain version, twice with the same bits."""
+    from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
+
+    fn, args, ref = _dh_fold_case(cuda_device, kernel, size)
+    assert probe_dh_fold.call_plan(*args).path == "sm90"
+    launches, before = fn.launches, dict(fn.launches_by_path)
     out = fn(*args)
-    assert fn.launches == launches + 1
+    again = fn(*args)
+    assert fn.launches == launches + 2 and _path_delta(fn, before) == {"sm90": 2}
     torch.cuda.synchronize()
-    assert out.shape == (1, 64, 256, 64) and bool(torch.isfinite(out.float()).all())
+    n, hp, wp, _ = args[0].shape
+    assert out.shape == (n, hp - 2, wp - 8, 64) and bool(torch.isfinite(out.float()).all())
     assert _bf16_ulp_error(out, ref) <= 1.0
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["small", "probe"])
+@pytest.mark.parametrize("kernel", ["current", "folded"])
+def test_dh_fold_probe_matches_the_synchronous_body(cuda_device, kernel, size):
+    """The Hopper body within one bf16 ulp of the synchronous body
+    (`_legacy=True`) on the same inputs, and each body counted as such."""
+    fn, args, _ = _dh_fold_case(cuda_device, kernel, size)
+    before = dict(fn.launches_by_path)
+    out = fn(*args)
+    legacy = fn(*args, _legacy=True)
+    assert _path_delta(fn, before) == {"sm90": 1, "legacy": 1}
+    torch.cuda.synchronize()
+    assert _bf16_ulp_error(out, legacy) <= 1.0
+
+
+@pytest.mark.cuda
+def test_dh_fold_probe_unaligned_weights_take_the_synchronous_body(cuda_device):
+    """Weights whose data pointer is 2 bytes off a 16-byte boundary cannot be
+    read in place by TMA: the plan sends the call to the synchronous body,
+    which packs them. An unaligned x, which both bodies read in 16-byte
+    units, is refused before any launch."""
+    from hyperpri_tpu_torch.ops.kernels import probe_dh_fold
+
+    fn, (x64, w01, w2), ref = _dh_fold_case(cuda_device, "folded", "small")
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)[1:].view(t.shape)
+        return out.copy_(t)
+
+    w01_off = shifted(w01)
+    assert probe_dh_fold.call_plan(x64, w01_off, w2).path == "legacy"
+    before = dict(fn.launches_by_path)
+    out = fn(x64, w01_off, w2)
+    assert _path_delta(fn, before) == {"legacy": 1}
+    torch.cuda.synchronize()
+    assert _bf16_ulp_error(out, ref) <= 1.0
+    launches = fn.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fn(shifted(x64), w01, w2)
+    assert fn.launches == launches
 
 
 @pytest.mark.cuda

@@ -5,7 +5,9 @@ on the arrays `build` returns), within one bf16 ulp; each Mosaic-op body of
 scripts/probe_mosaic_ops.py in an interpret-mode pallas_call against the
 port's plain op, bit for bit (pltpu.roll runs in interpret mode, not outside
 a kernel). On CPU tensors the port's wrappers run their plain versions: the
-code that chip_smoke.py holds the CUDA kernels against.
+code that chip_smoke.py holds the CUDA kernels against. Also the dh-fold
+Hopper kernel's in-place weight map, emulated on the CPU, against the rows
+the synchronous kernel's packing gives.
 """
 
 import importlib.util
@@ -80,6 +82,42 @@ def test_dh_fold_rejects_ragged_tiles():
     with pytest.raises(ValueError):
         probe_dh_fold.current(torch.zeros((1, 17, 136, 128), dtype=torch.bfloat16),
                               torch.zeros((3, 128, 192), dtype=torch.bfloat16))
+
+
+def _weight_box(w, tap, chunk, dw):
+    """The (64 channels, 64 outputs) box of w (taps, 128, 192) that the
+    Hopper kernel's tensor map reads in place at coordinates (dw * 64,
+    chunk * 64, tap): the map's dims (192, 128, taps) and strides (1, 192,
+    128 * 192 elements; csrc/probe_dh_fold.cu, weight_map) applied to w's
+    storage."""
+    dims, strides = (192, 128, w.shape[0]), (1, 192, 128 * 192)
+    o = torch.arange(dw * 64, (dw + 1) * 64)
+    c = torch.arange(chunk * 64, (chunk + 1) * 64)
+    assert tap < dims[2] and o[-1] < dims[0] and c[-1] < dims[1]
+    flat = w.contiguous().reshape(-1)
+    return flat[tap * strides[2] + c[:, None] * strides[1] + o[None, :] * strides[0]]
+
+
+@pytest.mark.parametrize("weights", ["current", "w01", "w2"])
+def test_dh_fold_weight_map_boxes_are_the_packed_rows(weights):
+    """The Hopper kernel reads W (taps, 128, 192) in place through a tensor
+    map of dims (192, 128, taps), boxes of 64 outputs x 64 channels at (dw *
+    64, chunk * 64, tap). Emulated on the CPU by the map's dims and strides,
+    each (tap, chunk, dw) box is W's block of those channels and outputs
+    and, transposed, the two 32-lane rows [tap][2*chunk + j][dw] that `_pack`
+    gives the synchronous body: both bodies multiply the same weights."""
+    (_, (_, w)), (_, (_, w01, w2)) = probe_dh_fold.build(n=1, h=16, w=100, device="cpu",
+                                                         seed=3)
+    w = {"current": w, "w01": w01, "w2": w2}[weights]
+    packed = probe_dh_fold._pack(w)
+    for tap in range(w.shape[0]):
+        for chunk in range(2):
+            for dw in range(3):
+                box = _weight_box(w, tap, chunk, dw)
+                block = w[tap, chunk * 64:(chunk + 1) * 64, dw * 64:(dw + 1) * 64]
+                assert box.shape == (64, 64) and torch.equal(box, block)
+                for j in range(2):
+                    assert torch.equal(box[j * 32:(j + 1) * 32].T, packed[tap, 2 * chunk + j, dw])
 
 
 _JAX_BODIES = {

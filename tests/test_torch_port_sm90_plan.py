@@ -572,3 +572,71 @@ def test_shift_grid_covers_every_tile_once(shape):
             assert sorted(t for walk in walks for t in walk) == want
             if plan.path == "sm90":
                 assert plan.grid == (min(len(want), sm90_plan.SMS), 1, 1)
+
+
+# The dh-fold probe (row 7): its Hopper body's plan. No model path calls it.
+# Shapes (n, hp, wp): the probe's 2x610x1032 buffers, the cuda tests' small
+# one and a single-tile one.
+_DH_FOLD_SHAPES = [(2, 610, 1032), (1, 66, 264), (1, 10, 72)]
+
+
+@pytest.mark.parametrize("lanes", [128, 64])
+@pytest.mark.parametrize("shape", _DH_FOLD_SHAPES)
+def test_dh_fold_plan_takes_sm90(shape, lanes):
+    """Aligned operands take the Hopper body: folded (64 lanes) keeps its
+    weights resident, current (128) streams them through twelve stages;
+    three halo slots; one persistent block per SM, no more than there are
+    8x32 tiles."""
+    n, hp, wp = shape
+    plan = sm90_plan.dh_fold_plan(n, hp, wp, lanes)
+    tiles = n * (hp - 2) // 8 * ((wp - 8) // 32)
+    assert plan.path == "sm90" and plan.tiles == tiles
+    assert plan.resident == (lanes == 64)
+    assert (plan.halo_stages, plan.w_stages) == (3, 0 if lanes == 64 else 12)
+    assert plan.grid == (min(tiles, sm90_plan.SMS), 1, 1)
+    if shape == (2, 610, 1032):
+        assert plan.tiles == 4864 and plan.grid == (132, 1, 1)
+
+
+@pytest.mark.parametrize("lanes", [128, 64])
+def test_dh_fold_plan_fits_shared_memory(lanes):
+    """The Hopper body's shared memory is csrc/probe_dh_fold.cu's
+    k7_smem_bytes term by term (the 1 KiB alignment slack, three halo slots
+    of 10x34 pixels of 128 bytes rounded up to 1 KiB, twelve 8 KiB weight
+    slots, a full and an empty barrier for each), the same for both kernels,
+    and fits one H100 block; so does the synchronous body's."""
+    plan = sm90_plan.dh_fold_plan(2, 610, 1032, lanes)
+    assert plan.smem == 1024 + 3 * 44032 + 12 * 8192 + 2 * (3 + 12) * 8 == 231_664
+    assert plan.smem == sm90_plan.k7_smem_bytes() <= sm90_plan.SMEM_LIMIT
+    legacy = sm90_plan.dh_fold_plan(2, 610, 1032, lanes, sm90=False)
+    assert legacy.smem == (10 * 66 + 9 * 64) * 80 <= sm90_plan.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("sm90", [True, False])
+@pytest.mark.parametrize("shape", _DH_FOLD_SHAPES)
+def test_dh_fold_tiles_cover_every_tile_once(shape, sm90):
+    """Each (image, 8x32 tile) of the output is computed exactly once, by the
+    Hopper body's persistent blocks (every block with a tile) or by the
+    synchronous body's one block per 8x64 tile."""
+    n, hp, wp = shape
+    plan = sm90_plan.dh_fold_plan(n, hp, wp, 64, sm90=sm90)
+    want = [(i, ty, tx) for i in range(n) for ty in range((hp - 2) // 8)
+            for tx in range((wp - 8) // 32)]
+    gx, gy, gz = plan.grid
+    walks = [sm90_plan.dh_fold_tiles(plan, n, hp, wp, b) for b in range(gx * gy * gz)]
+    assert plan.tiles == len(want) and all(walks)
+    assert sorted(t for walk in walks for t in walk) == want
+    if sm90:
+        assert [len(walk) for walk in walks] == [len(range(b, len(want), gx)) for b in range(gx)]
+
+
+@pytest.mark.parametrize("lanes", [128, 64])
+@pytest.mark.parametrize("why", ["unaligned", "sm90_off"])
+def test_dh_fold_plan_legacy_cases(lanes, why):
+    """Unaligned operands (TMA cannot read them) and sm90=False (what the
+    wrappers pass for `_legacy=True`) take the synchronous body: one block
+    per 8x64 tile, grid (columns / 64, rows / 8, images)."""
+    kw = {"aligned": False} if why == "unaligned" else {"sm90": False}
+    plan = sm90_plan.dh_fold_plan(2, 610, 1032, lanes, **kw)
+    assert (plan.path, plan.resident, plan.halo_stages, plan.w_stages) == ("legacy", False, 0, 0)
+    assert plan.grid == (16, 76, 2) and plan.tiles == 4864
