@@ -21,8 +21,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
       convs' weight split, with the pitch C and with whole 32-channel
       chunks, bit for bit against its plain version);
       the kernels on no model path too: the weight
-      gradient's fold mode (every framing, its dW bit-equal to the non-fold
-      synchronous kernel on the materialized g_eff), the shift conv (at the
+      gradient's fold mode (every framing, on the body its plan names: the
+      Hopper one, "sm90", wherever TMA can address x, g and y; its dW
+      bit-equal to the non-fold kernel on the same body on the materialized
+      g_eff, and where it took "sm90" the synchronous fold's dW bit-equal to
+      the synchronous non-fold kernel's), the shift conv (at the
       ragged shapes and every conv3x3_bias_act call shape of the paths, bf16
       x also written as float32; its Hopper body, "sm90", wherever TMA can
       address x and the weights, C = 238 and 61 on the synchronous one, each
@@ -57,18 +60,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
       beside one PyTorch op; the kernels on no model path (the weight
       gradient's fold mode at the step's conv3x3_wgrad calls, the shift conv
       at its conv3x3_bias_act calls, beside the halo kernel on the same
-      inputs: bf16 at the product-loop step's, float32 at the UNET and the
+      inputs, both also on the synchronous body: bf16 at the product-loop
+      step's, float32 at the UNET and the
       CubeNET-64 step's; the dh-fold probe's two kernels on both bodies
       beside cuDNN's VALID conv; the eight Mosaic-op kernels and their
       PyTorch ops by CUDA events and by the profiler's device time);
   (l) the fold mode against today's route at each conv3x3_wgrad call of one
       bf16 product-loop step and one CubeNET-64 float32 step, in turns: g_eff
       materialized, then dW and db, against dW and db from the raw cotangent
-      in one kernel, with and without the g_eff pass the adjoint conv still
-      needs; summed per step; both routes' dW held against float64 (in
-      float32 today's route is the Hopper body and the fold mode the
-      synchronous one, at every float32 weight-gradient shape of the UNET
-      and CubeNET-64 steps);
+      in one kernel (on its Hopper body, and on the synchronous one), with
+      and without the g_eff pass the adjoint conv still needs; summed per
+      step; both routes' dW held against float64 (at every float32
+      weight-gradient shape of the UNET and CubeNET-64 steps);
   (g) a torch.profiler breakdown of one kernel-route training step;
   (h) the product loop: a synthetic experiment tree of 608x968 cubes with 299
       stored bands, train_net in bf16 for three epochs of one batch-2 step
@@ -641,16 +644,19 @@ class Case:
         pa, pb = affine_inputs(c, gen) if "prologue" in mode else (None, None)
         self.logical = dict(x=x, gy=gy, y=y, gsum=gsum, gsumsq=gsumsq, pa=pa, pb=pb)
         self.fn, self.ref = conv3x3_grad.conv3x3_wgrad, conv3x3_grad.conv3x3_wgrad_reference
-        self.materialized_kwargs = {}
+        # a materialized g_eff goes to the non-fold kernel framed as gy is
+        self.frame_g = lambda t: t
         if "pre_padded" in flags:
             x = framed_copy(x, 1)
-            self.kwargs["pre_padded_c"] = self.materialized_kwargs["pre_padded_c"] = c
+            self.kwargs["pre_padded_c"] = c
         if "arena_in" in flags:
             x = framed_copy(x, 8)
-            self.kwargs["arena_in"] = self.materialized_kwargs["arena_in"] = True
+            self.kwargs["arena_in"] = True
         if "arena_g" in flags:
             gy, y = framed_copy(gy, 8), framed_copy(y, 8)
             self.kwargs["arena_g"] = True
+            self.frame_g = lambda t: framed_copy(t, 8)
+        self.materialized_kwargs = dict(self.kwargs)
         self.args = (x, gy, pa, pb)
         self.kwargs.update(y=y, gsum=gsum, gsumsq=gsumsq)
         self.library = None
@@ -659,30 +665,55 @@ class Case:
         self.nbytes = esize * pixels * (c + 2 * o) + 4.0 * (9 * c * o + o) + 8.0 * o
 
     def verify_fold(self):
-        """Fold mode against its plain version: dW and db within SUM_REL of
-        their absolute terms, the same bits twice, and dW bit-equal to the
-        non-fold synchronous kernel on the materialized g_eff (the same
-        rounded tile, summed in the same order)."""
+        """Fold mode against its plain version on the body its plan names,
+        launched there: dW and db within SUM_REL of their absolute terms, the
+        same bits twice, and dW bit-equal to the non-fold kernel on the same
+        body on the materialized g_eff, framed alike (the same rounded tiles,
+        summed in the same order; a non-fold arena_g call's O is the arena's
+        channel width, and its columns past O, the zero lanes', are not
+        compared). Where the plan takes the Hopper body, the
+        synchronous fold (`_legacy=True`) too: within SUM_REL, and its dW
+        bit-equal to the synchronous non-fold kernel's. self.fold_report
+        names the body and the synchronous fold's error."""
         from hyperpri_tpu_torch.ops.kernels import _plain
 
-        (dw, db), (rdw, rdb) = self.run(), self.plain()
-        dw2, db2 = self.run()
+        body = self.body()
+        before = dict(self.fn.launches_by_path)
+        (dw, db), (dw2, db2) = self.run(), self.run()
+        taken = {k for k, v in self.fn.launches_by_path.items() if v != before.get(k, 0)}
+        check(taken == {body}, f"{self.label()}: launched {taken}, the plan says {body}")
+        rdw, rdb = self.plain()
         lg = self.logical
         g_eff = _plain.fold_stats_cotangent(lg["gy"], lg["gsum"], lg["gsumsq"], lg["y"],
                                             self.dtype)
-        materialized = self.fn(self.args[0], g_eff, lg["pa"], lg["pb"], _legacy=True,
-                               **self.materialized_kwargs)
+        g_effk = self.frame_g(g_eff)
+        o = self.call["o"]
+        materialized = self.fn(self.args[0], g_effk, lg["pa"], lg["pb"],
+                               _legacy=body == "legacy", **self.materialized_kwargs)[..., :o]
         z = _plain.prologue_act(lg["x"], lg["pa"], lg["pb"])
         scale = self.ref(z.abs(), g_eff.abs())
+        db_scale = g_eff.float().abs().sum(dim=(0, 1, 2))
         torch.cuda.synchronize()
         check(bool(torch.isfinite(dw).all()) and bool(torch.isfinite(db).all()),
               f"{self.label()}: non-finite dW or db")
         check(torch.equal(dw, dw2) and torch.equal(db, db2), f"{self.label()}: two runs differ")
         check(torch.equal(dw, materialized),
-              f"{self.label()}: dW differs from the non-fold kernel on the materialized g_eff")
-        rel = max(sum_error(dw, rdw, scale),
-                  sum_error(db, rdb, g_eff.float().abs().sum(dim=(0, 1, 2))))
+              f"{self.label()}: dW differs from the non-fold kernel ({body}) on the "
+              f"materialized g_eff")
+        rel = max(sum_error(dw, rdw, scale), sum_error(db, rdb, db_scale))
         check(rel <= SUM_REL, f"{self.label()}: dW or db off by {rel} of its absolute sum")
+        self.fold_report = body
+        if body == "sm90":
+            sdw, sdb = self.fn(*self.args, _legacy=True, **self.kwargs)
+            sync = self.fn(self.args[0], g_effk, lg["pa"], lg["pb"], _legacy=True,
+                           **self.materialized_kwargs)[..., :o]
+            torch.cuda.synchronize()
+            check(torch.equal(sdw, sync), f"{self.label()}: the synchronous fold's dW differs "
+                                          f"from the synchronous non-fold kernel's")
+            rel_s = max(sum_error(sdw, rdw, scale), sum_error(sdb, rdb, db_scale))
+            check(rel_s <= SUM_REL,
+                  f"{self.label()}: the synchronous fold off by {rel_s} of its absolute sum")
+            self.fold_report += f", synchronous fold {rel_s:.2e}"
         return max((dw - rdw).abs().max().item(), (db - rdb).abs().max().item()), rel
 
     def run(self):
@@ -690,8 +721,8 @@ class Case:
 
     def body(self) -> str:
         """The kernel body ("sm90" or "legacy") a conv3x3_packed,
-        conv3x3_bias_act, conv3x3_wgrad or conv3x3_bias_act_shift call takes,
-        by its plan."""
+        conv3x3_bias_act, conv3x3_wgrad (fold mode too) or
+        conv3x3_bias_act_shift call takes, by its plan."""
         from hyperpri_tpu_torch.ops.kernels import conv3x3_shift, sm90_plan
         from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import call_plan
 
@@ -702,13 +733,15 @@ class Case:
         if kernel == "conv3x3_bias_act_shift":
             x, wk, _ = self.args
             return conv3x3_shift.call_plan(x, wk.to(x.dtype).contiguous()).path
+        if kernel in ("conv3x3_wgrad", "conv3x3_wgrad_fold"):
+            from hyperpri_tpu_torch.ops.kernels import conv3x3_grad
+
+            x, g, pa, _ = self.args
+            return conv3x3_grad.call_plan(x, g, pa, **self.kwargs).path
         n, h, w, c = self.call["shape"]
-        x, other = self.args[:2]   # (x, w) or (x, g), as the wrapper sees them
-        aligned = x.data_ptr() % 16 == 0 and other.data_ptr() % 16 == 0
-        if kernel == "conv3x3_bias_act":
-            return sm90_plan.bias_act_plan(n, h, w, c, self.call["o"], self.dtype, aligned).path
-        return sm90_plan.wgrad_plan(n, h, w, c, self.call["o"], self.dtype, x.shape[-1],
-                                    other.shape[-1], False, aligned).path
+        x, wk = self.args[:2]   # (x, w) as the wrapper sees them
+        aligned = x.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0
+        return sm90_plan.bias_act_plan(n, h, w, c, self.call["o"], self.dtype, aligned).path
 
     def versus_legacy(self):
         """A Hopper call against the synchronous body on the same inputs
@@ -858,7 +891,35 @@ def phase_build():
                   if "registers" in ln or "spill" in ln or "warning" in ln.lower()
                   or "Compiling entry" in ln or "(C75" in ln]
         print(f"-- {name}\n" + "\n".join(report))
+        if name == "conv3x3_grad":
+            check_fold_report(log)
         _build.load(name)
+
+
+def check_fold_report(log: str):
+    """The weight gradient's Hopper fold instantiations (FOLD = true:
+    `conv3x3_wgrad_sm90_kernel<true>`, `conv3x3_wgrad_sm90_f32_kernel<true>`)
+    in ptxas's report: 0 spill bytes and no wgmma serialization (C75xx)."""
+    entries, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            current = line.split("'")[1] if "'" in line else line
+            entries[current] = []
+        elif current is not None:
+            entries[current].append(line)
+    fold = {k: v for k, v in entries.items() if "conv3x3_wgrad_sm90" in k and "ILb1E" in k}
+    check(len(fold) == 2, f"ptxas: {len(fold)} fold instantiations of the Hopper bodies, not 2")
+    for entry, lines in fold.items():
+        text = "\n".join(lines)
+        kind = "f32" if "f32" in entry else "bf16"
+        regs = [ln.split("Used ")[1].split(" registers")[0] for ln in lines if "registers" in ln]
+        # a C75xx warning names its function, wherever ptxas prints it
+        serial = [ln for ln in log.splitlines() if "(C75" in ln and (entry in ln or ln in lines)]
+        check("0 bytes spill stores, 0 bytes spill loads" in text and not serial,
+              f"ptxas: the {kind} Hopper fold body spills or serializes its wgmmas:\n{text}"
+              + "\n".join(serial))
+        print(f"fold instantiation ({kind}): {regs[0] if regs else '?'} registers, "
+              f"0 spill bytes, no C75xx")
 
 
 def phase_kernel_check(calls):
@@ -917,6 +978,8 @@ def phase_kernel_check(calls):
                 check(vs <= limit, f"{case.label()}: {vs} (limit {limit}) off the synchronous body")
                 body += f", vs synchronous {vs:.2e}"
             body = f" [{body}]"
+        elif call["kernel"] == "conv3x3_wgrad_fold":
+            body = f" [{case.fold_report}]"
         print(f"{case.label()}{body}: max abs {abs_err:.3e}, rel to |terms| {rel:.2e}")
         worst = errors.setdefault((call["kernel"], call["dtype"]), [0.0, 0.0])
         worst[0], worst[1] = max(worst[0], abs_err), max(worst[1], rel)
@@ -1449,7 +1512,7 @@ def phase_times(calls, card):
                      "library_tf32_ms": library_tf32_ms,
                      "library_benchmark_ms": library_bench_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "flops": case.flops, "bytes": case.nbytes})
-        if (call["kernel"] in ("conv3x3_packed", "conv3x3_bias_act_shift")
+        if (call["kernel"] in ("conv3x3_packed", "conv3x3_bias_act_shift", "conv3x3_wgrad_fold")
                 or (call["kernel"] in ("conv3x3_bias_act", "conv3x3_wgrad")
                     and call["dtype"] == "f32")):
             # the body the plan chose, and the synchronous body on the same call
@@ -1607,30 +1670,32 @@ def time_mosaic_ops():
 
 def phase_fold_ab(calls_by_dtype):
     """(l) The fold mode against today's route at each conv3x3_wgrad call of
-    one step, in turns on one card (a, b, c, c, b, a):
+    one step, in turns on one card (a, b, c, d, e, e, d, c, b, a):
       a) today's route: g_eff = fold_stats_cotangent(gy, gsum, gsumsq, y) in
          float32 rounded to the compute dtype, conv3x3_wgrad on it, db = its
          float32 sum;
-      b) conv3x3_wgrad in fold mode: (dW, db) from the raw gy and y;
+      b) conv3x3_wgrad in fold mode: (dW, db) from the raw gy and y, on the
+         body its plan takes (the Hopper body at every call of both steps);
       c) b plus the g_eff pass the adjoint conv still reads (none for the
          network's first conv, which has no adjoint);
       d) conv3x3_wgrad alone on the materialized g_eff (a's kernel), the
-         yardstick of the fold mode's own cost.
-    Also holds b's dW bit-equal to the synchronous kernel's on the
-    materialized g_eff (the fold mode's own body and summation order), a's
+         yardstick of the fold mode's own cost;
+      e) b on the synchronous body (`_legacy=True`).
+    Also holds b's dW bit-equal to the non-fold kernel's on the same body on
+    the materialized g_eff, e's to the synchronous non-fold kernel's, a's
     dW (the Hopper kernel's, bf16 and float32) and b's each within SUM_REL of
     a float64 evaluation (g_eff has a per-channel offset: one-signed terms,
     where float32 chains show), and b's db within SUM_REL of a's. The
     CubeNET-64 float32 step's calls hold every float32 weight-gradient shape
     of the UNET step too.
-    Summed per step: ms of a, b, c and d."""
+    Summed per step: ms of a, b, c, d and e."""
     phase("(l) the weight gradient's fold mode against today's route, per step")
     from hyperpri_tpu_torch.ops.kernels import _plain
 
     results = {}
     for dtype, calls in calls_by_dtype.items():
         gen = torch.Generator(device="cuda").manual_seed(10)
-        sums = {"a": 0.0, "b": 0.0, "c": 0.0, "d": 0.0}
+        sums = {"a": 0.0, "b": 0.0, "c": 0.0, "d": 0.0, "e": 0.0}
         for call in distinct([c for c in unrouted_calls(calls)
                               if c["kernel"] == "conv3x3_wgrad_fold"]):
             case = Case(call, gen)
@@ -1638,6 +1703,7 @@ def phase_fold_ab(calls_by_dtype):
             lg = case.logical
             wgrad = case.fn
             first = "pre_padded" in call.get("framing", ())
+            body = case.body()
 
             def today():
                 g_eff = _plain.fold_stats_cotangent(gy, kw["gsum"], kw["gsumsq"], kw["y"],
@@ -1653,6 +1719,9 @@ def phase_fold_ab(calls_by_dtype):
             def kernel_only():
                 return wgrad(x, g_mat, pa, pb, **case.materialized_kwargs)
 
+            def fold_sync():
+                return wgrad(*case.args, _legacy=True, **kw)
+
             def fold_and_adjoint_pass():
                 out = case.run()
                 if not first:
@@ -1660,11 +1729,15 @@ def phase_fold_ab(calls_by_dtype):
                                                 case.dtype)
                 return out
 
-            (dw_a, db_a), (dw_b, db_b) = today(), fold()
+            (dw_a, db_a), (dw_b, db_b), (dw_e, _) = today(), fold(), fold_sync()
+            dw_body = wgrad(x, g_mat, pa, pb, _legacy=body == "legacy",
+                            **case.materialized_kwargs)
             dw_sync = wgrad(x, g_mat, pa, pb, _legacy=True, **case.materialized_kwargs)
             torch.cuda.synchronize()
-            check(torch.equal(dw_sync, dw_b),
-                  f"{case.label()}: fold dW differs from the synchronous kernel on g_eff")
+            check(torch.equal(dw_body, dw_b),
+                  f"{case.label()}: fold dW differs from the non-fold kernel ({body}) on g_eff")
+            check(torch.equal(dw_sync, dw_e), f"{case.label()}: the synchronous fold's dW "
+                                              f"differs from the synchronous kernel on g_eff")
             g_log = _plain.fold_stats_cotangent(lg["gy"], lg["gsum"], lg["gsumsq"], lg["y"],
                                                 case.dtype)
             z = _plain.prologue_act(lg["x"], lg["pa"], lg["pb"])
@@ -1676,25 +1749,28 @@ def phase_fold_ab(calls_by_dtype):
                                       f"absolute terms (float64)")
             rel_a, rel_b = rels["today's route"], rels["the fold mode"]
             print(f"{case.label()}: dW off float64 by, of its absolute terms: today's route "
-                  f"{rel_a:.3e}, the fold mode (synchronous body) {rel_b:.3e}; limit "
+                  f"{rel_a:.3e}, the fold mode ({body} body) {rel_b:.3e}; limit "
                   f"{SUM_REL:.0e}")
             g_abs = g_log.float().abs().sum(dim=(0, 1, 2))
             check(sum_error(db_b, db_a, g_abs) <= SUM_REL, f"{case.label()}: fold db off")
             del g_log, z, exact, scale
-            times = {"a": [], "b": [], "c": [], "d": []}
-            for key in ("a", "b", "c", "d", "d", "c", "b", "a"):
-                fn = {"a": today, "b": fold, "c": fold_and_adjoint_pass, "d": kernel_only}[key]
+            times = {"a": [], "b": [], "c": [], "d": [], "e": []}
+            for key in ("a", "b", "c", "d", "e", "e", "d", "c", "b", "a"):
+                fn = {"a": today, "b": fold, "c": fold_and_adjoint_pass, "d": kernel_only,
+                      "e": fold_sync}[key]
                 times[key].append(cuda_ms(fn))
             ms = {k: mean(v) for k, v in times.items()}
             for k in sums:
                 sums[k] += ms[k] * call["count"]
-            print(f"{case.label()} x{call['count']}: a (today) {ms['a']:.4f} ms, b (fold) "
-                  f"{ms['b']:.4f} ms, c (fold + adjoint's g_eff) {ms['c']:.4f} ms"
-                  + (" (no adjoint)" if first else "") + f", d (wgrad alone) {ms['d']:.4f} ms")
+            print(f"{case.label()} x{call['count']}: a (today) {ms['a']:.4f} ms, b (fold, "
+                  f"{body}) {ms['b']:.4f} ms, c (fold + adjoint's g_eff) {ms['c']:.4f} ms"
+                  + (" (no adjoint)" if first else "") + f", d (wgrad alone) {ms['d']:.4f} ms"
+                  f", e (fold, synchronous body) {ms['e']:.4f} ms")
             del case, g_mat
         print(f"{dtype} step: a {sums['a']:.4f} ms, b {sums['b']:.4f} ms, c {sums['c']:.4f} ms, "
-              f"d {sums['d']:.4f} ms per step (a - c = {sums['a'] - sums['c']:.4f} ms, "
-              f"b / d = {sums['b'] / sums['d']:.3f})")
+              f"d {sums['d']:.4f} ms, e {sums['e']:.4f} ms per step (a - c = "
+              f"{sums['a'] - sums['c']:.4f} ms, b / d = {sums['b'] / sums['d']:.3f}, "
+              f"e / b = {sums['e'] / sums['b']:.3f})")
         results[dtype] = sums
         torch.cuda.empty_cache()
     return results
@@ -2027,7 +2103,8 @@ def kernel_summary(rows, errors, launches_by_path, framings_by_path):
     bounds the larger share), the float32 ones at the TF32 tensor rate.
     legacy_ms sums the same calls on the synchronous body where
     phase f timed it (conv3x3_packed, float32 conv3x3_bias_act and
-    conv3x3_wgrad, the shift conv, the dh-fold probe), else null;
+    conv3x3_wgrad, the shift conv, the fold mode, the dh-fold probe), else
+    null;
     times_by_path holds these sums by path, and for the shift conv halo_ms,
     the halo kernel on the same inputs; bodies, the bodies the timed calls
     took where phase f read them; device_ms, plain_device_ms and

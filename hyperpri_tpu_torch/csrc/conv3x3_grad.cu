@@ -14,15 +14,16 @@
 //
 // Fold mode (the JAX kernel's y/gsum/gsumsq, conv3x3_grad.py:101-118): g is the
 // raw cotangent gy of a statistics conv and y its saved output, framed alike.
-// While the g tile is staged, both are masked to zero outside the logical
-// image (a frame may hold NaN), then g_eff = (gy + gsum) + (2y)*gsumsq is
-// formed in float32 and rounded to T, and the products read that tile. In
-// the blocks of C tile 0 each thread also adds the rounded values it stages
-// (always the same few channels) into its own db sums in shared memory; at
-// the end they are added per channel in a fixed thread order into a
+// Once the g tile is in shared memory, g_eff = (gy + gsum) + (2y)*gsumsq is
+// formed in float32 on the tile's in-image pixels (zero elsewhere: a frame
+// may hold NaN, and the gsum term would make a zero pixel nonzero) and
+// rounded to T, and the products read that tile: the same tile the non-fold
+// mode stages from a materialized g_eff, so with the same splits dW has the
+// same bits. In the blocks of C tile 0 each thread also adds the rounded
+// values it forms (always the same few channels) into db sums in shared
+// memory; at the end they are added per channel in a fixed order into a
 // per-split partial beside dW's, reduced over the splits like dW: no float
-// atomics, two runs give the same bits. Its cost against the plain mode is
-// the second load and the arithmetic of the synchronous g stage (PERF.md).
+// atomics, two runs give the same bits. All three bodies take it.
 //
 // Bound. 2*N*H*W*9*C*O FLOP against x and g read once and dW written (f32):
 // with ~1.18 M pixels at full resolution that is 9*C*O/(C+O) FLOP per bf16
@@ -39,9 +40,9 @@
 // Three kernel bodies; the wrapper picks one by dtype, mode and layout
 // before the launch (ops/kernels/sm90_plan.py), never on a failure.
 //
-// conv3x3_wgrad_sm90_kernel (bf16 without the fold mode, every view with a
-// channel pitch that is a multiple of 8: every bf16 call of a training step,
-// the ingest buffer's 256-channel pitch included). On the Hopper pieces of
+// conv3x3_wgrad_sm90_kernel<FOLD> (bf16, every view with a channel pitch that
+// is a multiple of 8: every bf16 call of a training step, the ingest
+// buffer's 256-channel pitch included). On the Hopper pieces of
 // conv3x3_sm90.cuh:
 //   - TMA loads of whole pixel tiles stay in flight: the (8+2)x(32+2) halo of
 //     x and the 8x32 tile of g, 64 channels each, into a ring of 3 stages (75
@@ -73,11 +74,26 @@
 //   Staged bytes per FLOP: (340 + 256) pixels of 128 bytes per
 //   2*256*64*64*9 FLOP = 4.04e-3, as in the synchronous kernel; what changed
 //   is that the staging of the next tiles overlaps the products.
+//   Fold mode: a stage also holds y's 8x32 tile, TMA-loaded beside g's
+//   through a map of y's logical region with the same swizzle, so element i
+//   of one box is element i of the other. Once a stage has landed, all 384
+//   threads form g_eff over the g tile in place (fold_tile_bf16, a phase of
+//   its own like the prologue, outside the accumulator loop, where more
+//   live registers have made ptxas serialize other bodies' wgmmas; its loop
+//   is not unrolled, which cost no time and kept it at 156 registers), then
+//   fence the async proxy (the tensor cores read the tile through it) and
+//   meet at the consumer barrier. gsum and gsumsq of the O
+//   tile sit in shared memory, zero past O, where TMA's zero fill of gy and
+//   y makes g_eff zero. Three stages of x + g + y do not fit (333,872
+//   bytes): two do (224,288 with gsum, gsumsq and 12 warps' db sums), and a
+//   third x + g stage leaves no room for y. On an H100 the fold takes 1.26x
+//   the non-fold body's device time at a training step's calls, most of it
+//   the pass (PERF.md §6).
 //
-// conv3x3_wgrad_sm90_f32_kernel (float32 without the fold mode, every view
-// with a channel pitch that is a multiple of 4: every float32 call of a
-// training step, the float32 ingest buffer's 256-channel pitch included). The
-// same blocks, splits and warpgroups (dh) in 3xTF32 (conv3x3_sm90.cuh):
+// conv3x3_wgrad_sm90_f32_kernel<FOLD> (float32, every view with a channel
+// pitch that is a multiple of 4: every float32 call of a training step, the
+// float32 ingest buffer's 256-channel pitch included). The same blocks,
+// splits and warpgroups (dh) in 3xTF32 (conv3x3_sm90.cuh):
 //   - the tf32 wgmma (m64n64k8) takes B from shared memory only K-major, and
 //     both operands arrive channel-contiguous, so g is transposed: a quarter
 //     tile of g (2 pixel rows x 32 pixels x 64 outputs, two TMA boxes) lands
@@ -107,9 +123,18 @@
 //   pixels of 128 bytes (x halo and g, 64 channels each) per 2*256*64*64*9
 //   FLOP = 8.09e-3, as in the synchronous float32 kernel; what changed is
 //   that the staging of the next tiles overlaps the products.
+//   Fold mode: only 5,608 bytes are free beside the non-fold layout, less
+//   than y's quarter (16 KiB), so the unit of g is one pixel row: gy's and
+//   y's rows (8 KiB each) land together in a ring of two 16 KiB raw buffers,
+//   the planes hold one row (half the size), and 128 transposers form g_eff
+//   in float32 as they read gy and y (k3f_transpose), sum db in their
+//   registers and add it into four shared-memory sums each, then split.
+//   The rows are multiplied in the non-fold order, so dW keeps its bits.
+//   On an H100 it takes 1.10x the non-fold body's device time at a
+//   training step's calls (PERF.md §6).
 //
-// conv3x3_wgrad_kernel<T, FOLD> (the fold mode, and views whose pitch TMA
-// cannot take, e.g. C = 238 unframed): synchronous staging.
+// conv3x3_wgrad_kernel<T, FOLD> (views whose pitch TMA cannot take, e.g. C =
+// 238 unframed, and `_legacy` calls): synchronous staging.
 //   - for each pixel tile the block stages the (8+2)x(32+2)x64 halo of z and
 //     the 8x32x64 tile of g in shared memory (zero outside the image and past
 //     C or O, so the loops have no masks);
@@ -234,7 +259,7 @@ __device__ __forceinline__ void stage_fold(T* __restrict__ dst, const T* __restr
 }
 
 // One launch's operands beyond x and g: the fold mode's y (framed like g),
-// gsum and gsumsq, all null without it.
+// gsum and gsumsq, all null without it (every body).
 template <typename T>
 struct Fold {
   const T* y;
@@ -413,31 +438,121 @@ using sm90::TILE_BYTES;
 
 constexpr int K3_CONSUMERS = 384;              // three warpgroups: tap row dh each
 constexpr int K3_THREADS = K3_CONSUMERS;       // thread 0 also issues the loads
+constexpr int K3_WARPS = K3_THREADS / 32;
 constexpr int K3_STAGE = HALO_SLOT + TILE_BYTES;  // one pixel tile: x halo and g tile
+// Fold mode: a stage also holds the tile of y, and the block the O tile's
+// gsum and gsumsq and one row of db sums per warp.
+template <bool FOLD>
+constexpr int K3_STAGE_BYTES = K3_STAGE + (FOLD ? TILE_BYTES : 0);
+constexpr int K3_FOLD_BYTES = 2 * sm90::CHUNK * 4 + K3_WARPS * sm90::CHUNK * 4;
 
-// Shared memory of one block: the ring of stages and their barriers
+// Shared memory of one block: the ring of stages, the C tile's affine, in
+// fold mode gsum, gsumsq and the db sums, and the ring's barriers
 // (ops/kernels/sm90_plan.py mirrors this).
+template <bool FOLD = false>
 constexpr int k3_smem_bytes(int stages) {
-  return sm90::ALIGN_SLACK + stages * K3_STAGE + 2 * sm90::CHUNK * 4 + 2 * stages * 8;
+  return sm90::ALIGN_SLACK + stages * K3_STAGE_BYTES<FOLD> + 2 * sm90::CHUNK * 4 +
+         (FOLD ? K3_FOLD_BYTES : 0) + 2 * stages * 8;
+}
+
+// The fold mode's pass over a landed bf16 stage: g_eff = (gy + gsum) +
+// (2y)*gsumsq in float32, rounded to bf16, written over the g tile at `gt`
+// (y's tile at `yt`; both 8x32 pixels of 64 channels, 128-byte swizzled
+// alike, so element i of one is element i of the other), zero outside the
+// tile's in-image pixels: TMA's zero fill is not enough, the gsum term makes
+// a zero pixel nonzero. Past O, gy and y are TMA's zeros and fold_s (gsum,
+// then gsumsq, CHUNK each) holds zeros, so g_eff is zero there. The product
+// is taken as y * (2 gsumsq): doubling is exact, so it is the same real
+// number as (2y) * gsumsq, rounded once. Thread tid always takes the 8
+// channels 8*(tid % 8).. (K3_THREADS is a multiple of 8); with db_w (this
+// warp's CHUNK sums, in the blocks that add db) the rounded values are added
+// per channel over the thread's pixels, then over the warp's lanes of the
+// same channels by fixed shuffles, and lanes 0-7 add them into db_w: no
+// atomics, a fixed order.
+__device__ __forceinline__ void fold_tile_bf16(unsigned char* gt, const unsigned char* yt,
+                                               int h0, int w0, int H, int W,
+                                               const float* fold_s, float* db_w, int tid) {
+  constexpr int VECS = TH * TW * 8;  // 16-byte vectors of a tile
+  const int lc = tid & 7;            // the thread's 8-channel chunk
+  float gs[8], gss2[8], db[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 s = reinterpret_cast<const float4*>(fold_s + 8 * lc)[h];
+    const float4 q = reinterpret_cast<const float4*>(fold_s + sm90::CHUNK + 8 * lc)[h];
+    gs[4 * h] = s.x, gs[4 * h + 1] = s.y, gs[4 * h + 2] = s.z, gs[4 * h + 3] = s.w;
+    gss2[4 * h] = 2.0f * q.x, gss2[4 * h + 1] = 2.0f * q.y;
+    gss2[4 * h + 2] = 2.0f * q.z, gss2[4 * h + 3] = 2.0f * q.w;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) db[e] = 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < (VECS + K3_THREADS - 1) / K3_THREADS; ++k) {
+    const int v = tid + k * K3_THREADS;
+    if (v >= VECS) break;
+    const int p = v >> 3;
+    const int at = p * sm90::BOX_ROW + ((lc ^ (p & 7)) << 4);
+    uint4* const gq = reinterpret_cast<uint4*>(gt + at);
+    if (h0 + p / TW >= H || w0 + p % TW >= W) {  // outside the image: zero
+      *gq = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const uint4 gv = *gq;
+    const uint4 yv = *reinterpret_cast<const uint4*>(yt + at);
+    const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+    const uint32_t yw[4] = {yv.x, yv.y, yv.z, yv.w};
+    uint32_t ow[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // elements 2j (low half) and 2j + 1 (high half)
+      const float g0 = __uint_as_float(gw[j] << 16), g1 = __uint_as_float(gw[j] & 0xffff0000u);
+      const float y0 = __uint_as_float(yw[j] << 16), y1 = __uint_as_float(yw[j] & 0xffff0000u);
+      const float e0 = __fadd_rn(__fadd_rn(g0, gs[2 * j]), __fmul_rn(y0, gss2[2 * j]));
+      const float e1 = __fadd_rn(__fadd_rn(g1, gs[2 * j + 1]), __fmul_rn(y1, gss2[2 * j + 1]));
+      const __nv_bfloat162 r = __floats2bfloat162_rn(e0, e1);
+      ow[j] = *reinterpret_cast<const uint32_t*>(&r);
+      db[2 * j] += __uint_as_float(ow[j] << 16);
+      db[2 * j + 1] += __uint_as_float(ow[j] & 0xffff0000u);
+    }
+    *gq = make_uint4(ow[0], ow[1], ow[2], ow[3]);
+  }
+  if (db_w != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      db[e] += __shfl_xor_sync(0xffffffffu, db[e], 8);
+      db[e] += __shfl_xor_sync(0xffffffffu, db[e], 16);
+    }
+    if ((tid & 31) < 8) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) db_w[8 * lc + e] += db[e];
+    }
+  }
 }
 
 // The bf16 weight gradient on Hopper (see the note at the top). blockIdx =
 // (pixel split, C tile of 64, O tile of 64); warpgroup dh holds the
-// accumulators of taps (dh, 0..2): 3 x 32 floats a thread.
+// accumulators of taps (dh, 0..2): 3 x 32 floats a thread. FOLD: the fold
+// mode, g_eff formed from the raw gy and y in each landed stage
+// (fold_tile_bf16), and in the blocks of C tile 0 db summed beside dW.
+template <bool FOLD>
 __global__ void __launch_bounds__(K3_THREADS, 1)
 conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                           const __grid_constant__ CUtensorMap gmap,
+                          const __grid_constant__ CUtensorMap ymap,
                           const float* __restrict__ pa, const float* __restrict__ pb,
+                          const float* __restrict__ gsum, const float* __restrict__ gsumsq,
                           float* __restrict__ partial, int N, int H, int W, int C, int O,
                           int tiles_h, int tiles_w, int tiles_per_split, int stages) {
   using namespace sm90;
+  constexpr int STAGE = K3_STAGE_BYTES<FOLD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* const smem = smem_raw + (base - raw);
-  float* const pas = reinterpret_cast<float*>(smem + stages * K3_STAGE);  // the C tile's affine
+  float* const pas = reinterpret_cast<float*>(smem + stages * STAGE);  // the C tile's affine
   float* const pbs = pas + CHUNK;
-  const uint32_t bars = base + stages * K3_STAGE + 2 * CHUNK * 4;
+  float* const fold_s = pbs + CHUNK;        // fold mode: gsum, gsumsq of the O tile
+  float* const db_s = fold_s + 2 * CHUNK;   // fold mode: CHUNK db sums per warp
+  const uint32_t bars = base + stages * STAGE + 2 * CHUNK * 4 + (FOLD ? K3_FOLD_BYTES : 0);
   auto full = [&](int s) { return bars + 8 * s; };  // TMA landed
   auto empty = [&](int s) { return bars + 8 * (stages + s); };
 
@@ -448,6 +563,7 @@ conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   const int n_tiles = N * tiles_h * tiles_w;
   const int t_begin = blockIdx.x * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const bool db_block = FOLD && blockIdx.y == 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -457,21 +573,26 @@ conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
     fence_barrier_init();
   }
   load_affine(pas, pbs, pa, pb, c0, CHUNK, C, threadIdx.x, K3_THREADS);
+  if constexpr (FOLD) {
+    load_affine(fold_s, fold_s + CHUNK, gsum, gsumsq, o0, CHUNK, O, threadIdx.x, K3_THREADS);
+    for (int i = threadIdx.x; i < K3_WARPS * CHUNK; i += K3_THREADS) db_s[i] = 0.0f;
+  }
   __syncthreads();
 
   // Thread 0 issues the loads of pixel tile i into stage i % stages: the
-  // (8+2)x(32+2) halo of x at (h0-1, w0-1) and the 8x32 tile of g, zero
-  // outside the logical images.
+  // (8+2)x(32+2) halo of x at (h0-1, w0-1) and the 8x32 tile of g (and in
+  // fold mode of y), zero outside the logical images.
   auto issue = [&](int i) {
     const int t = t_begin + i;
     const int s = i % stages;
     const int tx = t % tiles_w;
     const int ty = (t / tiles_w) % tiles_h;
     const int n = t / (tiles_w * tiles_h);
-    mbar_expect_tx(full(s), HALO_BYTES + TILE_BYTES);
-    const uint32_t stage = base + s * K3_STAGE;
+    mbar_expect_tx(full(s), HALO_BYTES + (FOLD ? 2 : 1) * TILE_BYTES);
+    const uint32_t stage = base + s * STAGE;
     tma_load_4d(stage, &xmap, full(s), c0, tx * TW - 1, ty * TH - 1, n);
     tma_load_4d(stage + HALO_SLOT, &gmap, full(s), o0, tx * TW, ty * TH, n);
+    if constexpr (FOLD) tma_load_4d(stage + K3_STAGE, &ymap, full(s), o0, tx * TW, ty * TH, n);
   };
   if (threadIdx.x == 0)
     for (int i = 0; i < stages && t_begin + i < t_end; ++i) issue(i);
@@ -495,14 +616,20 @@ conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_wait(empty((i - 1) % stages), ((i - 1) / stages) & 1);
         issue(i - 1 + stages);
       }
-      const uint32_t halo = base + s * K3_STAGE;
+      const uint32_t halo = base + s * STAGE;
       const uint32_t gt = halo + HALO_SLOT;
       mbar_wait(full(s), (i / stages) & 1);
-      if (pa != nullptr) {
+      if (pa != nullptr || FOLD) {
         const int tx = t % tiles_w;
         const int ty = (t / tiles_w) % tiles_h;
-        prologue_box(reinterpret_cast<__nv_bfloat16*>(smem + s * K3_STAGE), HALO_PIX, HALO_W,
-                     ty * TH - 1, tx * TW - 1, H, W, pas, pbs, threadIdx.x, K3_CONSUMERS);
+        if (pa != nullptr)
+          prologue_box(reinterpret_cast<__nv_bfloat16*>(smem + s * STAGE), HALO_PIX, HALO_W,
+                       ty * TH - 1, tx * TW - 1, H, W, pas, pbs, threadIdx.x, K3_CONSUMERS);
+        if constexpr (FOLD)
+          fold_tile_bf16(smem + s * STAGE + HALO_SLOT, smem + s * STAGE + K3_STAGE, ty * TH,
+                         tx * TW, H, W, fold_s, db_block ? db_s + warp * CHUNK : nullptr,
+                         threadIdx.x);
+        // the tensor cores read the halo and g_eff through the async proxy
         fence_proxy_async();
         consumer_sync<K3_CONSUMERS>();
       }
@@ -533,7 +660,18 @@ conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
 
     // Accumulator element i of tap (dh, dw) is input channel c0 + 16*wq +
     // lane/4 + 8*((i%4)/2), output channel o0 + 8*(i/4) + 2*(lane%4) + i%2.
-    float* out = partial + static_cast<size_t>(blockIdx.x) * 9 * C * O;
+    const size_t row = static_cast<size_t>(9) * C * O + (FOLD ? O : 0);
+    float* out = partial + blockIdx.x * row;
+    if (db_block) {
+      // channel o0 + ch: the warps' sums, added in warp order
+      __syncthreads();
+      const int ch = threadIdx.x;
+      if (ch < CHUNK && o0 + ch < O) {
+        float total = 0.0f;
+        for (int k = 0; k < K3_WARPS; ++k) total += db_s[k * CHUNK + ch];
+        out[static_cast<size_t>(9) * C * O + o0 + ch] = total;
+      }
+    }
 #pragma unroll
     for (int dw = 0; dw < 3; ++dw) {
 #pragma unroll
@@ -546,12 +684,14 @@ conv3x3_wgrad_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-int wgrad_sm90(const void* x, const void* g, const void* pa, const void* pb, void* partial,
-               void* out, const int* frames, int N, int H, int W, int C, int O, int splits,
-               int stages, void* stream) {
+template <bool FOLD>
+int wgrad_sm90(const void* x, const void* g, const Fold<__nv_bfloat16>& fold, const void* pa,
+               const void* pb, void* partial, void* out, const int* frames, int N, int H, int W,
+               int C, int O, int splits, int stages, void* stream) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 || frames == nullptr ||
       (pa == nullptr) != (pb == nullptr) || stages < 2 ||
-      k3_smem_bytes(stages) > sm90::SMEM_LIMIT)
+      k3_smem_bytes<FOLD>(stages) > sm90::SMEM_LIMIT ||
+      (FOLD && (fold.y == nullptr || fold.gsum == nullptr || fold.gsumsq == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
   const Frame fg{frames[5], frames[6], frames[7], frames[8], frames[9]};
@@ -562,22 +702,24 @@ int wgrad_sm90(const void* x, const void* g, const void* pa, const void* pb, voi
   const long long n_tiles = static_cast<long long>(N) * tiles_h * tiles_w;
   const int c_tiles = (C + sm90::CHUNK - 1) / sm90::CHUNK;
   const int o_tiles = (O + sm90::CHUNK - 1) / sm90::CHUNK;
-  const long long cols = static_cast<long long>(9) * C * O;
+  const long long cols = static_cast<long long>(9) * C * O + (FOLD ? O : 0);
   if (n_tiles > 0x7fffffffLL || c_tiles > 65535 || o_tiles > 65535 || cols > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap xmap, gmap;
+  CUtensorMap xmap, gmap, ymap;
   if (!sm90::nhwc_map(&xmap, x, fx, N, H, W, C, HALO_W, TH + 2) ||
-      !sm90::nhwc_map(&gmap, g, fg, N, H, W, O, TW, TH))
+      !sm90::nhwc_map(&gmap, g, fg, N, H, W, O, TW, TH) ||
+      !sm90::nhwc_map(&ymap, FOLD ? fold.y : g, fg, N, H, W, O, TW, TH))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_per_split = static_cast<int>((n_tiles + splits - 1) / splits);
-  const int smem = k3_smem_bytes(stages);
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgrad_sm90_kernel,
+  const int smem = k3_smem_bytes<FOLD>(stages);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgrad_sm90_kernel<FOLD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  conv3x3_wgrad_sm90_kernel<<<dim3(splits, c_tiles, o_tiles), K3_THREADS, smem, s>>>(
-      xmap, gmap, static_cast<const float*>(pa), static_cast<const float*>(pb),
-      static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w, tiles_per_split, stages);
+  conv3x3_wgrad_sm90_kernel<FOLD><<<dim3(splits, c_tiles, o_tiles), K3_THREADS, smem, s>>>(
+      xmap, gmap, ymap, static_cast<const float*>(pa), static_cast<const float*>(pb),
+      fold.gsum, fold.gsumsq, static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w,
+      tiles_per_split, stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_rows(static_cast<const float*>(partial),
@@ -593,47 +735,90 @@ using sm90::BOX_ROW;
 
 constexpr int K3F_HSTAGE = 2 * HALO_SLOT;           // a tile's x halo: two 32-channel boxes
 constexpr int K3F_HSTAGES = 2;
-constexpr int K3F_QROWS = 2;                        // pixel rows of a quarter tile
-constexpr int K3F_QUARTERS = TH / K3F_QROWS;
-constexpr int K3F_RAW_BOX = K3F_QROWS * TW * BOX_ROW;  // 32 outputs x 64 pixels of g
-constexpr int K3F_RAW = 2 * K3F_RAW_BOX;            // the quarter's g, 64 outputs
 constexpr int K3F_KBLOCK = 64 * BOX_ROW;            // 64 output rows x 32 pixels (one plane)
-constexpr int K3F_PLANE = K3F_QROWS * K3F_KBLOCK;   // the quarter's g^T, one plane
 // K steps (8 pixels each) chained through the tensor cores into one fresh
 // fragment before it is added to the accumulators.
 constexpr int K3F_GROUP = 2;
 static_assert(4 % K3F_GROUP == 0, "a 32-pixel row splits into whole groups");
-constexpr int K3F_TRANSPOSERS = 256;                // 4x4 blocks of the 64x64 quarter tile
 
-// Shared memory of one block: the halo ring, the raw g quarter, its g^T hi
-// and lo planes, the C tile's affine and the barriers (ops/kernels/sm90_plan.py
+// The unit of g that is staged, transposed and multiplied at a time: a
+// quarter tile (2 pixel rows) in a 16 KiB raw buffer; in fold mode one
+// pixel row of gy and of y, together 16 KiB, in a ring of two such buffers
+// (a quarter of both does not fit beside the halos), with its planes half
+// as large. Either way a unit's rows are multiplied in the same order, so
+// the fold mode's dW has the non-fold mode's bits on the materialized g_eff.
+template <bool FOLD>
+struct K3F {
+  static constexpr int QROWS = FOLD ? 1 : 2;            // pixel rows of a unit
+  static constexpr int UNITS = TH / QROWS;              // units of a tile
+  static constexpr int RAW_BOX = QROWS * TW * BOX_ROW;  // 32 outputs x the unit's pixels
+  static constexpr int RAW = (FOLD ? 4 : 2) * RAW_BOX;  // g's two boxes (and y's)
+  static constexpr int RAW_STAGES = FOLD ? 2 : 1;
+  static constexpr int PLANE = QROWS * K3F_KBLOCK;      // the unit's g^T, one plane
+  static constexpr int TRANSPOSERS = QROWS * 128;       // 4x4 blocks of the unit
+  // fold mode: gsum, gsumsq of the O tile and 4 db sums per transposer
+  static constexpr int FOLD_BYTES = FOLD ? 2 * 64 * 4 + TRANSPOSERS * 4 * 4 : 0;
+};
+
+// Shared memory of one block: the halo ring, the raw ring of g units, the
+// unit's g^T hi and lo planes, the C tile's affine, in fold mode gsum,
+// gsumsq and the db sums, and the barriers (ops/kernels/sm90_plan.py
 // mirrors this).
+template <bool FOLD = false>
 constexpr int k3f_smem_bytes() {
-  return sm90::ALIGN_SLACK + K3F_HSTAGES * K3F_HSTAGE + K3F_RAW + 2 * K3F_PLANE +
-         2 * 2 * F32_CHUNK * 4 + (K3F_HSTAGES + 1) * 8;
+  using L = K3F<FOLD>;
+  return sm90::ALIGN_SLACK + K3F_HSTAGES * K3F_HSTAGE + L::RAW_STAGES * L::RAW + 2 * L::PLANE +
+         2 * 2 * F32_CHUNK * 4 + L::FOLD_BYTES + (K3F_HSTAGES + L::RAW_STAGES) * 8;
 }
 
-// The transpose-and-split stage: the raw g quarter (two TMA boxes, pixel rows
+// The transpose-and-split stage: the raw g unit (two TMA boxes, pixel rows
 // of 32 outputs, 128-byte swizzled) -> g^T, K-major (a row of 32 pixels per
 // output, 128-byte swizzled, one 8 KiB block per pixel row), in TF32 hi and
-// lo planes. Thread tid < 256 moves one 4x4 block: outputs 4*ob.., pixels
-// 4*pb..; the mapping makes both its 16-byte reads and its 16-byte writes
-// conflict-free within each quarter warp.
+// lo planes. Thread tid < TRANSPOSERS moves one 4x4 block: outputs 4*ob..,
+// pixels 4*pb..; the mapping makes both its 16-byte reads and its 16-byte
+// writes conflict-free within each quarter warp.
+// Fold mode: the unit is one pixel row, image row h from column w0, and y's
+// boxes follow g's. Each value read is g_eff = (gy + gsum) + (2y)*gsumsq in
+// float32 (fold_s: gsum, then gsumsq, 64 each, zero past O, where gy and y
+// are TMA's zeros), zero at pixels outside the image; with db_slot (the
+// thread's 4 sums, in the blocks that add db) the values are added into it
+// per output. A thread's outputs never change.
+template <bool FOLD>
 __device__ __forceinline__ void k3f_transpose(const unsigned char* raw, unsigned char* phi,
-                                              unsigned char* plo, int tid) {
+                                              unsigned char* plo, int tid, int h, int w0, int H,
+                                              int W, const float* fold_s, float* db_slot) {
+  constexpr int RAW_BOX = K3F<FOLD>::RAW_BOX;
   const int l8 = tid & 7;
   const int ob = (l8 ^ ((tid >> 3) & 7)) | (((tid >> 6) & 1) << 3);
   const int pb = l8 | (((tid >> 7) & 1) << 3);
   float v[4][4];  // v[pixel][output] of the block
+  float4 db = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int p = 4 * pb + i;
-    const float4 t = *reinterpret_cast<const float4*>(raw + (ob >> 3) * K3F_RAW_BOX +
-                                                      p * BOX_ROW + (((ob & 7) ^ (p & 7)) << 4));
+    const int at = (ob >> 3) * RAW_BOX + p * BOX_ROW + (((ob & 7) ^ (p & 7)) << 4);
+    float4 t = *reinterpret_cast<const float4*>(raw + at);
+    if constexpr (FOLD) {
+      const float4 y = *reinterpret_cast<const float4*>(raw + 2 * RAW_BOX + at);
+      const float4 gs = *reinterpret_cast<const float4*>(fold_s + 4 * ob);
+      const float4 gss = *reinterpret_cast<const float4*>(fold_s + 64 + 4 * ob);
+      const bool inside = h < H && w0 + p < W;
+      auto fold = [&](float gy, float yy, float s, float ss) {
+        return inside ? __fadd_rn(__fadd_rn(gy, s), __fmul_rn(2.0f * yy, ss)) : 0.0f;
+      };
+      t = make_float4(fold(t.x, y.x, gs.x, gss.x), fold(t.y, y.y, gs.y, gss.y),
+                      fold(t.z, y.z, gs.z, gss.z), fold(t.w, y.w, gs.w, gss.w));
+      db = make_float4(db.x + t.x, db.y + t.y, db.z + t.z, db.w + t.w);
+    }
     v[i][0] = t.x;
     v[i][1] = t.y;
     v[i][2] = t.z;
     v[i][3] = t.w;
+  }
+  if (FOLD && db_slot != nullptr) {
+    float4* const d = reinterpret_cast<float4*>(db_slot);
+    const float4 s = *d;
+    *d = make_float4(s.x + db.x, s.y + db.y, s.z + db.z, s.w + db.w);
   }
   const int kb = pb >> 3;
   const int pc = pb & 7;
@@ -652,26 +837,34 @@ __device__ __forceinline__ void k3f_transpose(const unsigned char* raw, unsigned
 
 // The float32 weight gradient on Hopper (see the note at the top). blockIdx
 // = (pixel split, C tile of 64, O tile of 64); warpgroup dh holds the
-// accumulators of taps (dh, 0..2): 3 x 32 floats a thread.
+// accumulators of taps (dh, 0..2): 3 x 32 floats a thread. FOLD: the fold
+// mode, g_eff formed from the raw gy and y as the transposers read them
+// (k3f_transpose), and in the blocks of C tile 0 db summed beside dW.
+template <bool FOLD>
 __global__ void __launch_bounds__(K3_THREADS, 1)
 conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
                               const __grid_constant__ CUtensorMap gmap,
+                              const __grid_constant__ CUtensorMap ymap,
                               const float* __restrict__ pa, const float* __restrict__ pb,
+                              const float* __restrict__ gsum, const float* __restrict__ gsumsq,
                               float* __restrict__ partial, int N, int H, int W, int C, int O,
                               int tiles_h, int tiles_w, int tiles_per_split) {
   using namespace sm90;
+  using L = K3F<FOLD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
   const uint32_t base = (raw_base + 1023) & ~1023u;
   unsigned char* const smem = smem_raw + (base - raw_base);
   constexpr int RAW_OFF = K3F_HSTAGES * K3F_HSTAGE;
-  constexpr int HI_OFF = RAW_OFF + K3F_RAW;
-  constexpr int LO_OFF = HI_OFF + K3F_PLANE;
-  float* const pas = reinterpret_cast<float*>(smem + LO_OFF + K3F_PLANE);  // the C tile's affine
+  constexpr int HI_OFF = RAW_OFF + L::RAW_STAGES * L::RAW;
+  constexpr int LO_OFF = HI_OFF + L::PLANE;
+  float* const pas = reinterpret_cast<float*>(smem + LO_OFF + L::PLANE);  // the C tile's affine
   float* const pbs = pas + 2 * F32_CHUNK;
-  const uint32_t bars = base + LO_OFF + K3F_PLANE + 2 * 2 * F32_CHUNK * 4;
+  float* const fold_s = pbs + 2 * F32_CHUNK;  // fold mode: gsum, gsumsq of the O tile
+  float* const db_s = fold_s + 2 * 64;        // fold mode: 4 db sums per transposer
+  const uint32_t bars = base + LO_OFF + L::PLANE + 2 * 2 * F32_CHUNK * 4 + L::FOLD_BYTES;
   auto halo_full = [&](int hs) { return bars + 8 * hs; };
-  const uint32_t raw_full = bars + 8 * K3F_HSTAGES;
+  auto raw_full = [&](int r) { return bars + 8 * (K3F_HSTAGES + r); };
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -680,17 +873,23 @@ conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
   const int n_tiles = N * tiles_h * tiles_w;
   const int t_begin = blockIdx.x * tiles_per_split;
   const int n_mine = min(n_tiles, t_begin + tiles_per_split) - t_begin;
+  const bool db_block = FOLD && blockIdx.y == 0;
 
   if (threadIdx.x == 0) {
-    for (int hs = 0; hs <= K3F_HSTAGES; ++hs) mbar_init(bars + 8 * hs, 1);
+    for (int k = 0; k < K3F_HSTAGES + L::RAW_STAGES; ++k) mbar_init(bars + 8 * k, 1);
     fence_barrier_init();
   }
   load_affine(pas, pbs, pa, pb, c0, 2 * F32_CHUNK, C, threadIdx.x, K3_THREADS);
+  if constexpr (FOLD) {
+    load_affine(fold_s, fold_s + 64, gsum, gsumsq, o0, 64, O, threadIdx.x, K3_THREADS);
+    for (int k = threadIdx.x; k < 4 * L::TRANSPOSERS; k += K3_THREADS) db_s[k] = 0.0f;
+  }
   __syncthreads();
 
   // Thread 0 issues the loads: tile i's (8+2)x(32+2) x halo into halo stage
-  // i % 2 (two boxes of 32 channels), and quarter u's 2x32-pixel g tile (two
-  // boxes of 32 outputs) into the raw buffer; zero outside the logical images.
+  // i % 2 (two boxes of 32 channels), and unit u's QROWSx32-pixel g tile (two
+  // boxes of 32 outputs; in fold mode y's two boxes after them) into raw
+  // stage u % RAW_STAGES; zero outside the logical images.
   auto coords = [&](int i, int& n, int& ty, int& tx) {
     const int t = t_begin + i;
     tx = t % tiles_w;
@@ -709,16 +908,23 @@ conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
   };
   auto issue_raw = [&](int u) {
     int n, ty, tx;
-    coords(u / K3F_QUARTERS, n, ty, tx);
-    mbar_expect_tx(raw_full, K3F_RAW);
+    coords(u / L::UNITS, n, ty, tx);
+    const int r = u % L::RAW_STAGES;
+    const uint32_t dst = base + RAW_OFF + r * L::RAW;
+    const int row = ty * TH + (u % L::UNITS) * L::QROWS;
+    mbar_expect_tx(raw_full(r), L::RAW);
 #pragma unroll
-    for (int b = 0; b < 2; ++b)
-      tma_load_4d(base + RAW_OFF + b * K3F_RAW_BOX, &gmap, raw_full, o0 + b * F32_CHUNK,
-                  tx * TW, ty * TH + (u % K3F_QUARTERS) * K3F_QROWS, n);
+    for (int b = 0; b < 2; ++b) {
+      tma_load_4d(dst + b * L::RAW_BOX, &gmap, raw_full(r), o0 + b * F32_CHUNK, tx * TW, row, n);
+      if constexpr (FOLD)
+        tma_load_4d(dst + (2 + b) * L::RAW_BOX, &ymap, raw_full(r), o0 + b * F32_CHUNK, tx * TW,
+                    row, n);
+    }
   };
+  const int n_units = n_mine * L::UNITS;
   if (threadIdx.x == 0 && n_mine > 0) {
     for (int i = 0; i < K3F_HSTAGES && i < n_mine; ++i) issue_halo(i);
-    issue_raw(0);
+    for (int u = 0; u < L::RAW_STAGES && u < n_units; ++u) issue_raw(u);
   }
 
   const int dh = warp >> 2;  // tap row of this warpgroup
@@ -740,10 +946,10 @@ conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
   for (int i = 0; i < n_mine; ++i) {
     const int hs = i % K3F_HSTAGES;
     const unsigned char* const halo = smem + hs * K3F_HSTAGE + (wq >> 1) * HALO_SLOT;
+    int n, ty, tx;
+    coords(i, n, ty, tx);
     mbar_wait(halo_full(hs), (i / K3F_HSTAGES) & 1);
     if (pa != nullptr) {
-      int n, ty, tx;
-      coords(i, n, ty, tx);
 #pragma unroll
       for (int b = 0; b < 2; ++b)
         prologue_box_f32(reinterpret_cast<float*>(smem + hs * K3F_HSTAGE + b * HALO_SLOT),
@@ -752,17 +958,20 @@ conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
       fence_proxy_async();  // before TMA writes this stage again
     }
 #pragma unroll 1
-    for (int q = 0; q < K3F_QUARTERS; ++q) {
-      const int u = i * K3F_QUARTERS + q;
-      mbar_wait(raw_full, u & 1);
-      if (threadIdx.x < K3F_TRANSPOSERS)
-        k3f_transpose(smem + RAW_OFF, smem + HI_OFF, smem + LO_OFF, threadIdx.x);
+    for (int q = 0; q < L::UNITS; ++q) {
+      const int u = i * L::UNITS + q;
+      const int r = u % L::RAW_STAGES;
+      mbar_wait(raw_full(r), (u / L::RAW_STAGES) & 1);
+      if (threadIdx.x < L::TRANSPOSERS)
+        k3f_transpose<FOLD>(smem + RAW_OFF + r * L::RAW, smem + HI_OFF, smem + LO_OFF,
+                            threadIdx.x, ty * TH + q * L::QROWS, tx * TW, H, W, fold_s,
+                            db_block ? db_s + 4 * threadIdx.x : nullptr);
       fence_proxy_async();  // the planes, before the tensor cores read them
       __syncthreads();      // planes written, raw read, the prologue done
-      if (threadIdx.x == 0 && u + 1 < n_mine * K3F_QUARTERS) issue_raw(u + 1);
+      if (threadIdx.x == 0 && u + L::RAW_STAGES < n_units) issue_raw(u + L::RAW_STAGES);
 #pragma unroll 1
-      for (int r = 0; r < K3F_QROWS; ++r) {
-        const int hrow = (q * K3F_QROWS + r + dh) * HALO_W;
+      for (int r2 = 0; r2 < L::QROWS; ++r2) {
+        const int hrow = (q * L::QROWS + r2 + dh) * HALO_W;
 #pragma unroll
         for (int grp = 0; grp < 4 / K3F_GROUP; ++grp) {
 #pragma unroll
@@ -783,7 +992,7 @@ conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
             wgmma_fence();
 #pragma unroll
             for (int j = 0; j < K3F_GROUP; ++j) {
-              const uint32_t k_off = r * K3F_KBLOCK + (grp * K3F_GROUP + j) * 32;
+              const uint32_t k_off = r2 * K3F_KBLOCK + (grp * K3F_GROUP + j) * 32;
               wgmma_3xtf32_step(frag, a_hi[j], a_lo[j], desc_sw128(base + HI_OFF + k_off, 16, 1024),
                                 desc_sw128(base + LO_OFF + k_off, 16, 1024), j == 0);
             }
@@ -800,14 +1009,30 @@ conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
         }
       }
       __syncthreads();  // every warpgroup is done with the planes (and, after
-                        // the last quarter, with the halo stage)
+                        // the last unit, with the halo stage)
     }
     if (threadIdx.x == 0 && i + K3F_HSTAGES < n_mine) issue_halo(i + K3F_HSTAGES);
   }
 
   // Accumulator element i of tap (dh, dw) is input channel c0 + 16*wq +
   // lane/4 + 8*((i%4)/2), output channel o0 + 8*(i/4) + 2*(lane%4) + i%2.
-  float* out = partial + static_cast<size_t>(blockIdx.x) * 9 * C * O;
+  const size_t row = static_cast<size_t>(9) * C * O + (FOLD ? O : 0);
+  float* out = partial + blockIdx.x * row;
+  if (db_block) {
+    // output o0 + ch (ob = ch / 4, element ch % 4): the sums of the eight
+    // transposers of ob, one per pixel block, added in pixel order
+    __syncthreads();
+    const int ch = threadIdx.x;
+    if (ch < 64 && o0 + ch < O) {
+      const int ob = ch >> 2;
+      float total = 0.0f;
+      for (int a8 = 0; a8 < 8; ++a8) {
+        const int tid = ((ob & 7) ^ a8) | (a8 << 3) | ((ob >> 3) << 6);
+        total += db_s[4 * tid + (ch & 3)];
+      }
+      out[static_cast<size_t>(9) * C * O + o0 + ch] = total;
+    }
+  }
 #pragma unroll
   for (int dw = 0; dw < 3; ++dw) {
 #pragma unroll
@@ -819,12 +1044,14 @@ conv3x3_wgrad_sm90_f32_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-int wgrad_sm90_f32(const void* x, const void* g, const void* pa, const void* pb, void* partial,
-                   void* out, const int* frames, int N, int H, int W, int C, int O, int splits,
-                   int stages, void* stream) {
+template <bool FOLD>
+int wgrad_sm90_f32(const void* x, const void* g, const Fold<float>& fold, const void* pa,
+                   const void* pb, void* partial, void* out, const int* frames, int N, int H,
+                   int W, int C, int O, int splits, int stages, void* stream) {
   if (N < 1 || H < 1 || W < 1 || C < 1 || O < 1 || splits < 1 || frames == nullptr ||
       (pa == nullptr) != (pb == nullptr) || stages != K3F_HSTAGES ||
-      k3f_smem_bytes() > sm90::SMEM_LIMIT)
+      k3f_smem_bytes<FOLD>() > sm90::SMEM_LIMIT ||
+      (FOLD && (fold.y == nullptr || fold.gsum == nullptr || fold.gsumsq == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Frame fx{frames[0], frames[1], frames[2], frames[3], frames[4]};
   const Frame fg{frames[5], frames[6], frames[7], frames[8], frames[9]};
@@ -835,22 +1062,25 @@ int wgrad_sm90_f32(const void* x, const void* g, const void* pa, const void* pb,
   const long long n_tiles = static_cast<long long>(N) * tiles_h * tiles_w;
   const int c_tiles = (C + 2 * F32_CHUNK - 1) / (2 * F32_CHUNK);
   const int o_tiles = (O + 2 * F32_CHUNK - 1) / (2 * F32_CHUNK);
-  const long long cols = static_cast<long long>(9) * C * O;
+  const long long cols = static_cast<long long>(9) * C * O + (FOLD ? O : 0);
   if (n_tiles > 0x7fffffffLL || c_tiles > 65535 || o_tiles > 65535 || cols > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap xmap, gmap;
+  constexpr int QROWS = K3F<FOLD>::QROWS;
+  CUtensorMap xmap, gmap, ymap;
   if (!sm90::nhwc_map_f32(&xmap, x, fx, N, H, W, C, HALO_W, TH + 2) ||
-      !sm90::nhwc_map_f32(&gmap, g, fg, N, H, W, O, TW, K3F_QROWS))
+      !sm90::nhwc_map_f32(&gmap, g, fg, N, H, W, O, TW, QROWS) ||
+      !sm90::nhwc_map_f32(&ymap, FOLD ? fold.y : g, fg, N, H, W, O, TW, QROWS))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_per_split = static_cast<int>((n_tiles + splits - 1) / splits);
-  const int smem = k3f_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgrad_sm90_f32_kernel,
+  const int smem = k3f_smem_bytes<FOLD>();
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgrad_sm90_f32_kernel<FOLD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  conv3x3_wgrad_sm90_f32_kernel<<<dim3(splits, c_tiles, o_tiles), K3_THREADS, smem, s>>>(
-      xmap, gmap, static_cast<const float*>(pa), static_cast<const float*>(pb),
-      static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w, tiles_per_split);
+  conv3x3_wgrad_sm90_f32_kernel<FOLD><<<dim3(splits, c_tiles, o_tiles), K3_THREADS, smem, s>>>(
+      xmap, gmap, ymap, static_cast<const float*>(pa), static_cast<const float*>(pb),
+      fold.gsum, fold.gsumsq, static_cast<float*>(partial), N, H, W, C, O, tiles_h, tiles_w,
+      tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_rows(static_cast<const float*>(partial),
@@ -946,7 +1176,8 @@ extern "C" int conv3x3_wgrad_sm90_bf16(const void* x, const void* g, const void*
                                        const void* pb, void* partial, void* out,
                                        const int* frames, int N, int H, int W, int C, int O,
                                        int splits, int stages, void* stream) {
-  return wgrad_sm90(x, g, pa, pb, partial, out, frames, N, H, W, C, O, splits, stages, stream);
+  return wgrad_sm90<false>(x, g, Fold<__nv_bfloat16>{}, pa, pb, partial, out, frames, N, H, W, C,
+                           O, splits, stages, stream);
 }
 
 // The Hopper kernel (float32, no fold mode): as conv3x3_wgrad_sm90_bf16, every
@@ -956,6 +1187,34 @@ extern "C" int conv3x3_wgrad_sm90_f32(const void* x, const void* g, const void* 
                                       const void* pb, void* partial, void* out, const int* frames,
                                       int N, int H, int W, int C, int O, int splits, int stages,
                                       void* stream) {
-  return wgrad_sm90_f32(x, g, pa, pb, partial, out, frames, N, H, W, C, O, splits, stages,
-                        stream);
+  return wgrad_sm90_f32<false>(x, g, Fold<float>{}, pa, pb, partial, out, frames, N, H, W, C, O,
+                               splits, stages, stream);
+}
+
+// The Hopper kernels in fold mode: the arguments of conv3x3_wgrad_bf16 /
+// conv3x3_wgrad_f32 (y, gsum and gsumsq not null; y framed like g and 16-byte
+// aligned), the views as for conv3x3_wgrad_sm90_bf16 / _f32; partial:
+// (splits, 9*C*O + O) f32; out: dW then db; stages: the depth of the ring of
+// pixel tiles (bf16: 2, k3_smem_bytes<true>) or of x halos (float32: 2).
+extern "C" int conv3x3_wgrad_sm90_fold_bf16(const void* x, const void* g, const void* y,
+                                            const void* gsum, const void* gsumsq, const void* pa,
+                                            const void* pb, void* partial, void* out,
+                                            const int* frames, int N, int H, int W, int C, int O,
+                                            int splits, int stages, void* stream) {
+  using T = __nv_bfloat16;
+  const Fold<T> fold{static_cast<const T*>(y), static_cast<const float*>(gsum),
+                     static_cast<const float*>(gsumsq)};
+  return wgrad_sm90<true>(x, g, fold, pa, pb, partial, out, frames, N, H, W, C, O, splits, stages,
+                          stream);
+}
+
+extern "C" int conv3x3_wgrad_sm90_fold_f32(const void* x, const void* g, const void* y,
+                                           const void* gsum, const void* gsumsq, const void* pa,
+                                           const void* pb, void* partial, void* out,
+                                           const int* frames, int N, int H, int W, int C, int O,
+                                           int splits, int stages, void* stream) {
+  const Fold<float> fold{static_cast<const float*>(y), static_cast<const float*>(gsum),
+                         static_cast<const float*>(gsumsq)};
+  return wgrad_sm90_f32<true>(x, g, fold, pa, pb, partial, out, frames, N, H, W, C, O, splits,
+                              stages, stream);
 }

@@ -36,14 +36,16 @@ length. No model path calls it: conv_train.py materializes g_eff, which the
 adjoint conv reads too.
 
 On the card the call takes one of two kernel bodies, chosen before the launch
-by sm90_plan.wgrad_plan from its dtype, mode and layout: "sm90", the Hopper
-kernels (TMA staging, wgmma, 3xTF32 in float32; no fold mode, views whose
-channel pitch TMA can address, a multiple of 8 in bf16 and of 4 in float32:
-every call of a bf16 or float32 training step, the ingest buffer included),
-or "legacy", the synchronous mma.sync kernel (the fold mode, other layouts
-such as C = 238 unframed). The private keyword
-`_legacy=True` takes the synchronous body whatever the layout: the fold mode
-is held bit for bit against it, and the two bodies against each other.
+by sm90_plan.wgrad_plan from its dtype, mode and layout (`call_plan`):
+"sm90", the Hopper kernels (TMA staging, wgmma, 3xTF32 in float32; views
+whose channel pitch TMA can address, a multiple of 8 in bf16 and of 4 in
+float32, from 16-byte aligned buffers, y's too in fold mode: every call of a
+bf16 or float32 training step, the ingest buffer included), or "legacy", the
+synchronous mma.sync kernel (other layouts, such as C = 238 unframed). A fold
+call takes the splits of the same call without the fold, so its dW is bit
+for bit the non-fold body's on the materialized g_eff. The private keyword
+`_legacy=True` takes the synchronous body whatever the layout: the two
+bodies are held against each other with it.
 
 `conv3x3_wgrad` runs the plain version, `conv3x3_wgrad_reference`, only for
 tensors on the CPU. For CUDA tensors it launches a kernel or raises.
@@ -147,6 +149,9 @@ def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
 
 
 def _lib(suffix: str):
+    """conv3x3_wgrad_<suffix>: the synchronous entries ("bf16", "f32") and
+    the Hopper fold entries ("sm90_fold_bf16", ...), which take the same
+    arguments, the ring's depth where the former take x_lanes_zero."""
     return _plain.bind("conv3x3_grad", f"conv3x3_wgrad_{suffix}",
                        [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -156,6 +161,30 @@ def _lib_sm90(suffix: str):
     return _plain.bind("conv3x3_grad", f"conv3x3_wgrad_sm90_{suffix}",
                        [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def _plan(x, g, y, n, h, width, c, o, fx, fg, legacy):
+    """The wgrad plan of a resolved call: the alignment of x's, g's and, in
+    fold mode, y's buffers (y lies in g's frame) as the data pointers give
+    it."""
+    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    fold = y is not None
+    return sm90_plan.wgrad_plan(n, h, width, c, o, x.dtype, fx.pitch, fg.pitch, fold, aligned,
+                                sm90=not legacy, y_pitch=fg.pitch if fold else None,
+                                y_aligned=not fold or y.data_ptr() % 16 == 0)
+
+
+def call_plan(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] = None, *,
+              y: Optional[torch.Tensor] = None, gsum: Optional[torch.Tensor] = None,
+              gsumsq: Optional[torch.Tensor] = None, arena_in: bool = False,
+              arena_g: bool = False, logical_hw=None, pre_padded_c: Optional[int] = None,
+              _legacy: bool = False) -> sm90_plan.WgradPlan:
+    """The plan (kernel body, splits, ring) that conv3x3_wgrad takes for
+    these operands on the card."""
+    fold = _check_fold(g, y, gsum, gsumsq)
+    n, h, width, c, o, fx, fg, _ = _resolve(x, g, pa, arena_in, arena_g, logical_hw,
+                                            pre_padded_c, gsum.shape[0] if fold else None)
+    return _plan(x, g, y, n, h, width, c, o, fx, fg, _legacy)
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] = None,
@@ -194,9 +223,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
         raise ValueError("conv3x3_wgrad: g and y must be contiguous NHWC tensors")
     if n * h * width == 0:
         raise ValueError("conv3x3_wgrad: empty input")
-    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
-    plan = sm90_plan.wgrad_plan(n, h, width, c, o, x.dtype, fx.pitch, fg.pitch, fold, aligned,
-                                sm90=not _legacy)
+    plan = _plan(x, g, y, n, h, width, c, o, fx, fg, _legacy)
     paf, pbf = _plain.f32_vector(pa), _plain.f32_vector(pb)
     gsf, gssf = _plain.f32_vector(gsum), _plain.f32_vector(gsumsq)
     cols = 9 * c * o + (o if fold else 0)
@@ -204,7 +231,12 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pa: Optional[torch.Tensor] =
     out = torch.empty((cols,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.path == "sm90":
+        if plan.path == "sm90" and fold:
+            err = _lib(f"sm90_fold_{suffix}")(
+                x.data_ptr(), g.data_ptr(), y.data_ptr(), gsf.data_ptr(), gssf.data_ptr(),
+                _plain.ptr(paf), _plain.ptr(pbf), partial.data_ptr(), out.data_ptr(),
+                framing.frames_arg(fx, fg), n, h, width, c, o, plan.splits, plan.stages, stream)
+        elif plan.path == "sm90":
             err = _lib_sm90(suffix)(
                 x.data_ptr(), g.data_ptr(), _plain.ptr(paf), _plain.ptr(pbf), partial.data_ptr(),
                 out.data_ptr(), framing.frames_arg(fx, fg), n, h, width, c, o, plan.splits,

@@ -18,11 +18,11 @@ card, and the wrappers choose before the launch, never on a failure.
     They take views that TMA can address: every stride a multiple of 16
     bytes (a channel pitch that is a multiple of 8 in bf16, of 4 in float32)
     and a 16-byte aligned logical origin. The four conv kernels take them in
-    bf16 and float32 (conv3x3_wgrad not in its fold mode), the probe in
-    bf16.
+    bf16 and float32 (conv3x3_wgrad in its fold mode too, where y's view is
+    g's), the probe in bf16.
   - "legacy": the synchronous mma.sync kernels (conv3x3_common.cuh), for
-    the weight gradient's fold mode and layouts TMA cannot take (e.g. C =
-    238 unframed: 476-byte bf16 or 952-byte float32 pixels).
+    layouts TMA cannot take (e.g. C = 238 unframed: 476-byte bf16 or
+    952-byte float32 pixels).
 
 The shared-memory sums mirror the kernels' (k1_smem_bytes and
 k1f_smem_bytes in conv3x3_packed.cu, k2_smem_bytes and k2f_smem_bytes in
@@ -31,8 +31,7 @@ k6_smem_bytes in conv3x3_shift.cu, k7_smem_bytes in probe_dh_fold.cu);
 each plan's must fit an H100 block.
 `sm90=False` sends a call to the synchronous kernels whatever its layout:
 the wrappers pass it for their private `_legacy` keyword, with which the
-fold mode (which has no Hopper body) is compared bit for bit with the
-synchronous body, and the two bodies with each other.
+two bodies are compared with each other.
 """
 
 from __future__ import annotations
@@ -90,7 +89,9 @@ K2F_MAX_C = 256
 K2F_MAX_STAGES = 8
 K2F_RED_BYTES = TH * K2F_N * 4
 K2F_AFFINE_BYTES = 2 * K2F_MAX_C * 4
-# conv3x3_wgrad_sm90_kernel: a ring of whole pixel tiles (x halo + g tile).
+# conv3x3_wgrad_sm90_kernel: a ring of whole pixel tiles (x halo + g tile;
+# in fold mode + the y tile, beside the O tile's gsum and gsumsq and a row of
+# CHUNK db sums for each of the 12 warps: two stages fit, three do not).
 # In both weight-gradient kernels a split's float32 accumulators chain the K
 # steps of its pixel tiles, and on one-signed terms (a step's cotangents)
 # dW's rounding grows about linearly with that chain: no split takes more
@@ -98,13 +99,20 @@ K2F_AFFINE_BYTES = 2 * K2F_MAX_C * 4
 # margin of 1.5 (PERF.md §6; 37 tiles missed it).
 K3_STAGE = HALO_SLOT + TILE_BYTES
 K3_MAX_STAGES = 3
+K3_WARPS = 12
+K3_FOLD_BYTES = 2 * CHUNK * 4 + K3_WARPS * CHUNK * 4
 K3_MAX_CHAIN = 19
 # conv3x3_wgrad_sm90_f32_kernel: a ring of two x halos (64 channels: two
-# 32-channel boxes), the g tile a quarter (2 pixel rows) at a time, raw and
-# as TF32 hi and lo planes of g^T.
+# 32-channel boxes), the g tile a unit at a time, raw and as TF32 hi and lo
+# planes of g^T: a quarter (2 pixel rows) in one 16 KiB raw buffer; in fold
+# mode one pixel row of gy and y (16 KiB together) in a ring of two, planes
+# of one row, the O tile's gsum and gsumsq and 4 db sums for each of the 128
+# transposers.
 K3F_HSTAGES = 2
 K3F_RAW = 2 * 2 * TW * BOX_ROW
 K3F_PLANE = 2 * 64 * BOX_ROW
+K3F_FOLD_RAW_STAGES = 2
+K3F_FOLD_BYTES = 2 * 64 * 4 + 128 * 4 * 4
 # conv3x3_shift_sm90_kernel and conv3x3_shift_sm90_f32_kernel: persistent
 # blocks, one per SM, walking work units of one 8x32 tile by one O tile (128
 # outputs in bf16, 64 in float32), the O tiles of a pixel tile adjacent in
@@ -228,13 +236,18 @@ def k7_smem_bytes() -> int:
             + 2 * (K7_HSTAGES + K7_WSLOTS) * 8)
 
 
-def k3_smem_bytes(stages: int) -> int:
-    return ALIGN_SLACK + stages * K3_STAGE + 2 * CHUNK * 4 + 2 * stages * 8
+def k3_smem_bytes(stages: int, fold: bool = False) -> int:
+    stage = K3_STAGE + (TILE_BYTES if fold else 0)
+    return (ALIGN_SLACK + stages * stage + 2 * CHUNK * 4 + (K3_FOLD_BYTES if fold else 0)
+            + 2 * stages * 8)
 
 
-def k3f_smem_bytes() -> int:
-    return (ALIGN_SLACK + K3F_HSTAGES * 2 * HALO_SLOT + K3F_RAW + 2 * K3F_PLANE
-            + 2 * 2 * F32_CHUNK * 4 + (K3F_HSTAGES + 1) * 8)
+def k3f_smem_bytes(fold: bool = False) -> int:
+    raw_stages = K3F_FOLD_RAW_STAGES if fold else 1
+    plane = K3F_PLANE // 2 if fold else K3F_PLANE
+    return (ALIGN_SLACK + K3F_HSTAGES * 2 * HALO_SLOT + raw_stages * K3F_RAW + 2 * plane
+            + 2 * 2 * F32_CHUNK * 4 + (K3F_FOLD_BYTES if fold else 0)
+            + (K3F_HSTAGES + raw_stages) * 8)
 
 
 def tma_view_ok(pitch: int, aligned: bool, esize: int = 2) -> bool:
@@ -432,32 +445,40 @@ def dh_fold_tiles(plan: DhFoldPlan, n: int, hp: int, wp: int, block: int):
 
 def wgrad_plan(n: int, h: int, w: int, c: int, o: int, dtype: torch.dtype, x_pitch: int,
                g_pitch: int, fold: bool = False, aligned: bool = True,
-               sm90: bool = True) -> WgradPlan:
+               sm90: bool = True, y_pitch: Optional[int] = None,
+               y_aligned: bool = True) -> WgradPlan:
     """The plan of conv3x3_wgrad for logical (n, h, w) images of c input and o
     output channels, x and g in views of channel pitch x_pitch and g_pitch
     (their frames'); `aligned`: both buffers' data pointers are 16-byte
-    aligned. The splits: at least enough that none chains more than
+    aligned. In fold mode y lies in a view of channel pitch y_pitch (g's
+    when None) and `y_aligned` says the same of its buffer; the Hopper
+    bodies read it through g's frame, so they take it only at g's pitch.
+    The splits: at least enough that none chains more than
     K3_MAX_CHAIN pixel tiles; beyond that the synchronous kernel aims at two
     blocks per SM, and the sm90 kernel, one block per SM (its ring fills the
     shared memory), fills the waves of blocks over the (C tile, O tile)
     pairs that the least count needs; both no more than there are pixel
     tiles and within a bounded partial buffer (for sm90 every split has
-    tiles). The Hopper bodies (bf16 and float32) take every non-fold call
-    whose views TMA can address."""
+    tiles). The Hopper bodies (bf16 and float32) take every call whose views
+    TMA can address, the fold mode with the splits of the same call without
+    it (so that its dW has the non-fold body's bits on the materialized
+    g_eff)."""
     tiles = n * _cdiv(h, TH) * _cdiv(w, TW)
     co_blocks = _cdiv(c, CHUNK) * _cdiv(o, CHUNK)
     by_memory = max(1, MAX_PARTIAL_BYTES // (36 * c * o))
     least = _cdiv(tiles, K3_MAX_CHAIN)
     esize = _esize(dtype)
-    sm90 = (sm90 and not fold and tma_view_ok(x_pitch, aligned, esize)
-            and tma_view_ok(g_pitch, aligned, esize))
+    y_pitch = g_pitch if y_pitch is None else y_pitch
+    sm90 = (sm90 and tma_view_ok(x_pitch, aligned, esize)
+            and tma_view_ok(g_pitch, aligned, esize)
+            and (not fold or (y_pitch == g_pitch and tma_view_ok(y_pitch, y_aligned, esize))))
     if sm90:
         if dtype == torch.bfloat16:
             stages = max(s for s in range(2, K3_MAX_STAGES + 1)
-                         if s == 2 or k3_smem_bytes(s) <= SMEM_LIMIT)
-            smem = k3_smem_bytes(stages)
+                         if s == 2 or k3_smem_bytes(s, fold) <= SMEM_LIMIT)
+            smem = k3_smem_bytes(stages, fold)
         else:
-            stages, smem = K3F_HSTAGES, k3f_smem_bytes()
+            stages, smem = K3F_HSTAGES, k3f_smem_bytes(fold)
         waves = _cdiv(least * co_blocks, SMS)
         target = waves * SMS // co_blocks
     else:

@@ -15,6 +15,13 @@ there) and calls, on seeded inputs, the groups named (all when none is):
     step: the bf16 product-loop step, and the float32 UNET and CubeNET-64
     steps, which make the same calls); control: conv3x3_bias_act itself at
     those calls in their modes, bf16 and float32;
+  - wgrad_fold_bf16, wgrad_fold_f32: conv3x3_wgrad's fold mode ((dW, db)
+    from the raw cotangent gy, the statistics conv's output y, gsum and
+    gsumsq) at the eleven conv3x3_wgrad calls of a CubeNET-64 step (the
+    bf16 product-loop step and the float32 step make the same calls; the
+    first conv reads the host pre-padded buffer), on each tree's default
+    body; wgrad_fold_control: the non-fold kernel at those calls on the
+    materialized g_eff, bf16 and float32;
   - dh_fold: the dh-fold probe's current and folded kernels at the probe's
     2x610x1032 buffers, through the public functions only (each tree's
     default body); dh_fold_control: one cuDNN call of the same function (a
@@ -65,6 +72,22 @@ CALLS = [(label, "shift", shape, o, "conv", dtype, count, f"shift_{dtype}")
          for dtype in ("bf16", "f32") for label, shape, o, count in SHIFT_CALLS]
 CALLS += [(label, "halo", shape, o, mode, dtype, count, "control")
           for dtype in ("bf16", "f32") for label, shape, o, mode, count in STEP_CALLS]
+# The weight gradient's calls of a CubeNET-64 step: (label, shape, O, mode,
+# calls); mode "pre_padded" reads x from the ingest buffer.
+WGRAD_CALLS = [
+    ("first_conv", (2, 608, 968, 238), 64, "pre_padded", 1),
+    ("inc2/up4.conv2 prologue", (2, 608, 968, 64), 64, "prologue", 2),
+    ("down1.conv1", (2, 304, 484, 64), 128, "plain", 1),
+    ("down1/up3.conv2 prologue", (2, 304, 484, 128), 128, "prologue", 2),
+    ("down2.conv1", (2, 152, 242, 128), 256, "plain", 1),
+    ("down2/up2.conv2 prologue", (2, 152, 242, 256), 256, "prologue", 2),
+    ("up3.conv1", (2, 304, 484, 256), 128, "plain", 1),
+    ("up4.conv1", (2, 608, 968, 128), 64, "plain", 1),
+]
+CALLS += [(label, "fold", shape, o, mode, dtype, count, f"wgrad_fold_{dtype}")
+          for dtype in ("bf16", "f32") for label, shape, o, mode, count in WGRAD_CALLS]
+CALLS += [(label, "wgrad", shape, o, mode, dtype, count, "wgrad_fold_control")
+          for dtype in ("bf16", "f32") for label, shape, o, mode, count in WGRAD_CALLS]
 # The probes: (label, kernel, shape, O, mode, dtype, calls, group); the dh-fold
 # shape is the probe's output, the Mosaic ops' their one input.
 PROBE_SHAPE = (2, 608, 968)
@@ -79,7 +102,8 @@ CALLS += [(name, "torch_op", (8, 16, 128), 128, name, "f32", 1, "mosaic_control"
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # the device kernels each call's device time sums (None: every kernel)
 DEVICE_KEYS = {"shift": "conv3x3", "halo": "conv3x3", "dh_fold": "dh_fold",
-               "mosaic": "mosaic_op", "cudnn": None, "torch_op": None}
+               "mosaic": "mosaic_op", "cudnn": None, "torch_op": None,
+               "fold": None, "wgrad": None}
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -128,6 +152,8 @@ def digest(out) -> str:
 def make_call(kernels, kernel, shape, o, mode, dtype, gen):
     if kernel in ("dh_fold", "cudnn"):
         return make_probe_call(kernel, mode)
+    if kernel in ("fold", "wgrad"):
+        return make_wgrad_call(kernels[2], kernel, shape, o, mode, dtype, gen)
     if kernel in ("mosaic", "torch_op"):
         from hyperpri_tpu_torch.ops.kernels import probe_mosaic_ops
 
@@ -135,7 +161,7 @@ def make_call(kernels, kernel, shape, o, mode, dtype, gen):
         if kernel == "mosaic":
             return lambda: probe_mosaic_ops.run_case(mode, x)
         return lambda: probe_mosaic_ops.run_case_reference(mode, x)
-    conv3x3_bias_act_shift, conv3x3_bias_act = kernels
+    conv3x3_bias_act_shift, conv3x3_bias_act = kernels[:2]
     n, h, w, c = shape
     x = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
     pa = 0.5 + torch.rand((c,), generator=gen, device="cuda")
@@ -150,6 +176,34 @@ def make_call(kernels, kernel, shape, o, mode, dtype, gen):
     if mode == "prologue":
         return lambda: conv3x3_bias_act(x, wk, b, pa, pb, relu=False, with_stats=True)
     return lambda: conv3x3_bias_act(x, wk, b, relu=False, with_stats=True)
+
+
+def make_wgrad_call(conv3x3_wgrad, kernel, shape, o, mode, dtype, gen):
+    """The fold mode of conv3x3_wgrad ("fold") or the non-fold kernel on the
+    materialized g_eff ("wgrad") at one call: x (in the pre-padded ingest
+    buffer for mode "pre_padded"), gy and y (N, H, W, O), gsum and gsumsq,
+    pa and pb for mode "prologue"."""
+    from hyperpri_tpu_torch.ops.kernels import _plain, framing
+
+    n, h, w, c = shape
+    x = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+    gy, y = (torch.randn((n, h, w, o), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    gsum = torch.randn((o,), generator=gen, device="cuda")
+    gsumsq = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+    pa = pb = None
+    kw = {}
+    if mode == "prologue":
+        pa = 0.5 + torch.rand((c,), generator=gen, device="cuda")
+        pb = 0.5 * torch.randn((c,), generator=gen, device="cuda")
+    if mode == "pre_padded":
+        (hp, wp, cp), _, _ = framing.ingest_spec(h, w, c)
+        buf = torch.zeros((n, hp, wp, cp), dtype=dtype, device="cuda")
+        buf[:, 1:1 + h, 1:1 + w, :c] = x
+        x, kw = buf, dict(pre_padded_c=c)
+    if kernel == "fold":
+        return lambda: conv3x3_wgrad(x, gy, pa, pb, y=y, gsum=gsum, gsumsq=gsumsq, **kw)
+    g_eff = _plain.fold_stats_cotangent(gy, gsum, gsumsq, y, dtype)
+    return lambda: conv3x3_wgrad(x, g_eff, pa, pb, **kw)
 
 
 def make_probe_call(kernel, mode):
@@ -183,13 +237,14 @@ def main():
     sys.path.insert(0, root)
     os.chdir(root)
     from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_grad import conv3x3_wgrad
     from hyperpri_tpu_torch.ops.kernels.conv3x3_shift import conv3x3_bias_act_shift
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    kernels = (conv3x3_bias_act_shift, conv3x3_bias_act)
+    kernels = (conv3x3_bias_act_shift, conv3x3_bias_act, conv3x3_wgrad)
     print(f"{args[0]} on {card}", flush=True)
     sums = {}
     for label, kernel, shape, o, mode, dtype, count, group in CALLS:

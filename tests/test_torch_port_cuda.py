@@ -459,52 +459,73 @@ def _fold_operands(rng, device, shape, o, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,o", [((1, 37, 53, 238), 48), ((2, 29, 71, 64), 64),
-                                     ((1, 17, 33, 61), 131), ((1, 13, 21, 61), 24)])
+                                     ((1, 17, 33, 61), 131), ((1, 13, 21, 61), 24),
+                                     ((1, 17, 33, 72), 136), ((2, 9, 35, 128), 40)])
 @pytest.mark.parametrize("mode", ["unframed", "prologue", "pre_padded", "arena_g",
                                   "arena_in+arena_g"])
 def test_conv3x3_wgrad_fold_matches_plain(cuda_device, shape, o, mode, dtype):
     """Fold mode (g_eff and db formed in the kernel from the raw gy and y) on
-    NaN-framed buffers: dW and db within the sums' limit of their absolute
-    terms, the same bits twice, and dW bit-equal to the non-fold kernel on
-    the materialized g_eff: the synchronous kernel, the fold mode's own body
-    (bf16 non-fold calls otherwise take the Hopper kernel, which sums in
-    another order)."""
+    NaN-framed buffers, on the body its plan names ("sm90" wherever TMA can
+    address x, g and y; the last two shapes' pixel tiles, C tiles and O
+    tiles overhang every edge): dW and db within the sums' limit of their
+    absolute terms, the same bits twice, and dW bit-equal to the non-fold
+    kernel on the same body on the materialized g_eff (framed alike; a
+    non-fold arena_g call's O is the arena's channel width, whose columns
+    past the fold's O are the zero lanes' and not compared). Where
+    the plan takes the Hopper body, the synchronous fold (`_legacy=True`)
+    too: within the limit, and its dW bit-equal to the synchronous non-fold
+    kernel's."""
     from hyperpri_tpu_torch.ops.kernels import _plain
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_grad import call_plan
 
     x, _, _, rng = _conv_inputs(cuda_device, shape, o, dtype=dtype)
     gy, y, gs, gss = _fold_operands(rng, cuda_device, shape, o, dtype)
     h, wd, c = shape[1], shape[2], shape[3]
     pa = pb = None
-    kw, plain_kw = {}, {}
+    kw = {}
     xk, gk, yk = x, gy, y
+    g_eff = _plain.fold_stats_cotangent(gy, gs, gss, y, dtype)
+    g_effk = g_eff
     if mode in ("prologue", "arena_in+arena_g"):
         pa, pb = _affine(rng, cuda_device, c)
     if mode == "pre_padded":
         xk = _framed(x, 1)
-        kw["pre_padded_c"] = plain_kw["pre_padded_c"] = c
+        kw["pre_padded_c"] = c
     if "arena_in" in mode:
         xk = _framed(x, 8)
-        kw["arena_in"] = plain_kw["arena_in"] = True
+        kw["arena_in"] = True
     if "arena_g" in mode:
-        gk, yk = _framed(gy, 8), _framed(y, 8)
+        gk, yk, g_effk = _framed(gy, 8), _framed(y, 8), _framed(g_eff, 8)
         kw.update(arena_g=True, logical_hw=(h, wd))
+    fold_kw = dict(kw, y=yk, gsum=gs, gsumsq=gss)
+    body = call_plan(xk, gk, pa, **fold_kw).path
+    tma = all(p * x.element_size() % 16 == 0 for p in (xk.shape[-1], gk.shape[-1]))
+    assert body == ("sm90" if tma else "legacy")
     launches = conv3x3_wgrad.launches_by_mode.get("fold", 0)
-    (dw, db), (dw2, db2) = (conv3x3_wgrad(xk, gk, pa, pb, y=yk, gsum=gs, gsumsq=gss, **kw)
-                            for _ in range(2))
+    by_path = dict(conv3x3_wgrad.launches_by_path)
+    (dw, db), (dw2, db2) = (conv3x3_wgrad(xk, gk, pa, pb, **fold_kw) for _ in range(2))
     assert conv3x3_wgrad.launches_by_mode["fold"] == launches + 2
-    rdw, rdb = conv3x3_wgrad_reference(xk, gk, pa, pb, y=yk, gsum=gs, gsumsq=gss, **kw)
-    g_eff = _plain.fold_stats_cotangent(gy, gs, gss, y, dtype)
+    assert conv3x3_wgrad.launches_by_path[body] == by_path.get(body, 0) + 2
+    rdw, rdb = conv3x3_wgrad_reference(xk, gk, pa, pb, **fold_kw)
     z = _plain.prologue_act(x, pa, pb)
     scale = conv3x3_wgrad_reference(z.abs(), g_eff.abs())
-    materialized = conv3x3_wgrad(xk, g_eff, pa, pb, _legacy=True, **plain_kw)
+    db_scale = g_eff.float().abs().sum(dim=(0, 1, 2))
+    materialized = conv3x3_wgrad(xk, g_effk, pa, pb, _legacy=body == "legacy", **kw)
     torch.cuda.synchronize()
     rel = SUM_REL if dtype == torch.bfloat16 else F32_REL
     assert dw.shape == (3, 3, c, o) and db.shape == (o,)
     assert bool(torch.isfinite(dw).all()) and bool(torch.isfinite(db).all())
     _assert_sums_close(dw, rdw, scale, rel)
-    _assert_sums_close(db, rdb, g_eff.float().abs().sum(dim=(0, 1, 2)), rel)
+    _assert_sums_close(db, rdb, db_scale, rel)
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
-    assert torch.equal(dw, materialized)
+    assert torch.equal(dw, materialized[..., :o])
+    if body == "sm90":
+        sdw, sdb = conv3x3_wgrad(xk, gk, pa, pb, _legacy=True, **fold_kw)
+        sync = conv3x3_wgrad(xk, g_effk, pa, pb, _legacy=True, **kw)
+        torch.cuda.synchronize()
+        _assert_sums_close(sdw, rdw, scale, rel)
+        _assert_sums_close(sdb, rdb, db_scale, rel)
+        assert torch.equal(sdw, sync[..., :o])
 
 
 # conv3x3_bias_act_shift: ragged shapes (C = 238 in bf16 and C = 61 take the

@@ -118,19 +118,20 @@ def test_bias_act_float32_legacy_cases(case):
 
 @pytest.mark.parametrize("case", [
     dict(dtype=torch.float32, c=238, o=64, xp=238, gp=64),    # 952-byte float32 pixels
-    dict(dtype=torch.bfloat16, c=64, o=64, xp=64, gp=64, fold=True),
+    dict(dtype=torch.bfloat16, c=238, o=64, xp=238, gp=64, fold=True),  # the fold, C = 238
     dict(dtype=torch.bfloat16, c=238, o=64, xp=238, gp=64),   # C = 238 unframed
     dict(dtype=torch.bfloat16, c=64, o=20, xp=64, gp=20),     # 40-byte g pixels
     dict(dtype=torch.bfloat16, c=64, o=64, xp=64, gp=64, aligned=False),
 ])
 def test_wgrad_legacy_cases(case):
     plan = sm90_plan.wgrad_plan(2, 37, 53, case["c"], case["o"], case["dtype"], case["xp"],
-                                case["gp"], case.get("fold", False), case.get("aligned", True))
+                                case["gp"], case.get("fold", False), case.get("aligned", True),
+                                y_aligned=case.get("y_aligned", True))
     assert plan.path == "legacy" and plan.stages == 0
 
 
 @pytest.mark.parametrize("case", [
-    dict(c=64, o=64, xp=64, gp=64, fold=True),   # the fold mode has no Hopper body
+    dict(c=64, o=64, xp=64, gp=64, fold=True, y_aligned=False),  # the fold, y off 16 bytes
     dict(c=64, o=66, xp=64, gp=66),              # g pitch not a multiple of 4
     dict(c=61, o=64, xp=61, gp=64),              # 244-byte x pixels
     dict(c=64, o=64, xp=64, gp=64, aligned=False),
@@ -139,8 +140,119 @@ def test_wgrad_float32_legacy_cases(case):
     """Float32 weight gradients the Hopper body does not take stay on the
     synchronous one, with the synchronous plan's splits."""
     plan = sm90_plan.wgrad_plan(2, 37, 53, case["c"], case["o"], torch.float32, case["xp"],
-                                case["gp"], case.get("fold", False), case.get("aligned", True))
+                                case["gp"], case.get("fold", False), case.get("aligned", True),
+                                y_aligned=case.get("y_aligned", True))
     assert plan.path == "legacy" and plan.stages == 0
+
+
+# conv3x3_wgrad's fold mode (y, gsum, gsumsq): its Hopper bodies' plans.
+_FOLD_VIEWS = {
+    # (x's frame, g's and y's frame) of a logical 1x13x37 call, C -> O
+    "unframed": lambda c, o: (Frame.of(torch.empty(1, 13, 37, c)),
+                              Frame.of(torch.empty(1, 13, 37, o))),
+    "pre_padded": lambda c, o: (Frame(*framing.ingest_spec(13, 37, c)[0][:2],
+                                      framing.ingest_spec(13, 37, c)[0][2], 1, 1),
+                                Frame.of(torch.empty(1, 13, 37, o))),
+    "arena_g": lambda c, o: (Frame.of(torch.empty(1, 13, 37, c)),
+                             Frame.of(torch.empty(framing.arena_shape(1, 13, 37, o)), 8)),
+    "arena_in+arena_g": lambda c, o: (Frame.of(torch.empty(framing.arena_shape(1, 13, 37, c)), 8),
+                                      Frame.of(torch.empty(framing.arena_shape(1, 13, 37, o)), 8)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("view,c,o", [(view, c, o) for view in _FOLD_VIEWS
+                                      for c, o in ((64, 64), (128, 136), (24, 40))]
+                         + [(view, 238, 24) for view in ("pre_padded", "arena_in+arena_g")])
+def test_wgrad_fold_takes_sm90_with_the_non_fold_splits(dtype, view, c, o):
+    """Fold calls whose x, g and y views TMA can address take the Hopper
+    bodies in both dtypes and every framing, with the splits and tile walk
+    of the same call without the fold (its dW is held bit for bit against
+    the non-fold body on the materialized g_eff), in a layout that fits an
+    H100 block: bf16 two stages of x halo + g + y tiles, float32 the fold's
+    fixed layout. C = 238 only with x framed (unframed: test_wgrad_legacy_cases)."""
+    fx, fg = _FOLD_VIEWS[view](c, o)
+    args = (1, 13, 37, c, o, dtype, fx.pitch, fg.pitch)
+    fold, plain = sm90_plan.wgrad_plan(*args, fold=True), sm90_plan.wgrad_plan(*args)
+    assert fold.path == plain.path == "sm90"
+    assert (fold.splits, fold.tiles, fold.tiles_per_split) == (
+        plain.splits, plain.tiles, plain.tiles_per_split)
+    assert 0 < fold.smem <= sm90_plan.SMEM_LIMIT
+    if dtype == torch.bfloat16:
+        assert fold.stages == 2 and fold.smem == sm90_plan.k3_smem_bytes(2, fold=True)
+        assert sm90_plan.k3_smem_bytes(3, fold=True) > sm90_plan.SMEM_LIMIT
+    else:
+        assert (fold.stages, fold.smem) == (sm90_plan.K3F_HSTAGES,
+                                            sm90_plan.k3f_smem_bytes(fold=True))
+
+
+@pytest.mark.parametrize("model", ["CubeNET", "UNET"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_wgrad_fold_at_the_step_calls_takes_sm90(model, dtype):
+    """At every weight-gradient call of a training step the fold mode would
+    take the Hopper body with the call's own splits."""
+    calls = chip_smoke.training_calls(model, ingest=model == "CubeNET", dtype=dtype)
+    torch_dtype = chip_smoke.DTYPES[dtype]
+    for call in calls:
+        if call["kernel"] != "conv3x3_wgrad":
+            continue
+        n, h, w, c = call["shape"]
+        args = (n, h, w, c, call["o"], torch_dtype, _x_pitch(call), call["o"])
+        fold, plain = sm90_plan.wgrad_plan(*args, fold=True), sm90_plan.wgrad_plan(*args)
+        assert fold.path == "sm90" and fold.splits == plain.splits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("why", ["y_pitch", "y_pitch_tma", "y_aligned", "legacy"])
+def test_wgrad_fold_legacy_cases(dtype, why):
+    """A fold call stays on the synchronous body when y's view is not g's
+    (another pitch), TMA cannot address it (61 channels: 122-byte bf16 and
+    244-byte float32 pixels), its buffer is off 16 bytes, or the caller asks
+    for it (sm90=False), with the synchronous plan's splits."""
+    kw = {"y_pitch": dict(y_pitch=128), "y_pitch_tma": dict(y_pitch=61),
+          "y_aligned": dict(y_aligned=False), "legacy": dict(sm90=False)}[why]
+    args = (2, 37, 53, 64, 64, dtype, 64, 64)
+    plan = sm90_plan.wgrad_plan(*args, fold=True, **kw)
+    assert plan.path == "legacy" and plan.stages == 0
+    assert plan.splits == sm90_plan.wgrad_plan(*args, fold=True, sm90=False).splits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wgrad_call_plan_reads_y_alignment(dtype):
+    """conv3x3_wgrad (through call_plan, which the wrapper calls) hands the
+    plan the alignment of y's buffer: the same fold call takes the Hopper
+    body with y on a 16-byte boundary and the synchronous one with y an
+    element off it, with the same splits; without the fold y plays no part."""
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_grad import call_plan
+
+    n, h, w, c, o = 2, 29, 71, 64, 64
+    x = torch.zeros((n, h, w, c), dtype=dtype)
+    g = torch.zeros((n, h, w, o), dtype=dtype)
+    gsum, gsumsq = torch.zeros(o), torch.zeros(o)
+    buf = torch.zeros(n * h * w * o + 8, dtype=dtype)
+    y_on, y_off = buf[:-8].view(n, h, w, o), buf[1:-7].view(n, h, w, o)
+    assert y_on.data_ptr() % 16 == 0 and y_off.data_ptr() % 16 != 0
+    on = call_plan(x, g, y=y_on, gsum=gsum, gsumsq=gsumsq)
+    off = call_plan(x, g, y=y_off, gsum=gsum, gsumsq=gsumsq)
+    assert (on.path, off.path) == ("sm90", "legacy")
+    assert on.tiles == off.tiles
+    assert call_plan(x, g).path == "sm90"
+    assert call_plan(x, g, y=y_on, gsum=gsum, gsumsq=gsumsq, _legacy=True).path == "legacy"
+
+
+def test_wgrad_fold_shared_memory_sums():
+    """The fold layouts, as csrc/conv3x3_grad.cu sums them: bf16 two stages
+    of x halo, g and y tiles, the C tile's affine, gsum and gsumsq and 12
+    warps' db sums, two stages' barriers; float32 the two x halos, two raw
+    buffers of a pixel row of gy and y, the one-row planes, the affine,
+    gsum and gsumsq, 128 transposers' four db sums, four barriers."""
+    assert sm90_plan.k3_smem_bytes(2, fold=True) == (
+        1024 + 2 * (sm90_plan.HALO_SLOT + 2 * sm90_plan.TILE_BYTES) + 512 + 512 + 12 * 256 + 32)
+    assert sm90_plan.k3f_smem_bytes(fold=True) == (
+        1024 + 2 * 2 * sm90_plan.HALO_SLOT + 2 * 16384 + 2 * 8192 + 512 + 512 + 2048 + 32)
+    assert sm90_plan.k3f_smem_bytes(fold=True) <= sm90_plan.SMEM_LIMIT
+    # the non-fold layouts keep their sizes
+    assert sm90_plan.k3_smem_bytes(3) == 231_984 and sm90_plan.k3f_smem_bytes() == 226_840
 
 
 def test_wgrad_framed_views_take_sm90():
