@@ -94,8 +94,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
       reading a float32 host pre-padded buffer;
   (i) the CLI's kfold_train --validate at its default precision, fp32, as two
       subprocesses: --dataset RGB (UNET) and no flag (CubeNET on HSI), with
-      the route each took and its float32 kernel launches.
-The phases run in the order a-f, l, g, j, k, h, i. In (c) the framed modes read
+      the route each took and its float32 kernel launches;
+  (m) SpectralUNET-1650 training at batch 2, 608x968x238, Adam(1e-3), on one
+      pre-staged batch, in float32 (matmul TF32 off) and bf16: the smallest
+      pixel chunk count of 8 and 16 that fits the card, with ms/step (median
+      of 3 after 2 warm-ups), peak memory and TFLOP/s on the model FLOPs, and
+      a profiled step (device busy time, its matrix products' share); the
+      same with the saved residuals offloaded to pinned host memory (two
+      steps, the second timed), held bit for bit against the plain step; the
+      offloaded per-image run (2 chunks) where MemAvailable covers its
+      estimate, else the skip and the MemAvailable that caused it; the loss
+      falling over 3 steps, all 18 running statistics moving, no kernel
+      launched;
+  (n) SpectralUNET-1650 eval of one 608x968x238 cube through
+      apply_pixelwise_chunked: chunked against unchunked at 1x152x242
+      (float32), ms/cube and peak memory at chunks of 65536 and 262144 pixels
+      for the unfolded float32 and the folded bf16 model, the float32 fold
+      against the unfolded model, and the bf16 fold's sign flips against
+      those of the unfolded model in bf16;
+  (o) the CLI on phase h's tree: kfold_train --model SpectralUNET --chunks K
+      --validate (K from m, no kernel launched), kfold_validate over the
+      three runs (phase i's UNET and CubeNET and this one), kfold_segmaps at
+      the published split-1 thresholds, with seconds, the test_net results
+      and the segmentation maps read back.
+The phases run in the order a-f, l, g, j, k, m, n, h, i, o. In (c) the framed modes read
 buffers whose frames hold NaN. The script's elapsed seconds and the card's
 name and power limit come next; the line before
 the last is the kernel summary as JSON; the last line is
@@ -1819,13 +1841,16 @@ def phase_profile(step, batch):
     return profile_step(step, batch)
 
 
-def profile_step(step, batch):
-    """torch.profiler over one training step after a warm-up: the device's busy
-    time against the step's wall time, and the 20 kernels that took longest."""
+def profile_step(step, batch, warmup: bool = True):
+    """torch.profiler over one training step (after a warm-up step unless the
+    caller has warmed it up): the device's busy time against the step's wall
+    time, the time of the matrix-product kernels (cuBLAS / CUTLASS by name),
+    and the 20 kernels that took longest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step(batch)
+    if warmup:
+        step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1837,13 +1862,15 @@ def profile_step(step, batch):
     if busy_ms == 0:
         print("the profiler recorded no device time")
         return None
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if any(k in e.key.lower() for k in GEMM_KERNEL_NAMES)) / 1e3
     print(f"device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall for the step "
           f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, profiler on); "
-          f"{sum(e.count for e in kernels)} device kernels")
+          f"{sum(e.count for e in kernels)} device kernels; matrix products {gemm_ms:.4f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  {e.count:4d} calls  "
               f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}%  {e.key[:90]}")
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "gemm_ms": gemm_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -2057,6 +2084,377 @@ def phase_cli(tree):
     return {"seconds": seconds, "route": routes, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# (m), (n), (o): SpectralUNET (Dense layers on torch.matmul, no kernel of
+# ops/kernels on its path), chunked training and eval, and the CLI's last
+# command.
+
+SPECTRAL_FEATS = 1650
+PARAMS_SPECTRAL = 30_388_051
+SPECTRAL_CHUNK_COUNTS = (8, 16)   # the smallest that fits the card is timed
+SPECTRAL_PER_IMAGE_CHUNKS = TRAIN_BATCH
+SPECTRAL_WARMUP, SPECTRAL_TIMED = 2, 3
+# Offloaded runs take this many steps (the first allocates the pinned host
+# blocks) and are held against the plain run's state after as many.
+OFFLOAD_STEPS = 2
+SPECTRAL_EVAL_CHUNKS = (65536, 262144)
+SPECTRAL_EVAL_SMALL = (152, 242)    # chunked against unchunked, float32
+CHUNKED_EVAL_REL_L2 = 1e-6
+# The fold itself, in float32, changes the logits by round-off only.
+FOLD_F32_REL_L2 = 1e-5
+# Host memory kept free beside the offloaded residuals, and the headroom of
+# the pinned allocator's block sizes over the bytes it holds.
+HOST_MARGIN_BYTES = 8 * 2 ** 30
+PINNED_HEADROOM = 1.25
+
+
+# Substrings of the matrix-product kernels' names (cuBLAS, CUTLASS).
+GEMM_KERNEL_NAMES = ("gemm", "xmma", "nvjet", "cutlass")
+
+
+def spectral_macs_per_pixel(depth: int = D, feats: int = SPECTRAL_FEATS) -> int:
+    """Multiply-adds a pixel of one SpectralUNET forward: the tail, down1-4
+    and up1 (feats wide in), up2-4 (2 feats in), the head (2 feats -> 1)."""
+    return depth * feats + 5 * feats * feats + 3 * 2 * feats * feats + 2 * feats
+
+
+def mem_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def empty_host_cache():
+    """Hand the pinned host blocks the offloaded steps cached back to the
+    system, so that the next run's estimate reads MemAvailable truly."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    check(empty is not None, "this torch cannot empty its pinned host cache")
+    empty()
+
+
+def pinned_host_peak_gib():
+    """The pinned host allocator's peak since its last reset, or None where
+    this torch does not report it."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    peak = stats().get("allocated_bytes.peak") if stats is not None else None
+    return None if peak is None else peak / 2 ** 30
+
+
+def offload_bytes_per_pixel(dtype) -> float:
+    """Bytes a pixel of the tensors a SpectralUNET training forward saves for
+    its backward, counted as save_on_cpu copies them (one copy a save),
+    measured at full width on 4096 pixels."""
+    from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET
+    from hyperpri_tpu_torch.serve import masked_bce
+
+    px = 4096
+    model = SpectralUNET(D, 1, SPECTRAL_FEATS, dtype=dtype).cuda()
+    x = torch.randn((1, px, 1, D), device="cuda")
+    saved = []
+
+    def pack(t):
+        if t.dim() >= 1 and t.shape[0] == px:
+            saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = model(x, train=True)
+        masked_bce(y, torch.zeros_like(y), torch.ones(1, device="cuda"))
+    del model, x, y
+    return sum(saved) / px
+
+
+def spectral_batch():
+    """A pre-staged batch of the synthetic tree's kind (data/synthetic.py):
+    root-like masks, each pixel the root or the soil spectrum plus noise, so
+    that a per-pixel model has something to learn (on an H100, random masks
+    at 1.18 M pixels: Adam's first steps raised the bf16 loss from 0.757 to
+    0.909)."""
+    import numpy as np
+
+    from hyperpri_tpu_torch.data.synthetic import draw_roots, root_spectrum, soil_spectrum
+
+    rng = np.random.default_rng(6)
+    masks = np.stack([draw_roots(H, W, rng) for _ in range(TRAIN_BATCH)])[..., None]
+    mask = torch.from_numpy(masks).cuda()
+    root = torch.from_numpy(root_spectrum(D)).float().cuda()
+    soil = torch.from_numpy(soil_spectrum(D)).float().cuda()
+    noise = torch.randn((TRAIN_BATCH, H, W, D), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+    image = (torch.where(mask, root, soil) + 0.02 * noise).clamp(0, 1)
+    return {"image": image, "mask": mask.float(), "valid": torch.ones(TRAIN_BATCH, device="cuda")}
+
+
+def running_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+
+
+def spectral_run(dtype, n_chunks, offload, batch, label, steps, warmup, snapshot_at,
+                 profile=False):
+    """SpectralUNET-1650 from seed 0, `steps` chunked steps on one
+    pre-staged batch: -> (record with the losses, the median step time after
+    `warmup` steps, peak memory and the launches, and with `profile` a
+    profiled step after them; the model's state after step `snapshot_at`)."""
+    from hyperpri_tpu_torch.train.step import build_spectral_unet_trainer
+
+    model, _, step = build_spectral_unet_trainer(0, device="cuda", dtype=dtype,
+                                                 n_chunks=n_chunks, offload=offload)
+    before = running_stats(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset = getattr(torch.cuda, "reset_peak_host_memory_stats", None)
+    if reset is not None:
+        reset()
+    zero_launches()
+    losses, times, state = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logs = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs["loss_sum"] / logs["n"]))
+        if i + 1 == snapshot_at:
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pinned = pinned_host_peak_gib()
+    ms = statistics.median(times[warmup:])
+    flops = 3 * 2 * spectral_macs_per_pixel() * batch["image"][..., 0].numel()
+    after = running_stats(model)
+    moved = sum(not torch.equal(after[k], before[k]) for k in before)
+    profiled = None
+    if profile:
+        print(f"{label}: {n_chunks} chunks, a step under torch.profiler:")
+        profiled = profile_step(step, batch, warmup=False)
+    record = {"n_chunks": n_chunks, "offload": offload, "ms_per_step": ms,
+              "step_ms": times, "peak_gib": peak, "pinned_host_peak_gib": pinned,
+              "tflops": flops / (ms * 1e-3) / 1e12,
+              "losses": losses, "running_stats_moved": moved, "profile": profiled,
+              "running_stats": len(before), "launches": launches}
+    print(f"{label}: {n_chunks} chunks{' offloaded' if offload else ''}: "
+          f"{ms:.3f} ms/step (median of {steps - warmup} after {warmup} warm-ups; "
+          f"steps {[round(t, 3) for t in times]}), peak {peak:.3f} GiB"
+          f"{f' (pinned host {pinned} GiB)' if offload else ''}, "
+          f"{record['tflops']:.2f} TFLOP/s on the model FLOPs, losses {losses}")
+    del model, step, logs
+    torch.cuda.empty_cache()
+    return record, state
+
+
+def phase_spectral_training(card):
+    phase(f"(m) SpectralUNET-{SPECTRAL_FEATS} training, batch {TRAIN_BATCH}, {H}x{W}x{D}, "
+          f"Adam(1e-3), chunked, on {card}")
+    batch = spectral_batch()
+    out = {}
+    for name, dtype in DTYPES.items():
+        label = f"SpectralUNET {name}"
+        plain = state = None
+        for n_chunks in SPECTRAL_CHUNK_COUNTS:
+            try:
+                plain, state = spectral_run(dtype, n_chunks, False, batch, label,
+                                            SPECTRAL_WARMUP + SPECTRAL_TIMED, SPECTRAL_WARMUP,
+                                            OFFLOAD_STEPS, profile=True)
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"{label}: {n_chunks} chunks do not fit the card")
+                torch.cuda.empty_cache()
+        check(plain is not None, f"{label} fits the card at none of {SPECTRAL_CHUNK_COUNTS}")
+        k = plain["n_chunks"]
+        losses = plain["losses"]
+        check(all(v == v and abs(v) != float("inf") for v in losses), f"{label}: {losses}")
+        check(losses[2] < losses[0], f"{label}: the loss did not fall over 3 steps: {losses}")
+        check(plain["running_stats_moved"] == plain["running_stats"] == 18,
+              f"{label}: {plain['running_stats_moved']} of the 9 BatchNorms' 18 running "
+              "statistics moved")
+        check(not any(plain["launches"].values()),
+              f"{label}: kernels launched on the SpectralUNET path: {plain['launches']}")
+        per_px = offload_bytes_per_pixel(dtype)
+        need = per_px * batch["image"][..., 0].numel() / k * PINNED_HEADROOM + HOST_MARGIN_BYTES
+        avail = mem_available_bytes()
+        print(f"{label}: offload copies {per_px:.0f} bytes a pixel; {k} chunks need "
+              f"{need / 2 ** 30:.2f} GiB of host memory with the margin, MemAvailable "
+              f"{avail / 2 ** 30:.2f} GiB")
+        check(avail >= need, f"{label}: not enough host memory to offload at {k} chunks")
+        off, off_state = spectral_run(dtype, k, True, batch, label, OFFLOAD_STEPS,
+                                      OFFLOAD_STEPS - 1, OFFLOAD_STEPS)
+        same = off["losses"] == losses[:OFFLOAD_STEPS] and all(
+            torch.equal(off_state[key], state[key]) for key in state)
+        print(f"{label}: offload at {k} chunks bit-equal to the plain step (losses, "
+              f"parameters, running statistics after {OFFLOAD_STEPS} steps): {same}")
+        check(same, f"{label}: the offloaded step differs from the plain step")
+        check(not any(off["launches"].values()), f"{label}: kernels launched with offload")
+        del state, off_state
+        empty_host_cache()
+        # the per-image count, the reference's own semantics, with offload
+        need2 = (per_px * batch["image"][..., 0].numel() / SPECTRAL_PER_IMAGE_CHUNKS
+                 * PINNED_HEADROOM + HOST_MARGIN_BYTES)
+        avail = mem_available_bytes()
+        if avail >= need2:
+            per_image, _ = spectral_run(dtype, SPECTRAL_PER_IMAGE_CHUNKS, True, batch, label,
+                                        OFFLOAD_STEPS, OFFLOAD_STEPS - 1, OFFLOAD_STEPS)
+            empty_host_cache()
+        else:
+            per_image = {"skipped": True, "need_gib": need2 / 2 ** 30,
+                         "mem_available_gib": avail / 2 ** 30}
+            print(f"{label}: SKIPPED the offloaded run at {SPECTRAL_PER_IMAGE_CHUNKS} chunks: "
+                  f"it needs {need2 / 2 ** 30:.2f} GiB of host memory with the margin, "
+                  f"MemAvailable is {avail / 2 ** 30:.2f} GiB")
+        out[name] = {"plain": plain, "offload": off, "offload_bit_equal": same,
+                     "offload_bytes_per_pixel": per_px, "per_image_offload": per_image}
+    del batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def random_spectral_unet(seed: int):
+    """Unfolded float32 SpectralUNET-1650 on the card with flax's init drawn
+    from `seed`, then seeded BatchNorm affines and running statistics, so
+    that folding them is not close to the identity (as serve.random_cubenet)."""
+    from hyperpri_tpu_torch.models.parts import TorchBatchNorm
+    from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET
+
+    g = torch.Generator().manual_seed(seed)
+    model = SpectralUNET(D, 1, SPECTRAL_FEATS, generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, TorchBatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(torch.empty(n).uniform_(0.8, 1.2, generator=g))
+                m.bias.copy_(torch.empty(n).normal_(0.0, 0.1, generator=g))
+                m.running_mean.copy_(torch.empty(n).normal_(0.0, 0.2, generator=g))
+                m.running_var.copy_(torch.empty(n).uniform_(0.5, 2.0, generator=g))
+    return model.cuda()
+
+
+def logit_errors(out, ref):
+    return (float((out - ref).norm() / ref.norm()),
+            float(((out > 0) == (ref > 0)).float().mean()))
+
+
+def phase_spectral_eval(card):
+    phase(f"(n) SpectralUNET-{SPECTRAL_FEATS} eval, 1x{H}x{W}x{D}, through "
+          f"apply_pixelwise_chunked, on {card}")
+    import copy
+
+    from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET
+    from hyperpri_tpu_torch.ops.chunked import apply_pixelwise_chunked
+    from hyperpri_tpu_torch.ops.fold_bn import fold_batch_norm
+
+    model = random_spectral_unet(0)
+    folded = {}
+    for name, dtype in DTYPES.items():
+        folded[name] = SpectralUNET(D, 1, SPECTRAL_FEATS, fused_bn=True, dtype=dtype).cuda()
+        folded[name].load_state_dict(fold_batch_norm(model.state_dict()))
+    unfolded_bf16 = copy.deepcopy(model)
+    for m in unfolded_bf16.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.bfloat16
+    cube = torch.randn((1, H, W, D), generator=torch.Generator(device="cuda").manual_seed(8),
+                       device="cuda")
+    zero_launches()
+    small = cube[:, :SPECTRAL_EVAL_SMALL[0], :SPECTRAL_EVAL_SMALL[1]]
+    with torch.no_grad():
+        whole = model(small)
+    chunked = apply_pixelwise_chunked(model, small, chunk=8192)
+    chunked_rel = logit_errors(chunked, whole)[0]
+    print(f"chunked (8192-pixel chunks) against unchunked eval at 1x{SPECTRAL_EVAL_SMALL[0]}x"
+          f"{SPECTRAL_EVAL_SMALL[1]}, float32: rel L2 {chunked_rel:.3e} (limit "
+          f"{CHUNKED_EVAL_REL_L2})")
+    check(chunked_rel <= CHUNKED_EVAL_REL_L2, "chunked eval differs from the unchunked eval")
+
+    runs, logits = {}, {}
+    for chunk in SPECTRAL_EVAL_CHUNKS:
+        for label, mdl in (("f32_unfolded", model), ("bf16_folded", folded["bf16"])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_ms(lambda: apply_pixelwise_chunked(mdl, cube, chunk), reps=3, warmup=1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            runs[label, chunk] = {"ms_per_cube": ms, "peak_gib_above_inputs": peak}
+            print(f"eval {label}, chunk {chunk}: {ms:.3f} ms/cube, peak {peak:.3f} GiB above "
+                  f"the model and the cube")
+    for label, mdl in (("f32_unfolded", model), ("f32_folded", folded["f32"]),
+                       ("bf16_folded", folded["bf16"]), ("bf16_unfolded", unfolded_bf16)):
+        logits[label] = apply_pixelwise_chunked(mdl, cube, SPECTRAL_EVAL_CHUNKS[0])
+        check(tuple(logits[label].shape) == (1, H, W, 1)
+              and logits[label].dtype == torch.float32
+              and bool(torch.isfinite(logits[label]).all()), f"{label}: logits")
+    check(not any(read_launches().values()), "kernels launched on the SpectralUNET eval path")
+    ref = logits["f32_unfolded"]
+    errs = {label: logit_errors(logits[label], ref)
+            for label in ("f32_folded", "bf16_folded", "bf16_unfolded")}
+    for label, (rel, agree) in errs.items():
+        print(f"{label} vs f32_unfolded: rel L2 {rel:.3e}, sign agreement {agree:.6f}")
+    rel, agree = errs["f32_folded"]
+    check(rel <= FOLD_F32_REL_L2 and agree >= MODEL_SIGN_AGREE,
+          f"the float32 fold: rel L2 {rel}, agreement {agree}")
+    rel, agree = errs["bf16_folded"]
+    flips, stock_flips = 1.0 - agree, 1.0 - errs["bf16_unfolded"][1]
+    check(rel <= MODEL_REL_L2 and flips <= TRAIN_VS_STOCK * stock_flips,
+          f"the bf16 fold: rel L2 {rel} (limit {MODEL_REL_L2}), {flips:.3e} of the signs "
+          f"flipped against {stock_flips:.3e} for the unfolded model in bf16 "
+          f"(limit {TRAIN_VS_STOCK}x)")
+    del model, folded, unfolded_bf16, cube, logits
+    torch.cuda.empty_cache()
+    return {"chunked_vs_unchunked_rel_l2": chunked_rel,
+            "runs": {f"{label}_chunk{chunk}": r for (label, chunk), r in runs.items()},
+            "vs_f32_unfolded": {k: {"rel_l2": v[0], "sign_agreement": v[1]}
+                                for k, v in errs.items()}}
+
+
+def phase_spectral_cli(tree, n_chunks):
+    phase(f"(o) the CLI: kfold_train --model SpectralUNET --chunks {n_chunks}, kfold_validate, "
+          "kfold_segmaps")
+    from hyperpri_tpu_torch import cli
+    from hyperpri_tpu_torch.data.png import load_png
+
+    common = ["--calling-path", tree, "--num-splits", "1", "--device", "cuda"]
+    seconds = {}
+
+    def run(name, argv):
+        t0 = time.perf_counter()
+        result = getattr(cli, name)(argv + common)
+        seconds[name] = time.perf_counter() - t0
+        print(f"{name} {' '.join(argv)}: {seconds[name]:.2f} s")
+        return result
+
+    zero_launches()
+    run("kfold_train", ["--model", "SpectralUNET", "--chunks", str(n_chunks), "--max-epochs",
+                        "1", "--validate"])
+    launches = read_launches()
+    check(not any(launches.values()), f"kernels launched by the SpectralUNET fit: {launches}")
+    run("kfold_validate", [])
+    val_json = os.path.join(tree, "Datasets", "HyperPRI", "data_splits", "val1.json")
+    results = run("kfold_segmaps", ["--test-json", val_json])
+    check(set(m for _, m in results) == set(cli.KFOLD_MODELS), f"tested {list(results)}")
+    tests = {}
+    for (split, model), res in results.items():
+        check(all(v == v for k, v in res.items() if k != "conf_mat"), f"{model}: {res}")
+        tests[model] = {k: (v.tolist() if k == "conf_mat" else v) for k, v in res.items()}
+        print(f"test_net split {split} {model}: {tests[model]}")
+    pngs = sorted(os.path.join(d, f) for d, _, files in os.walk(os.path.join(tree, "Saved_Models"))
+                  for f in files if f.endswith("_seg.png"))
+    for path in pngs:
+        shape = load_png(path, "RGB").shape
+        check(shape == (H, W, 3), f"{path}: {shape}")
+    n_test = len(read_json_entries(val_json))
+    print(f"{len(pngs)} segmentation maps written ({n_test} test images x "
+          f"{len(cli.KFOLD_MODELS)} models), each {H}x{W}x3 as read back")
+    check(len(pngs) == n_test * len(cli.KFOLD_MODELS), f"segmentation maps {pngs}")
+    return {"seconds": seconds, "test_net": tests, "segmaps": len(pngs),
+            "launches_spectral_fit": launches}
+
+
+def read_json_entries(path):
+    """The images of a split JSON, as the port's split reader resolves them."""
+    from hyperpri_tpu_torch.data.splits import parse_split_json
+
+    root = os.path.dirname(os.path.dirname(path))
+    return parse_split_json(path, root, mode="hsi").entries
+
+
 REPLACES = {
     "conv3x3_packed": ("hyperpri_tpu_torch/csrc/conv3x3_packed.cu",
                        "hyperpri_tpu/ops/pallas/conv3x3_packed.py:308"),
@@ -2203,10 +2601,13 @@ def main():
     torch.cuda.empty_cache()
     unet = phase_training_f32("UNET", unet_calls, "j")
     cube32 = phase_training_f32("CubeNET", cube32_calls, "k")
+    spectral = phase_spectral_training(card)
+    spectral_eval = phase_spectral_eval(card)
     tree = write_tree()
     try:
         loop = phase_product_loop(tree, loop_calls, card)
         cli = phase_cli(tree)
+        spectral_cli = phase_spectral_cli(tree, spectral["f32"]["plain"]["n_chunks"])
     finally:
         shutil.rmtree(tree, ignore_errors=True)
     cli_launches = {name: sum(counts.get(f"{name} f32", 0) for counts in cli["launches"].values())
@@ -2214,9 +2615,12 @@ def main():
     kernels = kernel_summary(
         rows, errors,
         {"bf16": {"serving": serving_launches, "training_step": training_launches,
-                  "product_loop": loop["launches"]},
+                  "product_loop": loop["launches"],
+                  "spectral_unet_training": spectral["bf16"]["plain"]["launches"]},
          "f32": {"unet_training": unet["launches"], "cubenet_f32_training": cube32["launches"],
-                 "cli": cli_launches}},
+                 "cli": cli_launches,
+                 "spectral_unet_training": spectral["f32"]["plain"]["launches"],
+                 "spectral_unet_cli": spectral_cli["launches_spectral_fit"]}},
         {"bf16": {"serving": serving_framings, "training_step": training_framings,
                   "product_loop": loop["launches_by_framing"]},
          "f32": {"unet_training": unet["launches_by_framing"],
@@ -2226,7 +2630,8 @@ def main():
     print(json.dumps({"kernels": kernels, "serving_ms_per_cube": serving_ms,
                       "training_ms_per_step": step_ms, "training_peak_gib": peak,
                       "fold_ab_ms_per_step": fold_ab, "unet_f32": unet, "cubenet_f32": cube32,
-                      "product_loop": loop, "cli": cli}))
+                      "product_loop": loop, "cli": cli, "spectral_unet_training": spectral,
+                      "spectral_unet_eval": spectral_eval, "spectral_cli": spectral_cli}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,21 +2,28 @@
 
     python -m hyperpri_tpu_torch.cli kfold_train    [flags]
     python -m hyperpri_tpu_torch.cli kfold_validate [flags]
+    python -m hyperpri_tpu_torch.cli kfold_segmaps  [flags]
 
-The flags are the JAX package's (cli.py:61-204). kfold_train trains one
+The flags are the JAX package's (cli.py:61-246). kfold_train trains one
 model, each split (and seed) and, with --validate, runs the threshold sweep
 after each run. As in the JAX package, --dataset (default HSI) picks the
 configuration and the configuration picks the model, unless --model names
-one: `kfold_train --dataset RGB` trains UNET, `kfold_train` trains CubeNET.
-kfold_validate sweeps each split's thresholds for each model of --models
-(default KFOLD_MODELS, each on RGB for UNET and HSI otherwise) and writes the
-curves to {calling_path}/Saved_Models/{dataset}/{models}_pr.csv, where the JAX
-package draws a combined PNG plot. SpectralUNET joins KFOLD_MODELS with its
-slice; kfold_segmaps, and the flags of options not ported yet (--model-shard,
---chunks, --offload, --decoded-cache, --save-segmaps), raise. At the
-configuration's default precision, fp32, the gated 3x3 convs and pool
-backwards run the CUDA kernels in float32 (3xTF32 products); --precision bf16
-runs them in bf16 (see config.py).
+one: `kfold_train --dataset RGB` trains UNET, `kfold_train` trains CubeNET,
+`kfold_train --model SpectralUNET --chunks K` trains SpectralUNET with K
+pixel chunks a step (BatchNorm statistics per chunk; K = batch size is the
+reference's per-image semantics) and --offload keeps its saved residuals in
+pinned host memory; both flags refuse any other model. kfold_validate sweeps
+each split's thresholds for each model of --models (default KFOLD_MODELS,
+each on RGB for UNET and HSI otherwise) and writes the curves to
+{calling_path}/Saved_Models/{dataset}/{models}_pr.csv, where the JAX package
+draws a combined PNG plot; --save-segmaps writes each validation image's
+overlay. kfold_segmaps runs test_net for each model and split at the
+published thresholds (REFERENCE_THRESHOLDS, or --thresholds) and writes the
+overlays unless --no-segmaps. --model-shard and --decoded-cache are not
+ported yet and raise. At the configuration's default precision, fp32, the
+gated 3x3 convs and pool backwards of UNET and CubeNET run the CUDA kernels
+in float32 (3xTF32 products); --precision bf16 runs them in bf16 (see
+config.py).
 """
 
 from __future__ import annotations
@@ -27,9 +34,14 @@ import os
 import sys
 from typing import List, Optional
 
-# kfold_validate's default --models: the ported subset of the JAX package's
-# KFOLD_MODELS (cli.py:29), in its order.
-KFOLD_MODELS = ["UNET", "CubeNET"]
+# Published best validation thresholds (BASELINE.md), per model and split.
+REFERENCE_THRESHOLDS = {
+    "UNET": [0.36, 0.41, 0.42, 0.56, 0.38],
+    "SpectralUNET": [0.45, 0.39, 0.48, 0.36, 0.28],
+    "CubeNET": [0.33, 0.46, 0.39, 0.46, 0.27],
+}
+
+KFOLD_MODELS = ["UNET", "SpectralUNET", "CubeNET"]
 
 
 def _make_config(dataset: str, calling_path: str, split_no: int, seed_num: int,
@@ -65,8 +77,13 @@ def _add_common(p):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--decoded-cache", default=None, metavar="DIR",
                    help="not ported yet")
-    p.add_argument("--chunks", type=int, default=None, metavar="N", help="not ported yet")
-    p.add_argument("--offload", action="store_true", help="not ported yet")
+    p.add_argument("--chunks", type=int, default=None, metavar="N",
+                   help="SpectralUNET: chunked-pixel gradient accumulation, BatchNorm "
+                        "statistics per chunk (N = batch size: the reference's per-image "
+                        "semantics)")
+    p.add_argument("--offload", action="store_true",
+                   help="SpectralUNET: saved residuals in pinned host memory across the "
+                        "forward-to-backward gap (numerics of the plain step)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
                    help="compute precision of the model; both run the gated convs on the "
@@ -74,14 +91,20 @@ def _add_common(p):
 
 
 def _apply_overrides(cfg, args):
-    for flag in ("chunks", "offload", "decoded_cache"):
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet")
+    if args.decoded_cache:
+        raise SystemExit("--decoded-cache is not ported yet")
     if args.model:
         cfg.model_name = args.model
+    # --chunks / --offload are SpectralUNET training modes; a silent no-op on
+    # another model would record misleading hparams (cli.py:88-96)
+    for flag in ("chunks", "offload"):
+        if getattr(args, flag, None) and cfg.model_name.lower() != "spectralunet":
+            raise SystemExit(f"--{flag} is a SpectralUNET training mode (per-pixel model); "
+                             f"current model is {cfg.model_name}")
     for attr, val in [("hsi_lo", args.hsi_lo), ("hsi_hi", args.hsi_hi),
                       ("cube_featmaps", args.cube_featmaps),
-                      ("spectral_bn_size", args.spectral_bn_size), ("epochs", args.epochs)]:
+                      ("spectral_bn_size", args.spectral_bn_size), ("epochs", args.epochs),
+                      ("grad_accum_chunks", args.chunks), ("offload", args.offload or None)]:
         if val is not None:
             setattr(cfg, attr, val)
     if args.hsi_lo is not None or args.hsi_hi is not None:
@@ -145,11 +168,10 @@ def kfold_validate(argv: Optional[List[str]] = None) -> None:
                    help="per-model dataset (default RGB for UNET, HSI otherwise)")
     p.add_argument("--start-split", type=int, default=0)
     p.add_argument("--num-splits", type=int, default=5)
-    p.add_argument("--save-segmaps", action="store_true", help="not ported yet")
+    p.add_argument("--save-segmaps", action="store_true",
+                   help="write each validation image's overlay at the best threshold")
     _add_common(p)
     args = p.parse_args(argv)
-    if args.save_segmaps:
-        raise SystemExit("--save-segmaps waits for the segmaps slice")
 
     from hyperpri_tpu_torch.train.evaluate import validate_net
 
@@ -165,7 +187,8 @@ def kfold_validate(argv: Optional[List[str]] = None) -> None:
             _apply_overrides(cfg, args)
             print(f"   Model: {cfg.model_param_str}")
             print(f"   Validation JSON: {cfg.json_dir['val']}")
-            precision, recall, _ = validate_net(cfg.get_val_data(), cfg, save_segmaps=False)
+            precision, recall, _ = validate_net(cfg.get_val_data(), cfg,
+                                                save_segmaps=args.save_segmaps)
             rows += [(run + 1, m, float(r), float(pr)) for r, pr in zip(recall, precision)]
     out = f"{args.calling_path}/Saved_Models/{dset}/{'_'.join(args.models)}_pr.csv"
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -176,15 +199,60 @@ def kfold_validate(argv: Optional[List[str]] = None) -> None:
     print(f"saved {out}")
 
 
-COMMANDS = {"kfold_train": kfold_train, "kfold_validate": kfold_validate}
+def kfold_segmaps(argv: Optional[List[str]] = None) -> dict:
+    """-> {(split, model): test_net's results}."""
+    p = argparse.ArgumentParser(prog="kfold_segmaps",
+                                description="test-set metrics + segmaps at fixed thresholds")
+    p.add_argument("--calling-path", default=os.getcwd())
+    p.add_argument("--models", nargs="+", default=KFOLD_MODELS)
+    p.add_argument("--datasets", nargs="+", default=None)
+    p.add_argument("--start-split", type=int, default=0)
+    p.add_argument("--num-splits", type=int, default=5)
+    p.add_argument("--testing-set", default="test", choices=["train", "val", "test"])
+    p.add_argument("--test-json", default=None,
+                   help="override test split JSON (default data_splits/test.json)")
+    p.add_argument("--no-segmaps", action="store_true")
+    p.add_argument("--thresholds", nargs="+", type=float, default=None,
+                   help="flat per-model thresholds (default: published table)")
+    _add_common(p)
+    args = p.parse_args(argv)
+
+    from hyperpri_tpu_torch.train.evaluate import test_net
+
+    datasets = args.datasets or ["RGB" if m.upper() == "UNET" else "HSI" for m in args.models]
+    print("\n ~~~~~~~~~~ 5-SPLIT CYCLES ~~~~~~~~~~\n")
+    results = {}
+    for run in range(args.start_split, args.num_splits):
+        print(f" ********** Split {run + 1} **********")
+        for m_idx, (m, dset) in enumerate(zip(args.models, datasets)):
+            cfg = _make_config(dset, args.calling_path, run + 1, 0, False, args.device,
+                               args.precision)
+            cfg.change_network_param(m, args.calling_path, run + 1)
+            _apply_overrides(cfg, args)
+            cfg.json_dir["test"] = args.test_json or os.path.join(cfg.data_dir, "data_splits",
+                                                                  "test.json")
+            print(f"   Model: {cfg.model_param_str}")
+            print(f"   Test JSON: {cfg.json_dir['test']}")
+            data = {"train": cfg.get_train_data, "val": cfg.get_val_data,
+                    "test": cfg.get_test_data}[args.testing_set]()
+            if args.thresholds is not None:
+                thr = args.thresholds[m_idx]
+            else:
+                thr = REFERENCE_THRESHOLDS.get(m, [0.5] * 5)[run]
+            results[run + 1, m] = test_net(data, cfg, best_threshold=thr,
+                                           save_segmaps=not args.no_segmaps)
+    return results
+
+
+COMMANDS = {"kfold_train": kfold_train, "kfold_validate": kfold_validate,
+            "kfold_segmaps": kfold_segmaps}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] not in COMMANDS:
         names = " | ".join(COMMANDS)
-        print(f"usage: python -m hyperpri_tpu_torch.cli {{{names}}} [flags] "
-              "(kfold_segmaps waits for the segmaps slice)", file=sys.stderr)
+        print(f"usage: python -m hyperpri_tpu_torch.cli {{{names}}} [flags]", file=sys.stderr)
         return 2
     COMMANDS[argv[0]](argv[1:])
     return 0

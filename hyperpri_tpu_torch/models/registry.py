@@ -1,7 +1,7 @@
 """Model factory and naming (port of hyperpri_tpu/models/registry.py).
 
-UNET and CubeNET are ported; UNET+ (UNET's use_attention) and SpectralUNET
-raise until their slices land.
+UNET, SpectralUNET and CubeNET are ported; UNET+ (UNET's use_attention)
+raises until its slice lands.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 import torch.nn as nn
 
 from hyperpri_tpu_torch.models.cubenet import CubeNET
+from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET
 from hyperpri_tpu_torch.models.unet import UNet
 
 
@@ -21,19 +22,26 @@ def initialize_model(model_name: str, num_classes: int, network_parameters: Mapp
     """Name -> model on the CPU, with flax's init drawn from `seed` (torch's
     default generator when None). `pallas_train` sends the gated 3x3 convs
     and the pool backwards through the CUDA kernels, which take bf16 and
-    float32 inputs; `describe_route`, which the Trainer prints, says which."""
+    float32 inputs; `describe_route`, which the Trainer prints, says which.
+    SpectralUNET has no kernel route (its Dense layers are matrix products)
+    and reads `remat` and `offload`."""
     name = model_name.lower()
-    if name == "spectralunet":
-        raise NotImplementedError(f"{model_name} is not ported yet (ROADMAP slice E); the "
-                                  "port has UNET and CubeNET")
-    if name not in ("unet", "unet+", "cubenet"):
+    if name not in ("unet", "unet+", "spectralunet", "cubenet"):
         raise RuntimeError(f"Invalid model: {model_name!r}")
-    use_attention = network_parameters.get("use_attention", False) or name == "unet+"
+    use_attention = name != "spectralunet" and (
+        network_parameters.get("use_attention", False) or name == "unet+")
     if analyze or use_attention:
         raise NotImplementedError(f"{model_name}: the analyze and use_attention (UNET+) "
                                   "options are not ported yet")
     use_kernels = network_parameters.get("pallas_train", False)
     generator = None if seed is None else torch.Generator().manual_seed(seed)
+    if name == "spectralunet":
+        depth = network_parameters["hsi_hi"] - network_parameters["hsi_lo"]
+        return SpectralUNET(hsi_depth=depth, n_classes=num_classes,
+                            bn_feats=network_parameters["spectral_bn_size"],
+                            remat=network_parameters.get("remat", False),
+                            offload=network_parameters.get("offload", False), dtype=dtype,
+                            generator=generator)
     if name == "unet":
         return UNet(n_channels=network_parameters["channels"], n_classes=num_classes,
                     bilinear=network_parameters.get("bilinear", True), use_kernels=use_kernels,
@@ -49,6 +57,8 @@ def describe_route(model: nn.Module, pallas_train: bool) -> str:
     """Which convs `model` runs, for the log."""
     dtype = getattr(model, "dtype", None)
     name = {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype, str(dtype))
+    if isinstance(model, SpectralUNET):
+        return f"{name}: Dense layers on torch.matmul (no kernel route)"
     if any(getattr(m, "use_kernels", False) for m in model.modules()):
         products = "3xTF32" if dtype == torch.float32 else "bf16"
         return (f"{name}: gated 3x3 convs on the CUDA kernels ({products} products), and "

@@ -6,10 +6,17 @@ A batch is a dict of tensors on the model's device: `image` (N, H, W, bands),
 entries of a fixed-size batch. The loss is the masked BCE-with-logits of
 serve.py; parameters and BatchNorm statistics are float32, the model computes
 in its `dtype`.
+
+`offload` (SpectralUNET's host-offloaded residuals, the counterpart of
+trainer.py:148 `spectral_offload_policy`) runs the forward and the loss under
+`save_on_host`: every tensor autograd saves for the backward waits in host
+memory (pinned, for a tensor on the card) and comes back for the backward;
+the numerics are those of the plain step.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict
 
 import torch
@@ -17,6 +24,7 @@ import torch.nn as nn
 
 from hyperpri_tpu_torch._device import resolve_device
 from hyperpri_tpu_torch.models.cubenet import CubeNET
+from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET
 from hyperpri_tpu_torch.models.unet import UNet
 from hyperpri_tpu_torch.serve import FIRST_DEPTH, HSI_DEPTH, batch_stats_metrics, masked_bce
 
@@ -35,21 +43,84 @@ def make_optimizer(model: nn.Module, optimizer: str = "ADAM", learn_rate: float 
     raise ValueError(f"Unknown Optimizer name: {name}")
 
 
+class save_on_host(torch.autograd.graph.saved_tensors_hooks):
+    """torch.autograd.graph.save_on_cpu(pin_memory=True) with the saved
+    tensors' strides kept: each saved tensor is copied to host memory
+    (pinned, for a tensor on the card) as it is saved and copied back to
+    its device when the backward reads it. save_on_cpu makes every copy
+    contiguous, so a transposed view (the weight F.linear saves) came back
+    with other strides, the backward's matrix products took other kernels,
+    and the offloaded step differed from the plain one in the last bits. A
+    tensor whose elements overlap or leave gaps (an expanded or strided
+    view) stays where it is."""
+
+    def __init__(self):
+        def pack(t: torch.Tensor):
+            if t.layout != torch.strided or not _dense(t):
+                return t
+            pin = t.device.type == "cuda"
+            host = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, pin_memory=pin)
+            host.copy_(t, non_blocking=pin)
+            return t.device, host
+
+        def unpack(packed):
+            if isinstance(packed, torch.Tensor):
+                return packed
+            device, host = packed
+            return host.to(device, non_blocking=True)
+
+        super().__init__(pack, unpack)
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """True iff t's elements fill a block of memory exactly once, in some
+    order of its dimensions (so empty_strided can give a copy its strides)."""
+    expected = 1
+    for size, stride in sorted(zip(t.shape, t.stride()), key=lambda p: p[1]):
+        if size == 1:
+            continue
+        if stride != expected:
+            return False
+        expected *= size
+    return True
+
+
+def offload_context(offload: bool):
+    """The context a train step runs its forward and loss in: save_on_host
+    with `offload`, else nothing."""
+    return save_on_host() if offload else contextlib.nullcontext()
+
+
+def wait_for_offloaded(model: nn.Module, offload: bool):
+    """Call after an offloaded backward: wait for the card. The pinned blocks
+    of the backward's copies go back to the allocator's cache only once the
+    copies are done, and a host that ran ahead would pin the next chunk's
+    residuals beside them: eight chunks' worth of SpectralUNET-1650's
+    residuals outgrew the host memory of a one-card machine (H100 80GB
+    HBM3, 700 W)."""
+    device = next(model.parameters()).device
+    if offload and device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    threshold: float = 0.5, return_logits: bool = False, ingest_hw=None
+                    threshold: float = 0.5, return_logits: bool = False, ingest_hw=None,
+                    offload: bool = False
                     ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, object]]:
     """-> step(batch) -> {"loss_sum": loss * n_valid, "n": n_valid, "stats":
     StatScores of sigmoid(logits) > threshold} (and "logits" on request). One
     call runs the model's training form, the backward and the optimizer
     update; the BatchNorm running statistics move in place. `ingest_hw`:
     logical (h, w) when the batch's image is the host pre-padded ingest
-    buffer (CubeNET.ingest_spec)."""
+    buffer (CubeNET.ingest_spec). `offload`: offload_context."""
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         optimizer.zero_grad(set_to_none=True)
-        logits = model(batch["image"], train=True, ingest_hw=ingest_hw)
-        loss = masked_bce(logits, batch["mask"], batch["valid"])
+        with offload_context(offload):
+            logits = model(batch["image"], train=True, ingest_hw=ingest_hw)
+            loss = masked_bce(logits, batch["mask"], batch["valid"])
         loss.backward()
+        wait_for_offloaded(model, offload)
         optimizer.step()
         with torch.no_grad():
             logits = logits.detach()
@@ -94,3 +165,28 @@ def build_unet_trainer(seed: int = 0, device=None, use_kernels: bool = True,
     model = UNet(3, 1, bilinear=False, use_kernels=use_kernels, dtype=dtype,
                  generator=torch.Generator().manual_seed(seed))
     return _trainer(model, device, optimizer, learn_rate, threshold, return_logits)
+
+
+def build_spectral_unet_trainer(seed: int = 0, device=None, dtype=torch.float32,
+                                n_chunks: int = 0, offload: bool = False,
+                                hsi_depth: int = HSI_DEPTH,
+                                bn_feats: int = 1650, remat: bool = False,
+                                optimizer: str = "ADAM", learn_rate: float = 1e-3,
+                                threshold: float = 0.5, return_logits: bool = False):
+    """SpectralUNET (bn_feats 1650 over 238 bands: the configuration's
+    defaults) with flax's init drawn from `seed`, as build_cubenet_trainer:
+    -> (model, optimizer, step). `n_chunks` > 0 takes train/chunked.py's
+    step (BatchNorm statistics per chunk of pixels); `offload` keeps the
+    saved residuals in host memory (offload_context). The model has no
+    kernel route: its Dense layers are matrix products."""
+    from hyperpri_tpu_torch.train.chunked import make_chunked_train_step
+
+    device = resolve_device(device)
+    model = SpectralUNET(hsi_depth, 1, bn_feats, remat=remat, offload=offload, dtype=dtype,
+                         generator=torch.Generator().manual_seed(seed)).to(device)
+    opt = make_optimizer(model, optimizer, learn_rate)
+    if n_chunks > 0:
+        step = make_chunked_train_step(model, opt, threshold, n_chunks, offload=offload)
+    else:
+        step = make_train_step(model, opt, threshold, return_logits, offload=offload)
+    return model, opt, step

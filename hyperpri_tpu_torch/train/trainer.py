@@ -11,8 +11,16 @@ the first conv takes the packed kernel, the train loader writes each batch
 into the framed buffer of CubeNET.ingest_spec and the step reads it in place;
 evaluation and prediction keep logical cubes.
 
-Not ported (they raise): meshes and ZeRO sharding, optimizer offload,
-chunked-pixel accumulation, orbax, feature extraction.
+SpectralUNET (trainer.py:427-456): `grad_accum_chunks` > 0 takes the chunked
+step of train/chunked.py, which only a per-pixel model can take; the
+model's `offload` keeps the step's saved residuals in host memory (pinned on
+the card, train/step.py save_on_host), the counterpart of
+`spectral_offload_policy`; evaluation and prediction run it through
+ops/chunked.apply_pixelwise_chunked, whose logits equal the unchunked
+eval's (ROADMAP caveat R4).
+
+Not ported (they raise): meshes and ZeRO sharding, optimizer offload, orbax,
+feature extraction.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from hyperpri_tpu_torch._device import resolve_device
 from hyperpri_tpu_torch.config import ExperimentConfig
 from hyperpri_tpu_torch.data.pipeline import DataLoader
 from hyperpri_tpu_torch.models.registry import describe_route
+from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET
+from hyperpri_tpu_torch.ops.chunked import apply_pixelwise_chunked
 from hyperpri_tpu_torch.ops.kernels import launches_by_dtype
 from hyperpri_tpu_torch.ops.metrics import (
     StatScores,
@@ -43,6 +53,7 @@ from hyperpri_tpu_torch.train.checkpoint import (
     find_resume_checkpoint,
     load_checkpoint,
 )
+from hyperpri_tpu_torch.train.chunked import make_chunked_train_step
 from hyperpri_tpu_torch.train.step import make_optimizer, make_train_step
 from hyperpri_tpu_torch.utils.logging import ExperimentLogger
 from hyperpri_tpu_torch.weights import export_state, load_adam_moments, load_jax_variables
@@ -51,8 +62,6 @@ _NOT_PORTED = {
     "mesh_shape": "meshes",
     "zero_shard_opt": "ZeRO-sharded optimizer state",
     "offload_opt_state": "host-offloaded optimizer state",
-    "grad_accum_chunks": "chunked-pixel gradient accumulation",
-    "offload": "host-offloaded remat",
     "feature_extraction": "feature extraction (frozen backbone)",
 }
 
@@ -105,6 +114,15 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.model = (model if model is not None else cfg.get_network()).to(self.device)
+        per_pixel = isinstance(self.model, SpectralUNET)
+        if cfg.grad_accum_chunks > 0 and not per_pixel:
+            # the chunked step rasterizes (N, H, W, C) into (1, chunk, 1, C)
+            # pixel rows: only valid for per-pixel models
+            raise ValueError("grad_accum_chunks requires a per-pixel model "
+                             f"(SpectralUNET); got {type(self.model).__name__}")
+        if cfg.offload and not per_pixel:
+            raise ValueError("offload is SpectralUNET's host-offloaded remat; got "
+                             f"{type(self.model).__name__}")
         self.optimizer = make_optimizer(self.model, cfg.optimizer, cfg.learn_rate, cfg.momentum,
                                         cfg.weight_decay)
         self.state = TrainState(self.model, self.optimizer)
@@ -129,8 +147,11 @@ class Trainer:
     @torch.no_grad()
     def _eval_step(self, batch, return_logits: bool = False):
         """Validation: the eval form (running statistics), counts at 0.5
-        (trainer.py:229-246)."""
-        logits = self.model(batch["image"], train=False)
+        (trainer.py:229-246). SpectralUNET runs in pixel chunks."""
+        if isinstance(self.model, SpectralUNET):
+            logits = apply_pixelwise_chunked(self.model, batch["image"])
+        else:
+            logits = self.model(batch["image"], train=False)
         loss = masked_bce(logits, batch["mask"], batch["valid"])
         n = batch["valid"].sum()
         logs = {"loss_sum": loss * n, "n": n,
@@ -146,10 +167,19 @@ class Trainer:
             progress: bool = True) -> FitResult:
         cfg = self.cfg
         pad_spec, ingest_hw = self._ingest_setup(train_loader.probe())
-        step = make_train_step(self.model, self.optimizer, cfg.threshold, ingest_hw=ingest_hw)
+        offload = bool(cfg.offload or getattr(self.model, "offload", False))
+        if cfg.grad_accum_chunks > 0:
+            step = make_chunked_train_step(self.model, self.optimizer, cfg.threshold,
+                                           cfg.grad_accum_chunks, offload=offload)
+        else:
+            step = make_train_step(self.model, self.optimizer, cfg.threshold,
+                                   ingest_hw=ingest_hw, offload=offload)
         if progress:
             print(f"route: {describe_route(self.model, cfg.pallas_train)}"
-                  + ("; the first conv reads the host pre-padded buffer" if ingest_hw else ""))
+                  + ("; the first conv reads the host pre-padded buffer" if ingest_hw else "")
+                  + (f"; {cfg.grad_accum_chunks} pixel chunks a step"
+                     if cfg.grad_accum_chunks > 0 else "")
+                  + ("; saved residuals offloaded to host memory" if offload else ""))
         ckpt = DualCheckpointManager(cfg.save_path)
         logger = ExperimentLogger(cfg.save_path, hparams=cfg)
         start_epoch, wait = 0, 0

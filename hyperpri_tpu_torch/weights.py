@@ -3,7 +3,8 @@ port's parameters, gradients and optimizer state back out under flax paths.
 
 The flax trees arrive as nested dicts of numpy arrays keyed exactly like the
 flax tree (`first_conv/kernel`, `down1/conv/conv1/kernel`, `up1/up/kernel`,
-`outc/conv/kernel`, ...). A port module's dotted name is its flax path.
+`outc/conv/kernel`, `tail/linear/kernel`, ...). A port module's dotted name
+is its flax path.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ def _torch_leaves(module: nn.Module):
         def conv(k):
             return np.transpose(k, (3, 2, 0, 1))  # HWIO -> OIHW
         return [("weight", "params", "kernel", conv), ("bias", "params", "bias", None)]
+    if isinstance(module, nn.Linear):
+        # flax Dense's kernel is (in, out), torch's weight (out, in)
+        return [("weight", "params", "kernel", np.transpose), ("bias", "params", "bias", None)]
     return []
 
 
@@ -84,8 +88,10 @@ def load_jax_variables(model: nn.Module, params: dict,
 
 
 def _to_flax(module: nn.Module, value: np.ndarray) -> np.ndarray:
-    """A conv weight (or anything of its layout: gradient, Adam moment) from
-    torch's layout back to flax's; other leaves are unchanged."""
+    """A conv or Dense weight (or anything of its layout: gradient, Adam
+    moment) from torch's layout back to flax's; other leaves are unchanged."""
+    if isinstance(module, nn.Linear) and value.ndim == 2:
+        return np.transpose(value)  # (out, in) -> (in, out)
     if value.ndim != 4:
         return value
     if isinstance(module, ConvTransposeUp):

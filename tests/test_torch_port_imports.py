@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from hyperpri_tpu_torch.serve import build_cubenet_server
-from hyperpri_tpu_torch.train.step import build_cubenet_trainer
+from hyperpri_tpu_torch.train.step import build_cubenet_trainer, build_spectral_unet_trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -56,6 +56,10 @@ import hyperpri_tpu_torch.train.evaluate
 import hyperpri_tpu_torch.train.trainer
 import hyperpri_tpu_torch.utils.logging
 import hyperpri_tpu_torch.utils.tb_events
+import hyperpri_tpu_torch.models.spectral_unet
+import hyperpri_tpu_torch.ops.chunked
+import hyperpri_tpu_torch.train.chunked
+import hyperpri_tpu_torch.utils.segmaps
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
                                     "hyperpri_tpu", "PIL", "matplotlib", "ml_dtypes"))
@@ -80,6 +84,12 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_cubenet_trainer(0)
+
+
+def test_spectral_unet_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_spectral_unet_trainer(0, bn_feats=16, n_chunks=2)
 
 
 def test_every_csrc_file_rebuilds_every_library(tmp_path, monkeypatch):

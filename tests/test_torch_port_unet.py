@@ -29,6 +29,7 @@ from hyperpri_tpu.models.unet import UNet as JaxUNet  # noqa: E402
 from hyperpri_tpu.train.trainer import TrainState, make_train_step as jax_make_train_step  # noqa: E402
 from hyperpri_tpu.train.trainer import masked_bce as jax_masked_bce  # noqa: E402
 from hyperpri_tpu_torch.models.registry import count_params, initialize_model  # noqa: E402
+from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET  # noqa: E402
 from hyperpri_tpu_torch.models.unet import UNet  # noqa: E402
 from hyperpri_tpu_torch.ops import pool  # noqa: E402
 from hyperpri_tpu_torch.ops.kernels.conv3x3 import conv3x3_bias_act  # noqa: E402
@@ -84,10 +85,10 @@ def test_parameter_count_and_registry(flax_init):
     assert isinstance(model, UNet) and count_params(model) == PARAMS_UNET
     assert model.inc.conv2.use_kernels and model.dtype == torch.float32
     load_jax_variables(model, params, stats)   # every leaf used, every entry filled
-    for name in ("UNET+", "SpectralUNET"):
-        with pytest.raises(NotImplementedError):
-            initialize_model(name, 1, {"channels": 3, "hsi_lo": 25, "hsi_hi": 263,
-                                       "spectral_bn_size": 1650})
+    net_params = {"channels": 3, "hsi_lo": 25, "hsi_hi": 263, "spectral_bn_size": 16}
+    with pytest.raises(NotImplementedError, match="use_attention"):
+        initialize_model("UNET+", 1, net_params)
+    assert isinstance(initialize_model("SpectralUNET", 1, net_params), SpectralUNET)
 
 
 @pytest.mark.parametrize("train", [False, True])
