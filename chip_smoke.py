@@ -100,8 +100,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
       pixel chunk count of 8 and 16 that fits the card, with ms/step (median
       of 3 after 2 warm-ups), peak memory and TFLOP/s on the model FLOPs, and
       a profiled step (device busy time, its matrix products' share); the
-      same with the saved residuals offloaded to pinned host memory (two
-      steps, the second timed), held bit for bit against the plain step; the
+      same with the saved residuals offloaded to pinned host memory (one
+      step, timed with the pinned allocation), held bit for bit against the
+      plain step; the
       offloaded per-image run (2 chunks) where MemAvailable covers its
       estimate, else the skip and the MemAvailable that caused it; the loss
       falling over 3 steps, all 18 running statistics moving, no kernel
@@ -117,7 +118,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
       three runs (phase i's UNET and CubeNET and this one), kfold_segmaps at
       the published split-1 thresholds, with seconds, the test_net results
       and the segmentation maps read back.
-The phases run in the order a-f, l, g, j, k, m, n, h, i, o. In (c) the framed modes read
+  (p) the host data path on phase h's tree: the native reader (built with g++
+      from hyperpri_tpu_torch/native/envi_reader.cc) byte-equal to the numpy
+      reader in float32 and bit-equal to torch's cast in bf16, decoded-cube
+      cache entries read back equal; one batch's two cubes read by numpy
+      float32, native float32, native bf16, the cache cold and warm (median
+      of 3); train_net in bf16 for three epochs without and with a warm
+      decoded-cube cache, with seconds per epoch, steps/s, the idle share of
+      the profiled epoch and the host seconds a batch by stage;
+  (q) checkpoint import: seeded UNET and CubeNET-64 at full width written by
+      train/torch_export.py as a Lightning .ckpt, a raw best_wts.pt and a
+      two-rank ZeRO-2 directory (bf16 module copies, float32 master shards),
+      each loaded by evaluate._load_eval_state into a fresh trainer on the
+      card, its logits on one 608x968 image bit-equal to the source model's;
+      kfold_validate for CubeNET on phase h's tree reading the ZeRO-2
+      directory;
+  (r) UNET's options: the folded bf16 UNET serving two 1x608x968x3 images
+      through conv3x3_packed (3 launches an image, as the routing walk
+      predicts; each of those layers within one bf16 ulp of a float32 conv
+      of its own input), within phase d's rel L2 of the same folded model on
+      F.conv2d and of the unfolded float32 model, its sign flips against
+      float32 at most 1.2x the F.conv2d model's (as in n), ms/image with
+      kernels on and off in turns; UNET+ taking three float32 steps as phase j does
+      (launches held against the routing walk, step 1 against float64, ms
+      per step with kernels on and off, cuDNN's TF32 at torch's default);
+      `analyze`'s (logits, logits, sigmoid) on the card.
+The phases run in the order a-f, l, g, j, k, m, n, h, i, o, p, q, r. In (c) the framed modes read
 buffers whose frames hold NaN. The script's elapsed seconds and the card's
 name and power limit come next; the line before
 the last is the kernel summary as JSON; the last line is
@@ -278,21 +304,31 @@ def sum_error(out: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor) -> floa
     return err.max().item()
 
 
-def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 2) -> float:
-    """Median milliseconds of fn() on the current stream, by CUDA events."""
+def cuda_times(fn, reps: int = TIMING_REPS, warmup: int = 2):
+    """([CUDA-event ms], [host ms]) of each of `reps` calls of fn() on the
+    current stream, after `warmup` calls. The host ms is what fn() took to
+    return, the time to issue its work: where it comes near the event ms,
+    the host's launch path, not the card, sets the time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    times, host = [], []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - t) * 1e3)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times, host
+
+
+def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 2) -> float:
+    """Median milliseconds of fn() on the current stream, by CUDA events."""
+    return statistics.median(cuda_times(fn, reps, warmup)[0])
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -322,17 +358,22 @@ def _conv_input_shapes(model, batch, channels=D):
     return shapes
 
 
-def serving_calls():
-    """conv3x3_packed calls of one folded serving forward at batch 1."""
+def serving_calls(model_name: str = "CubeNET"):
+    """conv3x3_packed calls of one folded serving forward at batch 1 of
+    CubeNET-64 or of UNET (bilinear=False, as build_unet_server builds it)."""
     from hyperpri_tpu_torch.models import parts
     from hyperpri_tpu_torch.models.cubenet import CubeNET
+    from hyperpri_tpu_torch.models.unet import UNet
 
-    meta = CubeNET(fused_bn=True).to("meta")   # F.conv2d route: same shapes
+    if model_name == "UNET":   # F.conv2d route: same shapes
+        meta, channels, path = UNet(3, 1, False, fused_bn=True).to("meta"), 3, "unet_serving"
+    else:
+        meta, channels, path = CubeNET(fused_bn=True).to("meta"), D, "serving"
     calls = []
-    for name, (n, h, w, c) in _conv_input_shapes(meta, 1).items():
+    for name, (n, h, w, c) in _conv_input_shapes(meta, 1, channels).items():
         o = meta.get_submodule(name).weight.shape[0]
         if parts.packed_serving_route(h, w, c, o):
-            calls.append(dict(kernel="conv3x3_packed", path="serving", layer=name, mode="relu",
+            calls.append(dict(kernel="conv3x3_packed", path=path, layer=name, mode="relu",
                               framing=(), shape=(n, h, w, c), o=o, dtype="bf16"))
     return calls
 
@@ -343,8 +384,9 @@ def _train_model(model_name: str):
     from hyperpri_tpu_torch.models.cubenet import CubeNET
     from hyperpri_tpu_torch.models.unet import UNet
 
-    if model_name == "UNET":
-        return UNet(3, 1, bilinear=False, use_kernels=True), 3, "inc.conv2"
+    if model_name in ("UNET", "UNET+"):
+        return (UNet(3, 1, bilinear=False, use_attention=model_name == "UNET+",
+                     use_kernels=True), 3, "inc.conv2")
     return CubeNET(use_kernels=True), D, "inc2_conv"
 
 
@@ -1394,16 +1436,21 @@ def phase_training(calls):
     return launches, framings, step_ms, peak, step, order[0]
 
 
-def phase_training_f32(model_name, calls, letter):
-    """UNET on RGB (phase j) or CubeNET-64 on HSI with the host pre-padded
-    ingest (phase k), three float32 steps through the float32 kernels."""
+def phase_training_f32(model_name, calls, letter, full=True):
+    """UNET on RGB (phase j), CubeNET-64 on HSI with the host pre-padded
+    ingest (phase k) or UNET+ (phase r), three float32 steps through the
+    float32 kernels. Without `full`, the step is timed with cuDNN's TF32 at
+    torch's default only, and not profiled."""
+    import functools
+
     from hyperpri_tpu_torch.data.pipeline import pre_pad_images
     from hyperpri_tpu_torch.train.step import (
         build_cubenet_trainer, build_unet_trainer, make_train_step)
 
     ingest = model_name == "CubeNET"
     channels = D if ingest else 3
-    build = build_cubenet_trainer if ingest else build_unet_trainer
+    build = (build_cubenet_trainer if ingest else
+             functools.partial(build_unet_trainer, use_attention=model_name == "UNET+"))
     phase(f"({letter}) {model_name} training, batch {TRAIN_BATCH}, {H}x{W}x{channels} float32, "
           f"Adam(1e-3)" + (", host pre-padded ingest" if ingest else ""))
     expected = count_by_kernel(calls)
@@ -1490,7 +1537,7 @@ def phase_training_f32(model_name, calls, letter):
             ("kernels_on_again", step, feed[0], True),
             ("kernels_off_again", off_step, off_feed, True),
             ("kernels_on_tf32_off", step, feed[0], False),
-            ("kernels_off_tf32_off", off_step, off_feed, False))
+            ("kernels_off_tf32_off", off_step, off_feed, False))[:6 if full else 4]
     for label, fn, batch, tf32 in runs:
         torch.backends.cudnn.allow_tf32 = tf32
         torch.cuda.reset_peak_memory_stats()
@@ -1499,10 +1546,12 @@ def phase_training_f32(model_name, calls, letter):
         print(f"{model_name} float32 step {label} (cuDNN TF32 {'on' if tf32 else 'off'}): "
               f"{step_ms[label]:.3f} ms ({TRAIN_BATCH * 1e3 / step_ms[label]:.2f} images/s), "
               f"peak {peak[label]:.3f} GiB")
-    print(f"where the time goes: torch.profiler over one kernel-route {model_name} float32 "
-          "step (cuDNN TF32 on)")
-    torch.backends.cudnn.allow_tf32 = True
-    profile = profile_step(step, feed[0])
+    profile = None
+    if full:
+        print(f"where the time goes: torch.profiler over one kernel-route {model_name} "
+              "float32 step (cuDNN TF32 on)")
+        torch.backends.cudnn.allow_tf32 = True
+        profile = profile_step(step, feed[0])
     torch.backends.cudnn.allow_tf32 = False
     del off_model, off_step, model, opt, step, feed, batches, order
     torch.cuda.empty_cache()
@@ -2093,9 +2142,13 @@ SPECTRAL_FEATS = 1650
 PARAMS_SPECTRAL = 30_388_051
 SPECTRAL_CHUNK_COUNTS = (8, 16)   # the smallest that fits the card is timed
 SPECTRAL_PER_IMAGE_CHUNKS = TRAIN_BATCH
-SPECTRAL_WARMUP, SPECTRAL_TIMED = 2, 3
-# Offloaded runs take this many steps (the first allocates the pinned host
-# blocks) and are held against the plain run's state after as many.
+# One warm-up: the second plain step is already the steady one (2458.0
+# against a median of 2457.5 ms in bf16 on an H100 machine).
+SPECTRAL_WARMUP, SPECTRAL_TIMED = 1, 3
+# Offloaded runs take this many steps and are held against the plain run's
+# state after as many; the last is timed. Two: the second step reuses the
+# pinned host blocks that the first allocated (18.9-26.5 s against the
+# first's 26.2-38.8 s on an H100 machine).
 OFFLOAD_STEPS = 2
 SPECTRAL_EVAL_CHUNKS = (65536, 262144)
 SPECTRAL_EVAL_SMALL = (152, 242)    # chunked against unchunked, float32
@@ -2447,6 +2500,374 @@ def phase_spectral_cli(tree, n_chunks):
             "launches_spectral_fit": launches}
 
 
+# ---------------------------------------------------------------------------
+# (p), (q), (r): the host data path, checkpoint import from the reference's
+# formats, and UNET's options.
+
+READ_REPS = 3
+SERVE_REPS = 50
+HOST_EPOCHS = 3   # epoch 2 is profiled (the idle share), epoch 3 is not
+
+
+def split_entries(tree, split):
+    return read_json_entries(os.path.join(tree, "Datasets", "HyperPRI", "data_splits",
+                                          f"{split}1.json"))
+
+
+def bits(t):
+    """A tensor's or array's bytes, for bit-equality."""
+    if isinstance(t, torch.Tensor):
+        return t.contiguous().view(torch.uint8).numpy().tobytes()
+    return t.tobytes()
+
+
+def phase_host_data(tree, card):
+    phase(f"(p) the host data path on phase h's tree: {H}x{W} cubes of 299 bands, window "
+          f"25:263, on {card}")
+    import numpy as np
+
+    from hyperpri_tpu_torch.config import ExpHyperspectralPRI
+    from hyperpri_tpu_torch.data import disk_cache, envi, native_io
+    from hyperpri_tpu_torch.train.trainer import train_net
+
+    t0 = time.perf_counter()
+    lib = native_io.build()
+    print(f"native reader {lib} ready in {time.perf_counter() - t0:.2f} s (g++ "
+          f"{' '.join(native_io.CXX_FLAGS)})")
+    lo, hi = 25, 263
+    batch = split_entries(tree, "train")   # the one train batch: two cubes
+    check(len(batch) == TRAIN_BATCH, f"train split of {len(batch)} cubes")
+    cache = os.path.join(tree, "decoded_cache")
+    for e in batch:
+        ref = envi.read_cube(e.hdr, e.dat, lo, hi, use_native=False)
+        native = envi.read_cube(e.hdr, e.dat, lo, hi)
+        check(native.dtype == np.float32 and bits(native) == bits(ref),
+              f"{e.name}: native float32 read differs from the numpy read")
+        native16 = envi.read_cube(e.hdr, e.dat, lo, hi, dtype=torch.bfloat16)
+        check(bits(native16) == bits(torch.from_numpy(ref).to(torch.bfloat16)),
+              f"{e.name}: native bf16 bits differ from the float32 read cast by torch")
+        for dtype, want in ((torch.float32, native), (torch.bfloat16, native16)):
+            disk_cache.read_cube_cached(e.hdr, e.dat, lo, hi, dtype, cache_dir=cache)
+            back = disk_cache.read_cube_cached(e.hdr, e.dat, lo, hi, dtype, cache_dir=cache)
+            check(bits(back) == bits(want), f"{e.name}: {dtype} cache entry read back differs")
+    print(f"reads of the {len(batch)} train cubes: native float32 byte-equal to numpy, native "
+          "bf16 bit-equal to torch's cast, cache entries read back equal")
+    shutil.rmtree(cache)
+
+    def seconds(read):
+        runs = []
+        for _ in range(READ_REPS):
+            t = time.perf_counter()
+            for e in batch:
+                read(e)
+            runs.append(time.perf_counter() - t)
+        return statistics.median(runs), runs
+
+    cold = os.path.join(tree, "cold_cache")
+
+    def cached_cold(e):
+        if e is batch[0]:   # each timed run starts from an empty cache
+            shutil.rmtree(cold, ignore_errors=True)
+        disk_cache.read_cube_cached(e.hdr, e.dat, lo, hi, torch.bfloat16, cache_dir=cold)
+
+    readers = {
+        "numpy_f32": lambda e: envi.read_cube(e.hdr, e.dat, lo, hi, use_native=False),
+        "native_f32": lambda e: envi.read_cube(e.hdr, e.dat, lo, hi),
+        "native_bf16": lambda e: envi.read_cube(e.hdr, e.dat, lo, hi, dtype=torch.bfloat16),
+        "cache_cold_bf16": cached_cold,
+        "cache_warm_bf16": lambda e: disk_cache.read_cube_cached(
+            e.hdr, e.dat, lo, hi, torch.bfloat16, cache_dir=cold),
+    }
+    read_s = {}
+    for name, read in readers.items():
+        read_s[name], runs = seconds(read)
+        print(f"read one batch ({len(batch)} cubes) {name}: {read_s[name]:.4f} s (median of "
+              f"{READ_REPS}: {[round(r, 4) for r in runs]}; source files in the page cache)")
+    shutil.rmtree(cold)
+
+    # train_net bf16 without and with a warm decoded-cube cache
+    warm = os.path.join(tree, "decoded_cache")
+    for e in batch + split_entries(tree, "val"):
+        disk_cache.read_cube_cached(e.hdr, e.dat, lo, hi, torch.bfloat16, cache_dir=warm)
+    loops = {}
+    for label, cache_dir in (("native_reader", None), ("decoded_cache_warm", warm)):
+        shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
+        cfg = ExpHyperspectralPRI(calling_path=tree, precision="bf16", device="cuda",
+                                  decoded_cache_dir=cache_dir,
+                                  profile_dir=os.path.join(tree, "profile_p"))
+        trainer = train_net(cfg, max_epochs=HOST_EPOCHS, progress=False)
+        hist = trainer.fit_result.history
+        prof = trainer.profile or {}
+        host = {split: {k: mean(v) for k, v in loader.timings.items()}
+                for split, loader in trainer.loaders.items()}
+        loops[label] = {"epoch_s": [h["epoch_time"] for h in hist],
+                        "train_s": [h["train_time"] for h in hist],
+                        "steps_per_s": hist[-1]["steps"] / hist[-1]["train_time"],
+                        "idle_share": prof.get("idle_share"), "host_s_per_batch": host}
+        print(f"train_net bf16, {label}: epochs {[round(h['epoch_time'], 3) for h in hist]} s, "
+              f"epoch {HOST_EPOCHS} {loops[label]['steps_per_s']:.3f} steps/s; profiled epoch "
+              f"{prof.get('epoch')}: idle share {prof.get('idle_share')}")
+        for split, t in host.items():
+            print(f"  host seconds per {split} batch: read {t['read']:.4f}, cast {t['cast']:.4f}, "
+                  f"pad {t['pad']:.4f}, h2d {t['h2d']:.4f}")
+        # the host cast of a batch's two float32 cubes to bf16 took 0.231 s on
+        # an H100 machine; what is left is the mask's binarization
+        check(host["train"]["cast"] < 0.05, f"{label}: the bf16 cubes were cast on the host")
+        del trainer
+    shutil.rmtree(warm)
+    shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"read_s_per_batch": read_s, "train_net_bf16": loops}
+
+
+def _bf16_running_stats(model, seed):
+    """Seeded BatchNorm running statistics of bf16 values: a bf16-mixed
+    DeepSpeed run keeps them so, and its ZeRO-2 module copies carry them in
+    bf16 (the other formats hold them in float32)."""
+    from hyperpri_tpu_torch.models.parts import TorchBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, TorchBatchNorm):
+                n = m.running_mean.numel()
+                m.running_mean.copy_(torch.randn(n, generator=g).bfloat16().float())
+                m.running_var.copy_((torch.rand(n, generator=g) + 0.5).bfloat16().float())
+    return model
+
+
+def write_zero2_dir(ckpt_dir, sd, world=2):
+    """A DeepSpeed ZeRO-2 checkpoint directory as DeepSpeed lays it out:
+    'latest', the module states with bf16 copies of every float tensor and
+    the parameters' shapes in two optimizer groups, and each rank's float32
+    master shard of each group (the flattened group padded to a multiple of
+    the world size)."""
+    root = os.path.join(ckpt_dir, "global_step1")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(ckpt_dir, "latest"), "w") as f:
+        f.write("global_step1")
+    params = [(k, v) for k, v in sd.items() if "running_" not in k and "num_batches" not in k]
+    groups = [params[g::2] for g in range(2)]
+    shards = [[] for _ in range(world)]
+    for items in groups:
+        flat = torch.cat([v.flatten().float() for _, v in items])
+        flat = torch.cat([flat, torch.zeros((-len(flat)) % world)])
+        for r, part in enumerate(flat.chunk(world)):
+            shards[r].append(part.clone())
+    torch.save({"module": {k: v.bfloat16() if v.is_floating_point() else v
+                           for k, v in sd.items()},
+                "param_shapes": [{k: v.shape for k, v in items} for items in groups]},
+               os.path.join(root, "mp_rank_00_model_states.pt"))
+    for r in range(world):
+        torch.save({"optimizer_state_dict": {"single_partition_of_fp32_groups": shards[r]}},
+                   os.path.join(root, f"zero_pp_rank_{r}_mp_rank_00_optim_states.pt"))
+
+
+def write_reference_checkpoint(fmt, save_path, sd):
+    """One of the reference's three formats under a run's save path, where
+    find_eval_checkpoint looks: a Lightning .ckpt or a ZeRO-2 directory in
+    Checkpoints/, or best_wts.pt beside it."""
+    shutil.rmtree(save_path, ignore_errors=True)
+    name = os.path.join(save_path, "Checkpoints", "epoch=7-val_loss=0.250-val_dice=0.800.ckpt")
+    os.makedirs(os.path.dirname(name))
+    wrapped = {f"_forward_module.m_network.{k}": v for k, v in sd.items()}
+    if fmt == "lightning":
+        torch.save({"pytorch-lightning_version": "2.0.7", "epoch": 7, "global_step": 14,
+                    "hyper_parameters": {"learn_rate": 1e-3}, "state_dict": wrapped}, name)
+    elif fmt == "best_wts":
+        os.rmdir(os.path.dirname(name))
+        torch.save({f"module.{k}": v for k, v in sd.items()},
+                   os.path.join(save_path, "best_wts.pt"))
+    else:
+        write_zero2_dir(name, wrapped)
+
+
+def phase_checkpoint_import(tree):
+    phase(f"(q) checkpoint import: UNET and CubeNET-64 at full width written as a Lightning "
+          f".ckpt, a raw best_wts.pt and a two-rank ZeRO-2 directory, loaded by "
+          f"evaluate._load_eval_state, logits on one {H}x{W} image")
+    from hyperpri_tpu_torch import cli
+    from hyperpri_tpu_torch.config import ExpHyperspectralPRI, ExpRedGreenBluePRI
+    from hyperpri_tpu_torch.train.checkpoint import detect_checkpoint_format, find_eval_checkpoint
+    from hyperpri_tpu_torch.train.evaluate import _load_eval_state
+    from hyperpri_tpu_torch.train.torch_export import export_state_dict
+    from hyperpri_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.deterministic = True
+    calling = os.path.join(tree, "import")
+    out = {}
+    for cls, channels in ((ExpRedGreenBluePRI, 3), (ExpHyperspectralPRI, D)):
+        cfg = cls(calling_path=calling, device="cuda")
+        source = _bf16_running_stats(cfg.get_network(seed=11), 12).cuda().eval()
+        sd = export_state_dict(source, cfg.model_name, cfg)
+        x = torch.randn((1, H, W, channels), generator=torch.Generator().manual_seed(13)).cuda()
+        with torch.no_grad():
+            want = source(x)
+        for fmt in ("lightning", "best_wts", "zero2"):
+            t0 = time.perf_counter()
+            write_reference_checkpoint(fmt, cfg.save_path, sd)
+            found = find_eval_checkpoint(cfg.save_path)
+            trainer = Trainer(cfg)
+            _load_eval_state(trainer, cfg)
+            with torch.no_grad():
+                got = trainer.model.eval()(x)
+            same = torch.equal(got, want)
+            out[f"{cfg.model_name} {fmt}"] = {
+                "format": detect_checkpoint_format(found), "bit_equal": same,
+                "max_abs_diff": float((got - want).abs().max()),
+                "seconds": time.perf_counter() - t0}
+            print(f"{cfg.model_name} from {fmt} ({os.path.basename(found)}, "
+                  f"{out[f'{cfg.model_name} {fmt}']['format']}): logits bit-equal {same}, "
+                  f"max |diff| {out[f'{cfg.model_name} {fmt}']['max_abs_diff']:.3e}, "
+                  f"{out[f'{cfg.model_name} {fmt}']['seconds']:.2f} s")
+            check(same, f"{cfg.model_name} from {fmt}: logits differ from the source model's")
+            del trainer
+        del source
+        torch.cuda.empty_cache()
+    shutil.rmtree(calling)
+    torch.backends.cudnn.deterministic = False
+
+    # kfold_validate on phase h's tree, CubeNET-64 reading a ZeRO-2 directory
+    cfg = ExpHyperspectralPRI(calling_path=tree, device="cuda")
+    source = _bf16_running_stats(cfg.get_network(seed=14), 15)
+    write_reference_checkpoint("zero2", cfg.save_path, export_state_dict(source, "CubeNET", cfg))
+    t0 = time.perf_counter()
+    cli.kfold_validate(["--calling-path", tree, "--models", "CubeNET", "--num-splits", "1",
+                        "--device", "cuda"])
+    out["kfold_validate_zero2_s"] = time.perf_counter() - t0
+    csv_path = os.path.join(tree, "Saved_Models", "HSI", "CubeNET_pr.csv")
+    check(os.path.exists(csv_path) and os.path.exists(os.path.join(cfg.save_path,
+                                                                   "pr_curve.csv")),
+          "kfold_validate wrote no curve for the ZeRO-2 checkpoint")
+    print(f"kfold_validate --models CubeNET on the ZeRO-2 directory: "
+          f"{out['kfold_validate_zero2_s']:.2f} s, {csv_path}")
+    shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_unet_options(card):
+    phase(f"(r) UNET's options on {card}: folded bf16 serving of 1x{H}x{W}x3, UNET+ float32 "
+          "training, analyze")
+    from hyperpri_tpu_torch.models.unet import UNet
+    from hyperpri_tpu_torch.serve import build_unet_server
+
+    calls = serving_calls("UNET")
+    check(count_by_kernel(calls) == {"conv3x3_packed": 3},
+          f"the routing sends {count_by_kernel(calls)} of UNET's serving convs to kernels")
+    print(f"the routing predicts per image: {[c['layer'] for c in calls]} on conv3x3_packed")
+    unfolded = build_unet_server(0, folded=False, dtype=torch.float32)
+    server = build_unet_server(0, folded=True, use_kernels=True)
+    plain = build_unet_server(0, folded=True, use_kernels=False)
+    reqs = make_requests(torch.Generator(device="cuda").manual_seed(16), N_REQUESTS, 1, 3)
+    # each kernel layer's output against a float32 conv of its own input
+    # (bf16-rounded weights, float32 bias, ReLU), captured on the first request
+    captured = {}
+
+    def capture(name):
+        def hook(mod, inp, out):   # returns None: the output is kept
+            captured.setdefault(name, (mod, inp[0], out))
+        return hook
+
+    hooks = [server.model.get_submodule(c["layer"]).register_forward_hook(capture(c["layer"]))
+             for c in calls]
+    zero_launches()
+    results = [server.serve(req) for req in reqs]
+    torch.cuda.synchronize()
+    launches, _ = check_launches(f"UNET serving, {N_REQUESTS} requests", calls, N_REQUESTS)
+    for h in hooks:
+        h.remove()
+    layer_ulps = {}
+    for name, (mod, inp, out) in captured.items():
+        ref = F.relu(F.conv2d(inp.float().permute(0, 3, 1, 2),
+                              mod.weight.to(torch.bfloat16).float(), padding=1)
+                     .permute(0, 2, 3, 1) + mod.bias.float())
+        layer_ulps[name] = bf16_ulp_error(out, ref)[0]
+        check(layer_ulps[name] <= 1.0,
+              f"UNET serving {name}: {layer_ulps[name]:.3f} bf16 ulps from a float32 conv")
+    print(f"UNET serving's kernel layers against a float32 conv of their inputs, bf16 ulps: "
+          f"{ {k: round(v, 3) for k, v in layer_ulps.items()} } (limit 1)")
+    del captured
+    # The random UNET's logits crowd zero, and the folded model on F.conv2d
+    # in bf16 agrees in sign with the unfolded float32 model on only 0.9973
+    # of the pixels on an H100, so phase d's sign-agreement limit would fail
+    # the reference itself. As in phase n: rel L2 within phase d's limit
+    # against both, and the kernel route's sign flips against float32 at
+    # most TRAIN_VS_STOCK times the F.conv2d model's.
+    worst = {"plain": [0.0, 1.0], "unfolded": [0.0, 1.0], "plain_vs_unfolded": [0.0, 1.0]}
+    for i, (req, res) in enumerate(zip(reqs, results)):
+        logits = res["logits"]
+        check(tuple(logits.shape) == (1, H, W, 1) and bool(torch.isfinite(logits).all()),
+              f"UNET request {i}: logits {tuple(logits.shape)}")
+        refs = {name: other.serve(req)["logits"] for name, other in (("plain", plain),
+                                                                    ("unfolded", unfolded))}
+        errs = {"plain": logit_errors(logits, refs["plain"]),
+                "unfolded": logit_errors(logits, refs["unfolded"]),
+                "plain_vs_unfolded": logit_errors(refs["plain"], refs["unfolded"])}
+        flips, plain_flips = 1.0 - errs["unfolded"][1], 1.0 - errs["plain_vs_unfolded"][1]
+        check(errs["plain"][0] <= MODEL_REL_L2 and errs["unfolded"][0] <= MODEL_REL_L2
+              and flips <= TRAIN_VS_STOCK * plain_flips,
+              f"UNET request {i}: {errs}; {flips:.3e} of the signs flipped against float32, "
+              f"{plain_flips:.3e} for the model on F.conv2d (limit {TRAIN_VS_STOCK}x)")
+        for name, (rel, agree) in errs.items():
+            worst[name] = [max(worst[name][0], rel), min(worst[name][1], agree)]
+    for name, (rel, agree) in worst.items():
+        print(f"UNET serving, worst {name if '_vs_' in name else 'kernels vs ' + name}: rel L2 "
+              f"{rel:.4e}, sign agreement {agree:.6f}")
+
+    def forward(srv):
+        images = itertools.cycle([req["image"] for req in reqs])
+        return lambda: srv.model(next(images))
+
+    # In turns, SERVE_REPS forwards each: events, the host's time to issue a
+    # forward, and the profiler's device time (the sum of its kernels).
+    serving_ms, serving_runs = {}, {}
+    with torch.inference_mode():
+        for label, srv in (("kernels_off", plain), ("kernels_on", server),
+                           ("kernels_on_again", server), ("kernels_off_again", plain)):
+            ev, host = cuda_times(forward(srv), SERVE_REPS)
+            serving_ms[label] = statistics.median(ev)
+            serving_runs[label] = {"event_ms": ev, "host_ms": host}
+            q = statistics.quantiles(ev, n=10)
+            print(f"UNET serving forward {label}: {serving_ms[label]:.4f} ms/image (median of "
+                  f"{SERVE_REPS}; min {min(ev):.4f}, p10 {q[0]:.4f}, p90 {q[-1]:.4f}, max "
+                  f"{max(ev):.4f}), {1e3 / serving_ms[label]:.3f} images/s; host issue "
+                  f"median {statistics.median(host):.4f} ms, max {max(host):.4f}")
+        serving_device = {}
+        for label, srv in (("kernels_off", plain), ("kernels_on", server)):
+            dev, kernels = device_ms(forward(srv))
+            packed = sum(n for k, n in kernels.items() if "conv3x3_packed" in k)
+            serving_device[label] = {"device_ms": dev, "device_kernels": sum(kernels.values()),
+                                     "conv3x3_packed_kernels": packed}
+            print(f"UNET serving forward {label}: device {dev:.4f} ms/image (torch.profiler, "
+                  f"20 forwards), {sum(kernels.values()):.0f} device kernels an image "
+                  f"({packed:.0f} conv3x3_packed)")
+    del unfolded, server, plain, results
+    torch.cuda.empty_cache()
+
+    plus = phase_training_f32("UNET+", training_calls("UNET+", dtype="f32",
+                                                      path="unet_plus_training"), "r", False)
+
+    model = UNet(3, 1, bilinear=False, analyze=True,
+                 generator=torch.Generator().manual_seed(17)).cuda().eval()
+    x = torch.randn((1, 64, 96, 3), device="cuda")
+    torch.backends.cudnn.deterministic = True
+    with torch.no_grad():
+        triple = model(x)
+        model.analyze = False
+        logits = model(x)
+    torch.backends.cudnn.deterministic = False
+    check(len(triple) == 3 and torch.equal(triple[0], logits) and triple[1] is triple[0]
+          and torch.equal(triple[2], torch.sigmoid(logits)),
+          "analyze does not return (logits, logits, sigmoid(logits))")
+    print("analyze: (logits, logits, sigmoid(logits)) on the card")
+    del model
+    torch.cuda.empty_cache()
+    return {"serving_launches": launches, "serving_ms_per_image": serving_ms,
+            "serving_runs": serving_runs, "serving_device": serving_device,
+            "serving_worst": worst, "serving_layer_ulps": layer_ulps, "unet_plus_f32": plus}
+
+
 def read_json_entries(path):
     """The images of a split JSON, as the port's split reader resolves them."""
     from hyperpri_tpu_torch.data.splits import parse_split_json
@@ -2608,19 +3029,24 @@ def main():
         loop = phase_product_loop(tree, loop_calls, card)
         cli = phase_cli(tree)
         spectral_cli = phase_spectral_cli(tree, spectral["f32"]["plain"]["n_chunks"])
+        host_data = phase_host_data(tree, card)
+        imports = phase_checkpoint_import(tree)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
+    unet_options = phase_unet_options(card)
     cli_launches = {name: sum(counts.get(f"{name} f32", 0) for counts in cli["launches"].values())
                     for name in kernel_wrappers()}
     kernels = kernel_summary(
         rows, errors,
         {"bf16": {"serving": serving_launches, "training_step": training_launches,
                   "product_loop": loop["launches"],
-                  "spectral_unet_training": spectral["bf16"]["plain"]["launches"]},
+                  "spectral_unet_training": spectral["bf16"]["plain"]["launches"],
+                  "unet_serving": unet_options["serving_launches"]},
          "f32": {"unet_training": unet["launches"], "cubenet_f32_training": cube32["launches"],
                  "cli": cli_launches,
                  "spectral_unet_training": spectral["f32"]["plain"]["launches"],
-                 "spectral_unet_cli": spectral_cli["launches_spectral_fit"]}},
+                 "spectral_unet_cli": spectral_cli["launches_spectral_fit"],
+                 "unet_plus_training": unet_options["unet_plus_f32"]["launches"]}},
         {"bf16": {"serving": serving_framings, "training_step": training_framings,
                   "product_loop": loop["launches_by_framing"]},
          "f32": {"unet_training": unet["launches_by_framing"],
@@ -2631,7 +3057,9 @@ def main():
                       "training_ms_per_step": step_ms, "training_peak_gib": peak,
                       "fold_ab_ms_per_step": fold_ab, "unet_f32": unet, "cubenet_f32": cube32,
                       "product_loop": loop, "cli": cli, "spectral_unet_training": spectral,
-                      "spectral_unet_eval": spectral_eval, "spectral_cli": spectral_cli}))
+                      "spectral_unet_eval": spectral_eval, "spectral_cli": spectral_cli,
+                      "host_data": host_data, "checkpoint_import": imports,
+                      "unet_options": unet_options}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,8 +19,12 @@ each on RGB for UNET and HSI otherwise) and writes the curves to
 draws a combined PNG plot; --save-segmaps writes each validation image's
 overlay. kfold_segmaps runs test_net for each model and split at the
 published thresholds (REFERENCE_THRESHOLDS, or --thresholds) and writes the
-overlays unless --no-segmaps. --model-shard and --decoded-cache are not
-ported yet and raise. At the configuration's default precision, fp32, the
+overlays unless --no-segmaps. --decoded-cache DIR keeps each decoded cube
+window on disk, so that cold epochs read it back instead of re-paying the
+ENVI gather; --model UNET+ trains UNET with the skip*x merge. Each command
+evaluates a reference checkpoint (Lightning .ckpt, raw best_wts.pt or a
+ZeRO-2 directory) found under a run's save path as well as the port's own.
+--model-shard is not ported yet and raises. At the configuration's default precision, fp32, the
 gated 3x3 convs and pool backwards of UNET and CubeNET run the CUDA kernels
 in float32 (3xTF32 products); --precision bf16 runs them in bf16 (see
 config.py).
@@ -76,7 +80,8 @@ def _add_common(p):
     p.add_argument("--spectral-bn-size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--decoded-cache", default=None, metavar="DIR",
-                   help="not ported yet")
+                   help="on-disk decoded-cube cache dir: cold epochs read the "
+                        "decoded band window instead of re-paying the ENVI gather")
     p.add_argument("--chunks", type=int, default=None, metavar="N",
                    help="SpectralUNET: chunked-pixel gradient accumulation, BatchNorm "
                         "statistics per chunk (N = batch size: the reference's per-image "
@@ -91,8 +96,6 @@ def _add_common(p):
 
 
 def _apply_overrides(cfg, args):
-    if args.decoded_cache:
-        raise SystemExit("--decoded-cache is not ported yet")
     if args.model:
         cfg.model_name = args.model
     # --chunks / --offload are SpectralUNET training modes; a silent no-op on
@@ -104,6 +107,7 @@ def _apply_overrides(cfg, args):
     for attr, val in [("hsi_lo", args.hsi_lo), ("hsi_hi", args.hsi_hi),
                       ("cube_featmaps", args.cube_featmaps),
                       ("spectral_bn_size", args.spectral_bn_size), ("epochs", args.epochs),
+                      ("decoded_cache_dir", args.decoded_cache),
                       ("grad_accum_chunks", args.chunks), ("offload", args.offload or None)]:
         if val is not None:
             setattr(cfg, attr, val)

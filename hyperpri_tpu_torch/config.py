@@ -12,7 +12,8 @@ pre-padded ingest buffer of CubeNET is float32 too (2x610x970x256 floats,
 about 1.2 GB of pinned host memory at full resolution). The JAX package's
 mesh, ZeRO, offload, chunked-accumulation, orbax and profiling options are
 kept as fields so configurations read the same, and the Trainer refuses the
-ones this port does not have yet.
+ones this port does not have yet (meshes, ZeRO, optimizer offload, feature
+extraction).
 """
 
 from __future__ import annotations
@@ -53,7 +54,10 @@ class ExperimentConfig:
     hsi_lo: int = 0
     hsi_hi: int = 299
     cache_items: int = 0  # host-RAM LRU of decoded images/cubes (0 = off)
-    decoded_cache_dir: Optional[str] = None  # not ported yet: must stay None
+    # On-disk decoded-cube cache dir (None = off): the decoded (H, W, B) band
+    # window in the loader's dtype, read back sequentially by cold processes
+    # instead of re-paying the ENVI gather (data/disk_cache.py)
+    decoded_cache_dir: Optional[str] = None
 
     # Model parameters
     model_name: str = "UNET"
@@ -139,9 +143,6 @@ class ExperimentConfig:
                                 seed=self.run_num if seed is None else seed)
 
     def _dataset(self, split: str, crop: Optional[Tuple[int, int]]) -> HyperpriDataset:
-        if self.decoded_cache_dir is not None:
-            raise NotImplementedError("the decoded-cube disk cache is not ported yet "
-                                      "(ROADMAP queue 1: disk_cache)")
         mode = "HSI" if self.dataset.upper() == "HSI" else self.color_mode
         return HyperpriDataset(
             root=self.data_dir,
@@ -153,6 +154,7 @@ class ExperimentConfig:
             json_file=self.json_dir.get(split),
             seed=self.run_num,
             cache_items=self.cache_items,
+            decoded_cache_dir=self.decoded_cache_dir,
         )
 
     def get_train_data(self) -> HyperpriDataset:

@@ -8,11 +8,14 @@ offset shared by image and mask; a rescale by 1/255 when a cropped image
 exceeds 10; labels binarized with value > 0.
 
 Items are dicts {'image', 'mask', 'index', 'label', 'timing'}: 'image' a
-(H, W, C) CPU tensor in `image_dtype` (float32, or bfloat16 cast by torch with
-round-to-nearest-even, as ml_dtypes casts in the JAX package), 'mask' a
-(H, W, 1) float32 tensor of {0, 1}, and 'timing' the seconds spent reading
-(the ENVI band-window gather or the PNG decode) and casting. PNGs go through
-the port's own codec (png.py): no PIL.
+(H, W, C) CPU tensor in `image_dtype` (float32, or bfloat16 rounded to
+nearest even, as ml_dtypes casts in the JAX package), 'mask' a (H, W, 1)
+float32 tensor of {0, 1}, and 'timing' the seconds spent reading (the ENVI
+band-window gather or the PNG decode) and casting. HSI cubes are decoded
+straight into `image_dtype` by the native reader (dataset.py:143-158), so
+their cast takes no time; with `decoded_cache_dir` the decoded window
+persists on disk across processes (data/disk_cache.py). PNGs go through the
+port's own codec (png.py): no PIL.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from hyperpri_tpu_torch.data.envi import read_cube
+from hyperpri_tpu_torch.data.disk_cache import read_cube_cached
 from hyperpri_tpu_torch.data.png import load_png
 from hyperpri_tpu_torch.data.splits import DEFAULT_CLASS_LIST, SplitIndex, parse_split_json
 
@@ -44,6 +47,7 @@ class HyperpriDataset:
         seed: int = 0,
         cache_items: int = 0,
         image_dtype: torch.dtype = torch.float32,
+        decoded_cache_dir: Optional[str] = None,
     ):
         if json_file is None:
             raise ValueError("the dataset requires a split JSON")
@@ -67,6 +71,7 @@ class HyperpriDataset:
         # decoded (image, label) pairs kept in host RAM, pre-crop
         self._cache_items = cache_items
         self._cache: "dict[int, tuple]" = {}
+        self.decoded_cache_dir = decoded_cache_dir
         self.image_dtype = image_dtype
 
     def set_cache_items(self, n: int) -> int:
@@ -81,7 +86,11 @@ class HyperpriDataset:
         return old
 
     def set_image_dtype(self, dtype: torch.dtype) -> None:
-        self.image_dtype = dtype
+        """Change the returned image dtype; drops the cached images, which
+        were decoded in the old one."""
+        if dtype != self.image_dtype:
+            self.image_dtype = dtype
+            self._cache.clear()
 
     def __len__(self) -> int:
         return len(self.files)
@@ -91,10 +100,13 @@ class HyperpriDataset:
         return self.hsi_hi - self.hsi_lo if self.mode == "hsi" else 3
 
     def _load_raw(self, i: int):
-        """(float32 (H, W, C) image, uint8 (H, W) label) as numpy arrays."""
+        """((H, W, C) image, uint8 (H, W) label): an HSI cube decoded in
+        image_dtype (a numpy float32 array or a torch.bfloat16 tensor), a PNG
+        as a float32 numpy array."""
         entry = self.files[i]
         if self.mode == "hsi":
-            img = read_cube(entry.hdr, entry.dat, self.hsi_lo, self.hsi_hi, dtype=np.float32)
+            img = read_cube_cached(entry.hdr, entry.dat, self.hsi_lo, self.hsi_hi,
+                                   dtype=self.image_dtype, cache_dir=self.decoded_cache_dir)
         elif self.mode == "gray":
             g = load_png(entry.img, "L").astype(np.float32) / 255.0
             img = np.repeat(g[..., None], 3, axis=-1)
@@ -125,23 +137,29 @@ class HyperpriDataset:
             if img.max() > 10:
                 img = img / 255.0
         t1 = time.perf_counter()
-        image = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
-        image = image.to(self.image_dtype) if self.image_dtype != torch.float32 else image
+        if isinstance(img, torch.Tensor):
+            image = img.contiguous()
+        else:
+            image = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
+            image = image.to(self.image_dtype) if self.image_dtype != torch.float32 else image
         mask = torch.from_numpy((np.asarray(label) > 0).astype(np.float32)[..., None])
         return {"image": image, "mask": mask, "index": entry.name, "label": entry.label,
                 "timing": {"read": t1 - t0, "cast": time.perf_counter() - t1}}
 
 
-def paired_random_crop(img: np.ndarray, label: np.ndarray, size: Tuple[int, int],
+def paired_random_crop(img, label: np.ndarray, size: Tuple[int, int],
                        rng: np.random.Generator):
     """Crop image and mask with one shared offset drawn from `rng`; zero-pads
     at the bottom and right first when the image is smaller than the crop
-    (dataset.py:201-220)."""
+    (dataset.py:201-220). The image is a numpy array or a torch tensor."""
     th, tw = size
     h, w = img.shape[:2]
     if h < th or w < tw:
         ph, pw = max(0, th - h), max(0, tw - w)
-        img = np.pad(img, ((0, ph), (0, pw), (0, 0)))
+        if isinstance(img, torch.Tensor):
+            img = torch.nn.functional.pad(img, (0, 0, 0, pw, 0, ph))
+        else:
+            img = np.pad(img, ((0, ph), (0, pw), (0, 0)))
         label = np.pad(label, ((0, ph), (0, pw)))
         h, w = img.shape[:2]
     top = int(rng.integers(0, h - th + 1))

@@ -1,10 +1,10 @@
 """Minimal, dependency-free ENVI hyperspectral cube I/O (the port's copy of
 hyperpri_tpu/data/envi.py, numpy only).
 
-Parse the text .hdr once, np.memmap the .dat, and materialize only the
-requested band window in (H, W, B) channel-last order, the NHWC layout the
-models consume. The JAX package's optional native reader (runtime/) is not
-used here (ROADMAP: native_io stays queued).
+Parse the text .hdr once and materialize only the requested band window in
+(H, W, B) channel-last order, the NHWC layout the models consume: through
+the native C++ reader (data/native_io.py, built at first use) by default,
+or through np.memmap with `use_native=False`.
 
 ENVI header keys honored: samples, lines, bands, interleave (bil|bip|bsq),
 data type, byte order, header offset. `envi_support_nonlowercase_params`
@@ -19,6 +19,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 # ENVI data-type codes -> numpy dtypes.
 ENVI_DTYPES = {
@@ -116,15 +117,31 @@ def open_memmap(hdr: EnviHeader, dat_path: str) -> np.memmap:
     )
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """A numpy dtype, or torch.float32 / torch.float64, as a numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(torch.empty((), dtype=dtype).numpy().dtype)
+    return np.dtype(dtype)
+
+
 def read_cube(
     hdr_path: str,
     dat_path: str,
     band_lo: int = 0,
     band_hi: Optional[int] = None,
     dtype=np.float32,
-) -> np.ndarray:
-    """Read bands [band_lo, band_hi) as a contiguous (H, W, B) float array,
-    channel-last from the start."""
+    use_native: bool = True,
+):
+    """Read bands [band_lo, band_hi) as a contiguous (H, W, B) array,
+    channel-last from the start: a numpy array in `dtype`, or, for
+    torch.bfloat16, a torch.bfloat16 tensor (numpy has no bfloat16).
+
+    Float32 and bfloat16 go through the native reader (data/native_io.py),
+    whose float32 bytes are the numpy reader's and whose bfloat16 bits are
+    the float32 read rounded by torch's cast (nearest even) for finite
+    values. The numpy reader runs only with `use_native=False`, for another
+    output dtype, or for a header whose data type or interleave the native
+    reader does not take; a failed build or read raises."""
     hdr = parse_envi_header(hdr_path)
     if band_hi is None:
         band_hi = hdr.bands
@@ -134,6 +151,12 @@ def read_cube(
     actual = os.path.getsize(dat_path)
     if actual < expected:
         raise ValueError(f"{dat_path}: file too small for header ({actual} < {expected} bytes)")
+    bf16 = dtype == torch.bfloat16
+    if use_native:
+        from hyperpri_tpu_torch.data import native_io
+
+        if native_io.native_supports(hdr) and (bf16 or numpy_dtype(dtype) == np.float32):
+            return native_io.read_cube_native(hdr, dat_path, band_lo, band_hi, dtype)
 
     mm = open_memmap(hdr, dat_path)
     if hdr.interleave == "bsq":
@@ -142,7 +165,9 @@ def read_cube(
         cube = np.transpose(mm[:, band_lo:band_hi, :], (0, 2, 1))
     else:  # bip
         cube = mm[:, :, band_lo:band_hi]
-    return np.ascontiguousarray(cube, dtype=dtype)
+    if bf16:
+        return torch.from_numpy(np.ascontiguousarray(cube, dtype=np.float32)).to(torch.bfloat16)
+    return np.ascontiguousarray(cube, dtype=numpy_dtype(dtype))
 
 
 def write_envi(

@@ -14,6 +14,9 @@ take the conv3x3_packed kernel where `packed_serving_route` allows. Unfolded,
 trainable kernel convs; `conv_kwargs` reaches every Conv3x3 (the gates).
 A training forward may take the host pre-padded ingest buffer (`ingest_hw`,
 cubenet.py:50-60 and :97-118; geometry from `ingest_spec`).
+`use_attention` merges up1-up4 by skip * x (the first_depth != 64 head keeps
+its concat, as in the JAX model); `analyze` returns (logits, logits,
+sigmoid(logits)) (cubenet.py:177-179).
 """
 
 from __future__ import annotations
@@ -43,17 +46,19 @@ from hyperpri_tpu_torch.models.parts import (
 
 class CubeNET(nn.Module):
     def __init__(self, hsi_depth: int = 238, n_classes: int = 1, first_depth: int = 64,
-                 bilinear: bool = False, fused_bn: bool = False,
-                 use_kernels: bool = False, dtype=torch.float32,
+                 bilinear: bool = False, use_attention: bool = False, analyze: bool = False,
+                 fused_bn: bool = False, use_kernels: bool = False, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None, **conv_kwargs):
         super().__init__()
         self.hsi_depth = hsi_depth
         self.bilinear = bilinear
         self.fused_bn = fused_bn
+        self.analyze = analyze
         self.dtype = dtype
         fd, c = first_depth, 128
         factor = 2 if bilinear else 1
         kw = dict(fused_bn=fused_bn, use_kernels=use_kernels, dtype=dtype, **conv_kwargs)
+        up = dict(use_attention=use_attention, **kw)
 
         if fused_bn:
             self.first_conv = ServingConv3x3(hsi_depth, fd, use_kernels, dtype)
@@ -67,11 +72,11 @@ class CubeNET(nn.Module):
         self.down2 = Down(c, c * 2, **kw)
         self.down3 = Down(c * 2, c * 4, **kw)
         self.down4 = Down(c * 4, c * 8 // factor, **kw)
-        self.up1 = Up(c * 8, c * 4, bilinear, **kw)
-        self.up2 = Up(c * 4, c * 2, bilinear, **kw)
-        self.up3 = Up(c * 2, c, bilinear, **kw)
+        self.up1 = Up(c * 8, c * 4, bilinear, **up)
+        self.up2 = Up(c * 4, c * 2, bilinear, **up)
+        self.up3 = Up(c * 2, c, bilinear, **up)
         if fd == 64:
-            self.up4 = Up(c, 64 * factor, bilinear, **kw)
+            self.up4 = Up(c, 64 * factor, bilinear, **up)
         else:
             # Alternate head for first_depth != 64 (cubenet.py:162-172):
             # upsample, center-pad, concat [x1, y], DoubleConv -> 64.
@@ -93,8 +98,9 @@ class CubeNET(nn.Module):
         return first_conv_ingest_spec(h, w, self.hsi_depth, self.first_conv.weight.shape[0],
                                       **self.first_conv.gates())
 
-    def forward(self, x: torch.Tensor, train: bool = False, ingest_hw=None) -> torch.Tensor:
-        """ingest_hw: logical (h, w) when x is the host pre-padded ingest
+    def forward(self, x: torch.Tensor, train: bool = False, ingest_hw=None):
+        """-> float32 logits, or with `analyze` (logits, logits, sigmoid).
+        ingest_hw: logical (h, w) when x is the host pre-padded ingest
         buffer of `ingest_spec`, a training-only contract."""
         if self.fused_bn and train:
             raise ValueError("a BatchNorm-folded model serves; it does not train")
@@ -125,4 +131,5 @@ class CubeNET(nn.Module):
             y = upsample2x_align_corners(y) if self.bilinear else self.upsample4(y)
             y = pad_to_match(y, x1.shape[1], x1.shape[2])
             y = self.upconv4(torch.cat([x1, y], dim=-1), train)
-        return self.outc(y).float()
+        logits = self.outc(y).float()
+        return (logits, logits, torch.sigmoid(logits)) if self.analyze else logits

@@ -376,27 +376,34 @@ class Down(nn.Module):
 
 
 class Up(nn.Module):
-    """Upsample -> center-pad -> concat [skip, x] -> DoubleConv (parts.py:792-845).
-    `in_channels` is the channel count after the concat, which is also the
-    deeper input's count on the ConvTranspose path."""
+    """Upsample -> center-pad -> merge with the skip -> DoubleConv
+    (parts.py:792-845). `in_channels` is the channel count after the concat,
+    which is also the deeper input's count on the ConvTranspose path. The
+    merge is concat [skip, x], or skip * x with `use_attention` (UNET+):
+    the product has half the channels, so the DoubleConv then takes
+    in_channels // 2 on both paths (flax infers it; the names stay up{k}/conv
+    and up{k}/up)."""
 
     def __init__(self, in_channels: int, out_channels: int, bilinear: bool = False,
                  fused_bn: bool = False, use_kernels: bool = False, dtype=torch.float32,
-                 **conv_kwargs):
+                 use_attention: bool = False, **conv_kwargs):
         super().__init__()
         self.bilinear = bilinear
+        self.use_attention = use_attention
+        merged = in_channels // 2 if use_attention else in_channels
         if bilinear:
-            self.conv = DoubleConv(in_channels, out_channels // 2, in_channels // 2,
+            self.conv = DoubleConv(merged, out_channels // 2, in_channels // 2,
                                    fused_bn, use_kernels, dtype, **conv_kwargs)
         else:
             self.up = ConvTransposeUp(in_channels, in_channels // 2, dtype)
-            self.conv = DoubleConv(in_channels, out_channels, None, fused_bn,
+            self.conv = DoubleConv(merged, out_channels, None, fused_bn,
                                    use_kernels, dtype, **conv_kwargs)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = False) -> torch.Tensor:
         x1 = upsample2x_align_corners(x1) if self.bilinear else self.up(x1)
         x1 = pad_to_match(x1, x2.shape[1], x2.shape[2])
-        return self.conv(torch.cat([x2, x1], dim=-1), train)
+        x = x2 * x1 if self.use_attention else torch.cat([x2, x1], dim=-1)
+        return self.conv(x, train)
 
 
 class OutConv(nn.Module):

@@ -1,7 +1,8 @@
 """Model factory and naming (port of hyperpri_tpu/models/registry.py).
 
-UNET, SpectralUNET and CubeNET are ported; UNET+ (UNET's use_attention)
-raises until its slice lands.
+UNET, UNET+ (UNET with `use_attention`: each Up merges by skip * x),
+SpectralUNET and CubeNET (which also takes `use_attention`); `analyze`
+builds UNET or CubeNET returning (logits, logits, sigmoid(logits)).
 """
 
 from __future__ import annotations
@@ -30,9 +31,6 @@ def initialize_model(model_name: str, num_classes: int, network_parameters: Mapp
         raise RuntimeError(f"Invalid model: {model_name!r}")
     use_attention = name != "spectralunet" and (
         network_parameters.get("use_attention", False) or name == "unet+")
-    if analyze or use_attention:
-        raise NotImplementedError(f"{model_name}: the analyze and use_attention (UNET+) "
-                                  "options are not ported yet")
     use_kernels = network_parameters.get("pallas_train", False)
     generator = None if seed is None else torch.Generator().manual_seed(seed)
     if name == "spectralunet":
@@ -42,14 +40,16 @@ def initialize_model(model_name: str, num_classes: int, network_parameters: Mapp
                             remat=network_parameters.get("remat", False),
                             offload=network_parameters.get("offload", False), dtype=dtype,
                             generator=generator)
-    if name == "unet":
+    if name in ("unet", "unet+"):
         return UNet(n_channels=network_parameters["channels"], n_classes=num_classes,
-                    bilinear=network_parameters.get("bilinear", True), use_kernels=use_kernels,
+                    bilinear=network_parameters.get("bilinear", True),
+                    use_attention=use_attention, analyze=analyze, use_kernels=use_kernels,
                     dtype=dtype, generator=generator)
     depth = network_parameters["hsi_hi"] - network_parameters["hsi_lo"]
     return CubeNET(hsi_depth=depth, n_classes=num_classes,
                    first_depth=network_parameters["3d_featmaps"],
-                   bilinear=network_parameters.get("bilinear", True), use_kernels=use_kernels,
+                   bilinear=network_parameters.get("bilinear", True),
+                   use_attention=use_attention, analyze=analyze, use_kernels=use_kernels,
                    dtype=dtype, generator=generator)
 
 
@@ -59,12 +59,14 @@ def describe_route(model: nn.Module, pallas_train: bool) -> str:
     name = {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype, str(dtype))
     if isinstance(model, SpectralUNET):
         return f"{name}: Dense layers on torch.matmul (no kernel route)"
+    attention = (", skip*x merges (use_attention)"
+                 if any(getattr(m, "use_attention", False) for m in model.modules()) else "")
     if any(getattr(m, "use_kernels", False) for m in model.modules()):
         products = "3xTF32" if dtype == torch.float32 else "bf16"
         return (f"{name}: gated 3x3 convs on the CUDA kernels ({products} products), and "
-                "the even pools' backwards; the rest on F.conv2d")
+                f"the even pools' backwards; the rest on F.conv2d{attention}")
     why = "although pallas_train is set" if pallas_train else "pallas_train off"
-    return f"{name}: every conv on F.conv2d ({why})"
+    return f"{name}: every conv on F.conv2d ({why}){attention}"
 
 
 def translate_load_dir(model_name: str, net_params: Mapping[str, Any]) -> str:

@@ -10,8 +10,15 @@ Input (N, H, W, n_channels) NHWC; output (N, H, W, n_classes) float32 logits.
 trainable kernel convs, and the even pools' backwards through the pool
 kernel; `conv_kwargs` reaches every Conv3x3 (the gates). The 3-channel stem
 `inc.conv1` stays on F.conv2d under the C >= 32 gate, as in the JAX package.
-The JAX model's `use_attention` (UNET+), `analyze`, `fused_bn`/`use_pallas`
-serving forms and `spatial_mesh` are not ported yet.
+
+`use_attention` is UNET+: each Up merges by skip * x instead of the concat.
+`analyze` returns (logits, logits, sigmoid(logits)) (unet.py:64-66). With
+`fused_bn` the model takes the state dict of ops/fold_bn.py and serves: every
+3x3 conv is a ServingConv3x3, and `use_kernels` (JAX's `use_pallas`) sends
+those that pass `packed_serving_route` to the conv3x3_packed kernel. At
+1x608x968x3 with bilinear=False those are inc.conv2, up4.conv1 and up4.conv2
+(three launches an image); with bilinear=True up3.conv2 (128 -> 64 at
+304x484) passes too. The JAX model's `spatial_mesh` is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,35 +34,36 @@ from hyperpri_tpu_torch.models.parts import DoubleConv, Down, OutConv, Up, _Conv
 class UNet(nn.Module):
     def __init__(self, n_channels: int = 3, n_classes: int = 1, bilinear: bool = True,
                  use_attention: bool = False, analyze: bool = False,
-                 use_kernels: bool = False, dtype=torch.float32,
+                 fused_bn: bool = False, use_kernels: bool = False, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None, **conv_kwargs):
         super().__init__()
-        if use_attention or analyze:
-            raise NotImplementedError("UNet's use_attention (UNET+) and analyze options are "
-                                      "not ported yet")
         self.n_channels = n_channels
+        self.analyze = analyze
+        self.fused_bn = fused_bn
         self.dtype = dtype
         factor = 2 if bilinear else 1
         c = 64
-        kw = dict(use_kernels=use_kernels, dtype=dtype, **conv_kwargs)
+        kw = dict(fused_bn=fused_bn, use_kernels=use_kernels, dtype=dtype, **conv_kwargs)
+        up = dict(use_attention=use_attention, **kw)
         self.inc = DoubleConv(n_channels, c, **kw)
         self.down1 = Down(c, c * 2, **kw)
         self.down2 = Down(c * 2, c * 4, **kw)
         self.down3 = Down(c * 4, c * 8, **kw)
         self.down4 = Down(c * 8, c * 16 // factor, **kw)
-        self.up1 = Up(c * 16, c * 8, bilinear, **kw)
-        self.up2 = Up(c * 8, c * 4, bilinear, **kw)
-        self.up3 = Up(c * 4, c * 2, bilinear, **kw)
-        self.up4 = Up(c * 2, c * factor, bilinear, **kw)
-        self.outc = OutConv(c * factor, n_classes, dtype)
+        self.up1 = Up(c * 16, c * 8, bilinear, **up)
+        self.up2 = Up(c * 8, c * 4, bilinear, **up)
+        self.up3 = Up(c * 4, c * 2, bilinear, **up)
+        self.up4 = Up(c * 2, c * factor, bilinear, **up)
+        self.outc = OutConv(c, n_classes, dtype)   # up4 gives c channels either way
         if generator is not None:
             for m in self.modules():
                 if isinstance(m, _Conv):
                     m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False, ingest_hw=None) -> torch.Tensor:
-        """ingest_hw must be None: the host pre-padded ingest is CubeNET's
-        (its first conv takes the packed kernel; UNet's stem does not)."""
+    def forward(self, x: torch.Tensor, train: bool = False, ingest_hw=None):
+        """-> float32 logits, or with `analyze` (logits, logits, sigmoid).
+        ingest_hw must be None: the host pre-padded ingest is CubeNET's (its
+        first conv takes the packed kernel; UNet's stem does not)."""
         if ingest_hw is not None:
             raise ValueError("UNet takes logical images: the pre-padded ingest is CubeNET's")
         if x.shape[-1] != self.n_channels:
@@ -71,4 +79,5 @@ class UNet(nn.Module):
         y = self.up2(y, x3, train)
         y = self.up3(y, x2, train)
         y = self.up4(y, x1, train)
-        return self.outc(y).float()
+        logits = self.outc(y).float()
+        return (logits, logits, torch.sigmoid(logits)) if self.analyze else logits

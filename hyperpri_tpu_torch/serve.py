@@ -1,12 +1,13 @@
-"""CubeNET-64 serving: the folded bf16 model answering request batches.
+"""Serving: the folded bf16 CubeNET-64 or UNET answering request batches.
 
 Ports the eval pieces of hyperpri_tpu/train/trainer.py: `masked_bce` and
 `_batch_stats_metrics` (:118-146), `make_eval_step` (:229-246) and the
 logits `predict` hands back (:652-664).
 
 A request batch is a dict of tensors on the model's device: `image`
-(N, H, W, 238), `mask` (N, H, W, 1) of 0/1 targets and `valid` (N,), which is
-0 for padding entries of a fixed-size batch.
+(N, H, W, 238) for CubeNET-64 or (N, H, W, 3) for UNET, `mask` (N, H, W, 1)
+of 0/1 targets and `valid` (N,), which is 0 for padding entries of a
+fixed-size batch.
 """
 
 from __future__ import annotations
@@ -15,16 +16,19 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn as nn
 
 from hyperpri_tpu_torch._device import resolve_device
 from hyperpri_tpu_torch.models.cubenet import CubeNET
 from hyperpri_tpu_torch.models.parts import TorchBatchNorm
+from hyperpri_tpu_torch.models.unet import UNet
 from hyperpri_tpu_torch.ops.fold_bn import fold_batch_norm
 from hyperpri_tpu_torch.ops.losses import bce_with_logits
 from hyperpri_tpu_torch.ops.metrics import StatScores
 
 HSI_DEPTH = 238
 FIRST_DEPTH = 64
+RGB_CHANNELS = 3
 THRESHOLD = 0.5
 
 
@@ -53,12 +57,9 @@ def batch_stats_metrics(logits: torch.Tensor, mask: torch.Tensor, valid: torch.T
                                                   threshold, valid=v)
 
 
-def random_cubenet(seed: int, dtype=torch.bfloat16) -> CubeNET:
-    """Unfolded CubeNET on the CPU with weights drawn from `seed`: flax's
-    init for the convs, then seeded BatchNorm affines and running statistics,
-    so that folding them is not close to the identity."""
-    g = torch.Generator().manual_seed(seed)
-    model = CubeNET(HSI_DEPTH, 1, FIRST_DEPTH, dtype=dtype, generator=g)
+def _seed_batch_norms(model: nn.Module, g: torch.Generator) -> nn.Module:
+    """Seeded BatchNorm affines and running statistics, so that folding them
+    is not close to the identity."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, TorchBatchNorm):
@@ -70,11 +71,27 @@ def random_cubenet(seed: int, dtype=torch.bfloat16) -> CubeNET:
     return model
 
 
-class CubeNetServer:
-    """Answers request batches with one model (`make_eval_step` semantics:
-    the counts threshold sigmoid(logits) at 0.5, as validation does)."""
+def random_cubenet(seed: int, dtype=torch.bfloat16) -> CubeNET:
+    """Unfolded CubeNET-64 on the CPU with weights drawn from `seed`: flax's
+    init for the convs, then seeded BatchNorm affines and running statistics."""
+    g = torch.Generator().manual_seed(seed)
+    return _seed_batch_norms(CubeNET(HSI_DEPTH, 1, FIRST_DEPTH, dtype=dtype, generator=g), g)
 
-    def __init__(self, model: CubeNET):
+
+def random_unet(seed: int, dtype=torch.bfloat16) -> UNet:
+    """Unfolded UNET on RGB (3 channels, one class, ConvTranspose upsampling
+    as the configuration trains it) on the CPU with weights drawn from
+    `seed`, as random_cubenet."""
+    g = torch.Generator().manual_seed(seed)
+    return _seed_batch_norms(UNet(RGB_CHANNELS, 1, False, dtype=dtype, generator=g), g)
+
+
+class Server:
+    """Answers request batches with one model, CubeNET or UNet
+    (`make_eval_step` semantics: the counts threshold sigmoid(logits) at 0.5,
+    as validation does)."""
+
+    def __init__(self, model: nn.Module):
         self.model = model.eval()
 
     @torch.inference_mode()
@@ -87,17 +104,34 @@ class CubeNetServer:
         return {"logits": logits, "loss_sum": loss * n, "n": n, "stats": stats}
 
 
+def _server(model: nn.Module, fold, device: torch.device, folded: bool) -> Server:
+    """`model` on `device`, or with `folded` its BatchNorm-folded twin
+    `fold()` loaded with its folded state dict."""
+    if folded:
+        state = fold_batch_norm(model.state_dict())
+        model = fold()
+        model.load_state_dict(state, strict=True)
+    return Server(model.to(device))
+
+
 def build_cubenet_server(seed: int = 0, device=None, folded: bool = True,
-                         use_kernels: bool = True, dtype=torch.bfloat16) -> CubeNetServer:
+                         use_kernels: bool = True, dtype=torch.bfloat16) -> Server:
     """CubeNET-64 with random weights from `seed`, on `device` (None: the CUDA
     card, raising without one). `folded` serves the BatchNorm-folded model,
     whose full-resolution narrow convs take the conv3x3_packed kernel when
     `use_kernels`; unfolded, it is the plain eval model."""
     device = resolve_device(device)
-    model = random_cubenet(seed, dtype)
-    if folded:
-        state = fold_batch_norm(model.state_dict())
-        model = CubeNET(HSI_DEPTH, 1, FIRST_DEPTH, fused_bn=True,
-                        use_kernels=use_kernels, dtype=dtype)
-        model.load_state_dict(state, strict=True)
-    return CubeNetServer(model.to(device))
+    return _server(random_cubenet(seed, dtype),
+                   lambda: CubeNET(HSI_DEPTH, 1, FIRST_DEPTH, fused_bn=True,
+                                   use_kernels=use_kernels, dtype=dtype), device, folded)
+
+
+def build_unet_server(seed: int = 0, device=None, folded: bool = True,
+                      use_kernels: bool = True, dtype=torch.bfloat16) -> Server:
+    """UNET on RGB with random weights from `seed`, as build_cubenet_server:
+    folded, its full-resolution narrow convs take the conv3x3_packed kernel
+    when `use_kernels` (inc.conv2, up4.conv1 and up4.conv2 at 608x968)."""
+    device = resolve_device(device)
+    return _server(random_unet(seed, dtype),
+                   lambda: UNet(RGB_CHANNELS, 1, False, fused_bn=True,
+                                use_kernels=use_kernels, dtype=dtype), device, folded)

@@ -11,13 +11,22 @@ A payload is a torch.save file of nested dicts whose keys are the flax paths
 of hyperpri_tpu_torch/weights.py ("params"/"first_conv"/"kernel", ...) and
 whose leaves are CPU tensors in flax's layouts: weights.load_jax_variables
 reads it back, and it loads with torch.load(weights_only=True).
+
+The reference's checkpoints (a Lightning .ckpt, a raw .pt state dict, a
+DeepSpeed ZeRO-2 directory) are torch files or directories too, so
+detect_checkpoint_format decides by content (checkpoint.py:38-61 decides by
+magic bytes, which cannot tell the port's torch.save files from the
+reference's). train/torch_import.py loads the reference's formats.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import pickletools
 import re
-from typing import Any, Dict, Optional
+import zipfile
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +41,83 @@ def save_checkpoint(path: str, payload: Any) -> None:
 
 def load_checkpoint(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+LIGHTNING_KEY = "pytorch-lightning_version"
+
+
+def _is_lightning_file(path: str) -> bool:
+    """Whether the torch.save zip at `path` is a Lightning checkpoint: its
+    pickle stream holds the string LIGHTNING_KEY. The stream is read opcode by
+    opcode (pickletools.genops), never executed."""
+    try:
+        with zipfile.ZipFile(path) as z:
+            name = next(n for n in z.namelist() if n.endswith("/data.pkl"))
+            stream = z.read(name)
+        return any(arg == LIGHTNING_KEY for _, arg, _ in pickletools.genops(stream))
+    except (zipfile.BadZipFile, StopIteration, ValueError):
+        return False
+
+
+def load_torch_file(path: str) -> Any:
+    """torch.load on the CPU, with the load chosen by format:
+
+      - every file is first loaded with weights_only=True (tensors and
+        containers only): the port's own payloads and the reference's raw
+        .pt state dicts;
+      - a Lightning .ckpt (its pickle stream names LIGHTNING_KEY, found
+        without unpickling it) whose safe load fails on its hyper-parameters
+        or loop state is loaded with weights_only=False, which is FULL
+        UNPICKLING: evaluate only Lightning checkpoints you trust;
+      - any other file whose safe load fails raises pickle.UnpicklingError
+        and is never fully unpickled.
+
+    (A ZeRO-2 directory's files are loaded by torch_import.consolidate_zero2_dir,
+    always with full unpickling.)"""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        if not _is_lightning_file(path):
+            raise pickle.UnpicklingError(
+                f"{path}: holds objects other than tensors and containers and is "
+                f"not a Lightning checkpoint, so it is not unpickled ({e})") from None
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _payload_format(payload: Any) -> str:
+    """'port' for the port's own payload (top level "params" or "state"),
+    'torch' for the reference's (a Lightning payload, a "state_dict", or
+    flat dotted keys of tensors); raises for anything else."""
+    if isinstance(payload, dict):
+        if "params" in payload or "state" in payload:
+            return "port"
+        if LIGHTNING_KEY in payload or "state_dict" in payload:
+            return "torch"
+        if payload and all(isinstance(k, str) and "." in k for k in payload) and all(
+                isinstance(v, torch.Tensor) for v in payload.values()):
+            return "torch"
+    raise ValueError("neither the port's checkpoint nor a reference state dict: "
+                     f"{type(payload).__name__} with keys "
+                     f"{list(payload)[:5] if isinstance(payload, dict) else None}")
+
+
+def read_checkpoint(path: str) -> Tuple[str, Any]:
+    """-> (format, payload): ('zero_dir', None) for a directory (a DeepSpeed
+    ZeRO-2 checkpoint), else the file's payload (load_torch_file) and its
+    format, 'port' or 'torch' (_payload_format)."""
+    if os.path.isdir(path):
+        return "zero_dir", None
+    payload = load_torch_file(path)
+    try:
+        return _payload_format(payload), payload
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def detect_checkpoint_format(path: str) -> str:
+    """'zero_dir' | 'port' | 'torch', decided by content, not extension (the
+    reference's files are .ckpt and .pt alike, and so are the port's)."""
+    return read_checkpoint(path)[0]
 
 
 class DualCheckpointManager:

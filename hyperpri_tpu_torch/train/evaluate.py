@@ -1,7 +1,9 @@
 """Evaluation: threshold sweeps (validate_net) and fixed-threshold tests
 (test_net), port of hyperpri_tpu/train/evaluate.py.
 
-validate_net: load the best checkpoint -> predict over the split -> overall
+validate_net: load the best checkpoint (the port's own, or the reference's
+Lightning .ckpt, raw best_wts.pt or ZeRO-2 directory, routed by content as
+evaluate.py:60-82 routes them) -> predict over the split -> overall
 BCE -> 500-threshold PR sweep -> crop 1% tails -> best-DICE threshold (2
 decimals) -> print BCE/PixAcc/Prec/Recall/DICE/+IOU/AP and the row-normalized
 confusion matrix -> write the PR curve -> patch the undefined-precision tail.
@@ -43,7 +45,11 @@ from hyperpri_tpu_torch.ops.metrics import (
     patch_pr_tail,
     pr_curve,
 )
-from hyperpri_tpu_torch.train.checkpoint import find_eval_checkpoint
+from hyperpri_tpu_torch.train.checkpoint import find_eval_checkpoint, read_checkpoint
+from hyperpri_tpu_torch.train.torch_import import (
+    load_torch_checkpoint_state,
+    load_zero2_checkpoint_state,
+)
 from hyperpri_tpu_torch.train.trainer import Trainer
 from hyperpri_tpu_torch.utils.segmaps import eval_color_segmaps
 
@@ -107,7 +113,9 @@ def _render_segmaps(data, cfg: ExperimentConfig, batches, threshold: float) -> l
 
 def _load_eval_state(trainer: Trainer, cfg: ExperimentConfig, state=None):
     """The state to evaluate: `state` when given (it must be the trainer's),
-    else the best checkpoint under cfg.save_path loaded into the trainer."""
+    else the best checkpoint under cfg.save_path loaded into the trainer, by
+    its format (checkpoint.read_checkpoint): the port's own payload, a
+    reference .ckpt / .pt file, or a ZeRO-2 directory."""
     if state is not None:
         if state.model is not trainer.model:
             raise ValueError("the state to evaluate must be the trainer's")
@@ -117,7 +125,12 @@ def _load_eval_state(trainer: Trainer, cfg: ExperimentConfig, state=None):
         raise FileNotFoundError(f"no checkpoint under {cfg.save_path} "
                                 "(Checkpoints/ or best_wts.pt)")
     print(f"   LOADING FROM CKPT FILE: {ckpt_path}")
-    return trainer.restore_state(ckpt_path)
+    fmt, payload = read_checkpoint(ckpt_path)
+    if fmt == "zero_dir":
+        return load_zero2_checkpoint_state(trainer, cfg, ckpt_path)
+    if fmt == "torch":
+        return load_torch_checkpoint_state(trainer, cfg, ckpt_path, raw=payload)
+    return trainer.restore_state(ckpt_path, payload=payload)
 
 
 def _eval_loader(data, cfg: ExperimentConfig, trainer: Trainer) -> DataLoader:

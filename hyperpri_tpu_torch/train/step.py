@@ -157,13 +157,14 @@ def build_cubenet_trainer(seed: int = 0, device=None, use_kernels: bool = True,
 
 def build_unet_trainer(seed: int = 0, device=None, use_kernels: bool = True,
                        dtype=torch.float32, optimizer: str = "ADAM", learn_rate: float = 1e-3,
-                       threshold: float = 0.5, return_logits: bool = False):
+                       threshold: float = 0.5, return_logits: bool = False,
+                       use_attention: bool = False):
     """UNET on RGB (3 channels, bilinear=False, one class: the configuration's
     defaults) with flax's init drawn from `seed`, as build_cubenet_trainer:
-    -> (model, optimizer, step)."""
+    -> (model, optimizer, step). `use_attention` builds UNET+."""
     device = resolve_device(device)
-    model = UNet(3, 1, bilinear=False, use_kernels=use_kernels, dtype=dtype,
-                 generator=torch.Generator().manual_seed(seed))
+    model = UNet(3, 1, bilinear=False, use_attention=use_attention, use_kernels=use_kernels,
+                 dtype=dtype, generator=torch.Generator().manual_seed(seed))
     return _trainer(model, device, optimizer, learn_rate, threshold, return_logits)
 
 

@@ -101,7 +101,9 @@ def test_kfold_train_then_validate(tree, saved, capsys):
     (["kfold_train", "--offload"],
      "--offload is a SpectralUNET training mode \\(per-pixel model\\); current model is "
      "CubeNET"),
-    (["kfold_segmaps", "--decoded-cache", "cache"], "not ported"),
+    (["kfold_train", "--dataset", "RGB", "--chunks", "2"],
+     "--chunks is a SpectralUNET training mode \\(per-pixel model\\); current model is "
+     "UNET"),
 ])
 def test_options_not_ported_refuse(tmp_path, argv, why):
     with pytest.raises(SystemExit, match=why):

@@ -20,7 +20,7 @@ from hyperpri_tpu_torch.models import parts  # noqa: E402
 from hyperpri_tpu_torch.models.cubenet import CubeNET  # noqa: E402
 from hyperpri_tpu_torch.ops.fold_bn import fold_batch_norm  # noqa: E402
 from hyperpri_tpu_torch.ops.kernels.conv3x3_packed import conv3x3_packed  # noqa: E402
-from hyperpri_tpu_torch.serve import CubeNetServer  # noqa: E402
+from hyperpri_tpu_torch.serve import Server  # noqa: E402
 from hyperpri_tpu_torch.weights import load_jax_variables  # noqa: E402
 
 SHAPE = (1, 40, 58, 238)
@@ -91,7 +91,7 @@ def test_fold_batch_norm_matches_jax(jax_cubenet):
 
 
 def test_serve_matches_eval_step(jax_cubenet):
-    """loss_sum, n and the confusion counts of CubeNetServer.serve against the
+    """loss_sum, n and the confusion counts of Server.serve against the
     JAX make_eval_step on the same variables and batch. The second entry is
     padding (valid 0) and must not count."""
     rng = np.random.default_rng(1)
@@ -103,7 +103,7 @@ def test_serve_matches_eval_step(jax_cubenet):
     ref = make_eval_step(0.5)(state, {"image": jnp.asarray(image), "mask": jnp.asarray(mask),
                                       "valid": jnp.asarray(valid)})
     model = load_jax_variables(CubeNET(), jax_cubenet.params, jax_cubenet.stats)
-    out = CubeNetServer(model).serve({"image": torch.from_numpy(image),
+    out = Server(model).serve({"image": torch.from_numpy(image),
                                       "mask": torch.from_numpy(mask),
                                       "valid": torch.from_numpy(valid)})
     assert out["logits"].shape == (2, 16, 24, 1)

@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from hyperpri_tpu_torch.serve import build_cubenet_server
+from hyperpri_tpu_torch.serve import build_cubenet_server, build_unet_server
 from hyperpri_tpu_torch.train.step import build_cubenet_trainer, build_spectral_unet_trainer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -60,6 +60,10 @@ import hyperpri_tpu_torch.models.spectral_unet
 import hyperpri_tpu_torch.ops.chunked
 import hyperpri_tpu_torch.train.chunked
 import hyperpri_tpu_torch.utils.segmaps
+import hyperpri_tpu_torch.data.native_io
+import hyperpri_tpu_torch.data.disk_cache
+import hyperpri_tpu_torch.train.torch_import
+import hyperpri_tpu_torch.train.torch_export
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
                                     "hyperpri_tpu", "PIL", "matplotlib", "ml_dtypes"))
@@ -78,6 +82,12 @@ def test_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_cubenet_server(0)
+
+
+def test_unet_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_unet_server(0)
 
 
 def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):

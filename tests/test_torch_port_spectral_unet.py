@@ -102,8 +102,7 @@ def test_parameter_count_and_registry():
                               spectral_bn_size=FEATS)
     assert cfg.model_param_str == f"SpectralUNET_{FEATS}"
     assert isinstance(cfg.get_network(), SpectralUNET)
-    with pytest.raises(NotImplementedError, match="use_attention"):
-        initialize_model("UNET+", 1, {"channels": 3})
+    assert initialize_model("UNET+", 1, {"channels": 3}).up1.use_attention
 
 
 @pytest.mark.parametrize("train", [False, True])

@@ -127,10 +127,10 @@ def test_bf16_config_takes_the_kernel_route(tree, tmp_path_factory):
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(ExpHyperspectralPRI(calling_path=cfg.calling_path, device="cpu",
                                     mesh_shape={"data": 2}))
-    # SpectralUNET builds (no kernel route); UNET+ is still refused
+    # SpectralUNET builds (no kernel route); UNET+ builds UNet with the skip*x merge
     spectral = ExpHyperspectralPRI(calling_path=cfg.calling_path, precision="bf16",
                                    model_name="SpectralUNET", spectral_bn_size=16).get_network()
     assert describe_route(spectral, True) == ("bf16: Dense layers on torch.matmul (no kernel "
                                               "route)")
-    with pytest.raises(NotImplementedError, match="use_attention"):
-        ExpHyperspectralPRI(calling_path=cfg.calling_path, model_name="UNET+").get_network()
+    plus = ExpHyperspectralPRI(calling_path=cfg.calling_path, model_name="UNET+").get_network()
+    assert plus.up4.use_attention and describe_route(plus, True).endswith("(use_attention)")

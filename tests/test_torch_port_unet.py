@@ -86,8 +86,9 @@ def test_parameter_count_and_registry(flax_init):
     assert model.inc.conv2.use_kernels and model.dtype == torch.float32
     load_jax_variables(model, params, stats)   # every leaf used, every entry filled
     net_params = {"channels": 3, "hsi_lo": 25, "hsi_hi": 263, "spectral_bn_size": 16}
-    with pytest.raises(NotImplementedError, match="use_attention"):
-        initialize_model("UNET+", 1, net_params)
+    plus = initialize_model("UNET+", 1, net_params)   # UNET with the skip*x merge
+    assert isinstance(plus, UNet) and all(getattr(plus, f"up{k}").use_attention
+                                          for k in range(1, 5))
     assert isinstance(initialize_model("SpectralUNET", 1, net_params), SpectralUNET)
 
 
@@ -116,8 +117,8 @@ def test_forward_rejects_wrong_input(flax_init):
         model(torch.zeros((1, 8, 8, 4)))
     with pytest.raises(ValueError, match="CubeNET's"):
         model(torch.zeros((1, 8, 8, 3)), train=True, ingest_hw=(8, 8))
-    with pytest.raises(NotImplementedError, match="use_attention"):
-        UNet(3, 1, use_attention=True)
+    with pytest.raises(ValueError, match="serves"):
+        UNet(3, 1, fused_bn=True)(torch.zeros((1, 8, 8, 3)), train=True)
 
 
 @pytest.fixture(scope="module")
