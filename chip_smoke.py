@@ -142,8 +142,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
       kernels on and off in turns; UNET+ taking three float32 steps as phase j does
       (launches held against the routing walk, step 1 against float64, ms
       per step with kernels on and off, cuDNN's TF32 at torch's default);
-      `analyze`'s (logits, logits, sigmoid) on the card.
-The phases run in the order a-f, l, g, j, k, m, n, h, i, o, p, q, r. In (c) the framed modes read
+      `analyze`'s (logits, logits, sigmoid) on the card;
+  (s) the mesh path on one card: a world-1 NCCL group and
+      train_net(model_parallel=True) on phase h's tree (bf16, ZeRO-sharded
+      Adam on a (1, 1) mesh), three epochs of one step, without and with
+      test_deepspeed (the Adam moments in pinned host memory between steps):
+      the launches per step held against phase h's routing (a data-only mesh
+      keeps the single-device route), the two fits' parameters bit-equal, ms
+      per step on a staged batch, the device peak of each fit and the
+      offload's saving; then the spatial conv's shard geometry one shard at a
+      time at spatial 2 and 4: the local conv conv3x3_spatial runs on each
+      halo-extended block (what the exchange delivers), stitched, against the
+      unsharded kernel conv for a 64->64 conv at 608x968 (kernel 1) and a
+      64->128 conv at 304x484 (kernel 2), bf16 and float32: forward bit-equal,
+      dX within one bf16 ulp (1.5 on the rows that sum two shards' bf16
+      partials; float32: 2e-5 of the sum of |terms|), dW within 2e-5 of the
+      sum of |terms|.
+The phases run in the order a-f, l, g, j, k, m, n, h, s, i, o, p, q, r. In (c) the framed modes read
 buffers whose frames hold NaN. The script's elapsed seconds and the card's
 name and power limit come next; the line before
 the last is the kernel summary as JSON; the last line is
@@ -2090,6 +2105,198 @@ def phase_product_loop(tree, calls, card):
             "framed_vs_unframed": framing_times()}
 
 
+# ---------------------------------------------------------------------------
+# (s) the mesh path on one card.
+
+MESH_EPOCHS = 3
+MESH_TIMED_STEPS = 3
+# The spatial conv's shards at the two kernel routes of the training step:
+# (input shape, O): kernel 1 (conv3x3_packed) and kernel 2 (conv3x3_bias_act).
+SHARD_CONVS = [((TRAIN_BATCH, H, W, 64), 64), ((TRAIN_BATCH, H // 2, W // 2, 64), 128)]
+SHARD_DEGREES = (2, 4)
+
+
+def _mesh_fit(tree, calls, deepspeed: bool):
+    """train_net(model_parallel=True) on phase h's tree, from a fresh run
+    directory: -> (trainer, launches, peak GiB, ms a staged step)."""
+    from hyperpri_tpu_torch.config import ExpHyperspectralPRI
+    from hyperpri_tpu_torch.train.step import make_train_step
+    from hyperpri_tpu_torch.train.trainer import train_net
+
+    shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
+    cfg = ExpHyperspectralPRI(calling_path=tree, device="cuda")
+    cfg.test_deepspeed = deepspeed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    trainer = train_net(cfg, model_parallel=True, max_epochs=MESH_EPOCHS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = sum(h["steps"] for h in trainer.fit_result.history)
+    check(steps == MESH_EPOCHS, f"{steps} steps in {MESH_EPOCHS} epochs of one batch")
+    label = f"mesh path{' with test_deepspeed' if deepspeed else ''}, {steps} steps"
+    launches, _ = check_launches(label, calls, steps)
+    check(cfg.precision == "bf16" and cfg.zero_shard_opt and cfg.offload_opt_state == deepspeed
+          and cfg.mesh_shape == {"data": 1, "spatial": 1} and trainer.mesh.shape == cfg.mesh_shape,
+          f"model_parallel set {cfg.precision}, {cfg.zero_shard_opt}, {cfg.offload_opt_state}, "
+          f"{cfg.mesh_shape}")
+    params = [p.detach().clone() for p in trainer.model.parameters()]
+    # the step alone, on one batch staged on the card (the fit's epochs wait for
+    # the loader's read)
+    loader = trainer.loaders["train"]
+    pad_spec, ingest_hw = trainer._ingest_setup(loader.probe())
+    batch = {k: v for k, v in next(iter(loader.batches(pad_spec))).items() if k != "names"}
+    step = make_train_step(trainer.model, trainer.optimizer, cfg.threshold, ingest_hw=ingest_hw,
+                           mesh=trainer.mesh)
+    step(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MESH_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return trainer, params, launches, peak, statistics.median(times), times
+
+
+def _shard_blocks(x, s):
+    """The s row blocks of x, each extended by the rows the halo exchange
+    delivers (the neighbours' boundary rows, zero at the map's edges)."""
+    h = x.shape[1] // s
+    zero = torch.zeros_like(x[:, :1])
+    return [torch.cat([x[:, j * h - 1:j * h] if j else zero, x[:, j * h:(j + 1) * h],
+                       x[:, (j + 1) * h:(j + 1) * h + 1] if j < s - 1 else zero], dim=1)
+            for j in range(s)]
+
+
+def _shard_check(shape, o, dtype_name, gen):
+    """One conv's shards against the unsharded kernel conv: forward bits, dX
+    in bf16 ulps (float32: over the sum of |terms|), dW over the sum of
+    |terms|, at each degree of SHARD_DEGREES."""
+    from hyperpri_tpu_torch.ops.kernels.conv3x3_grad import conv3x3_wgrad
+    from hyperpri_tpu_torch.parallel.spatial_conv import local_conv
+
+    dtype = DTYPES[dtype_name]
+    x, w, b = conv_inputs(shape, o, gen, dtype)
+    g = (torch.randn(shape[:3] + (o,), generator=gen, device="cuda") * 0.1).to(dtype)
+
+    def conv(xin, gin):
+        xin = xin.detach().requires_grad_()
+        y = local_conv(xin, w, b, True)
+        return y, xin, gin
+
+    y_ref, x_ref, _ = conv(x, g)
+    y_ref.backward(g)
+    dx_ref, dw_ref = x_ref.grad.float(), conv3x3_wgrad(x, g)
+    xt, gt = x.float().permute(0, 3, 1, 2).abs(), g.float().permute(0, 3, 1, 2).abs()
+    wt = w.float().permute(3, 2, 0, 1).abs()
+    dx_scale = torch.nn.grad.conv2d_input(xt.shape, wt, gt, padding=1).permute(0, 2, 3, 1)
+    dw_scale = torch.nn.grad.conv2d_weight(xt, wt.shape, gt, padding=1).permute(2, 3, 1, 0)
+    out = {}
+    for s in SHARD_DEGREES:
+        h = shape[1] // s
+        ys, dxs, dws = [], torch.zeros_like(dx_ref), torch.zeros_like(dw_ref)
+        mag, parts = torch.zeros_like(dx_ref), torch.zeros(shape[1], device="cuda")
+        for j, (xe, ge) in enumerate(zip(_shard_blocks(x, s), _shard_blocks(g, s))):
+            ge[:, 0].zero_()    # the cotangent of the halo output rows: sliced off
+            ge[:, -1].zero_()
+            y, xin, _ = conv(xe, ge)
+            ys.append(y[:, 1:-1])
+            y.backward(ge)
+            # the exchange's transpose: each halo row's dX lands on the
+            # neighbour's boundary row (summed in float32 here)
+            lo, hi = j * h - 1, (j + 1) * h + 1
+            part = xin.grad.float()
+            keep = slice(max(lo, 0) - lo, part.shape[1] - max(hi - shape[1], 0))
+            dxs[:, max(lo, 0):min(hi, shape[1])] += part[:, keep]
+            mag[:, max(lo, 0):min(hi, shape[1])] += part[:, keep].abs()
+            parts[max(lo, 0):min(hi, shape[1])] += 1
+            dws += conv3x3_wgrad(xe, ge)
+        y_sh = torch.cat(ys, dim=1)
+        fwd_equal = torch.equal(y_sh, y_ref)
+        if dtype_name == "bf16":
+            # in ulps of max(|dX|, |dX ref|, |a| + |b|, 2**-6); a row that sums
+            # two shards' bf16 partials a and b carries their two roundings
+            # beside the reference's one: up to 1.5 ulps
+            m = torch.maximum(torch.maximum(dxs.abs(), dx_ref.abs()), mag).clamp_min(ULP_FLOOR)
+            ulps = (dxs - dx_ref).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+            two = parts > 1
+            dx_err = ulps[:, ~two].max().item()
+            dx_err_two = ulps[:, two].max().item()
+            dx_limit, dx_limit_two = 1.0, 1.5
+        else:
+            dx_err, dx_limit = sum_error(dxs, dx_ref, dx_scale), SUM_REL
+            dx_err_two, dx_limit_two = dx_err, dx_limit
+        dw_err = sum_error(dws, dw_ref, dw_scale)
+        check(fwd_equal, f"spatial {s}, {shape}->{o} {dtype_name}: the shards' forward differs "
+                         f"from the unsharded conv by {(y_sh.float() - y_ref.float()).abs().max()}")
+        check(dx_err <= dx_limit and dx_err_two <= dx_limit_two and dw_err <= SUM_REL,
+              f"spatial {s}, {shape}->{o} {dtype_name}: dX {dx_err:.3e} (limit {dx_limit}), "
+              f"on the summed rows {dx_err_two:.3e} (limit {dx_limit_two}), dW {dw_err:.3e} "
+              f"(limit {SUM_REL})")
+        out[s] = {"forward_bit_equal": fwd_equal, "dx_err": dx_err, "dx_limit": dx_limit,
+                  "dx_err_summed_rows": dx_err_two, "dx_limit_summed_rows": dx_limit_two,
+                  "dw_err": dw_err}
+        unit = " ulp" if dtype_name == "bf16" else " of |terms|"
+        print(f"spatial {s}: {s} shards of {shape[0]}x{h}(+2)x{shape[2]}x{shape[3]} -> {o} "
+              f"{dtype_name}: forward bit-equal {fwd_equal}, dX {dx_err:.3e} (limit "
+              f"{dx_limit}{unit}), on the rows that sum two shards {dx_err_two:.3e} (limit "
+              f"{dx_limit_two}{unit}), dW {dw_err:.3e} of |terms| (limit {SUM_REL})")
+    return out
+
+
+def phase_mesh(tree, calls, card):
+    phase(f"(s) the mesh path on {card}: train_net(model_parallel=True) at a world of one "
+          f"(NCCL), CubeNET-64, batch {TRAIN_BATCH}, {H}x{W}x{D} bf16, without and with "
+          f"test_deepspeed; the spatial conv's shards")
+    import torch.distributed as dist
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for deepspeed in (False, True):
+            trainer, params, launches, peak, ms, times = _mesh_fit(tree, calls, deepspeed)
+            opt = trainer.optimizer
+            check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                  f"the mesh runs {dist.get_backend()} at a world of {dist.get_world_size()}")
+            state_device = {t.device.type for *_, t in opt._state_tensors()}
+            check(state_device == ({"cpu"} if deepspeed else {"cuda"}),
+                  f"test_deepspeed {deepspeed}: the Adam moments live on {state_device}")
+            runs[deepspeed] = {"params": params, "launches": launches, "peak_gib": peak,
+                               "ms_per_step": ms, "step_ms_runs": times,
+                               "moment_bytes": opt.state_bytes(),
+                               "history": trainer.fit_result.history}
+            print(f"test_deepspeed {deepspeed}: {ms:.2f} ms a staged step (runs {times}), "
+                  f"device peak {peak:.3f} GiB over the fit, Adam moments "
+                  f"{opt.state_bytes() / 1e9:.4f} GB on {state_device.pop()}, epochs "
+                  f"{[round(h['epoch_time'], 3) for h in trainer.fit_result.history]} s")
+            del trainer, opt
+            torch.cuda.empty_cache()
+        equal = all(torch.equal(a, b) for a, b in zip(runs[False]["params"],
+                                                      runs[True]["params"]))
+        check(equal, "the offloaded fit's parameters differ from the fit without offload")
+        check(runs[False]["launches"] == runs[True]["launches"],
+              "the two fits launched different kernels")
+        moments = 2 * PARAMS_CUBENET64 * 4
+        saving = runs[False]["peak_gib"] - runs[True]["peak_gib"]
+        print(f"parameters after {MESH_EPOCHS} steps bit-equal with and without offload; the "
+              f"offload saves {saving:.3f} GiB of device peak against the moments' "
+              f"{moments / 2 ** 30:.3f} GiB (2 x {PARAMS_CUBENET64} x 4 B)")
+        for r in runs.values():
+            del r["params"]
+    finally:
+        shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shards = {f"{dt}_{shape[1]}x{shape[2]}_{shape[3]}to{o}": _shard_check(shape, o, dt, gen)
+              for shape, o in SHARD_CONVS for dt in DTYPES}
+    torch.cuda.empty_cache()
+    return {"without_offload": runs[False], "with_offload": runs[True],
+            "offload_saving_gib": saving, "moments_gib": moments / 2 ** 30,
+            "launches": runs[False]["launches"], "shards": shards}
+
+
 def phase_cli(tree):
     phase("(i) the CLI: kfold_train --validate --dataset RGB, then with no flag")
     shutil.rmtree(os.path.join(tree, "Saved_Models"), ignore_errors=True)
@@ -3027,6 +3234,7 @@ def main():
     tree = write_tree()
     try:
         loop = phase_product_loop(tree, loop_calls, card)
+        mesh = phase_mesh(tree, loop_calls, card)
         cli = phase_cli(tree)
         spectral_cli = phase_spectral_cli(tree, spectral["f32"]["plain"]["n_chunks"])
         host_data = phase_host_data(tree, card)
@@ -3039,7 +3247,7 @@ def main():
     kernels = kernel_summary(
         rows, errors,
         {"bf16": {"serving": serving_launches, "training_step": training_launches,
-                  "product_loop": loop["launches"],
+                  "product_loop": loop["launches"], "mesh_training": mesh["launches"],
                   "spectral_unet_training": spectral["bf16"]["plain"]["launches"],
                   "unet_serving": unet_options["serving_launches"]},
          "f32": {"unet_training": unet["launches"], "cubenet_f32_training": cube32["launches"],
@@ -3056,7 +3264,7 @@ def main():
     print(json.dumps({"kernels": kernels, "serving_ms_per_cube": serving_ms,
                       "training_ms_per_step": step_ms, "training_peak_gib": peak,
                       "fold_ab_ms_per_step": fold_ab, "unet_f32": unet, "cubenet_f32": cube32,
-                      "product_loop": loop, "cli": cli, "spectral_unet_training": spectral,
+                      "product_loop": loop, "mesh": mesh, "cli": cli, "spectral_unet_training": spectral,
                       "spectral_unet_eval": spectral_eval, "spectral_cli": spectral_cli,
                       "host_data": host_data, "checkpoint_import": imports,
                       "unet_options": unet_options}))

@@ -24,7 +24,11 @@ window on disk, so that cold epochs read it back instead of re-paying the
 ENVI gather; --model UNET+ trains UNET with the skip*x merge. Each command
 evaluates a reference checkpoint (Lightning .ckpt, raw best_wts.pt or a
 ZeRO-2 directory) found under a run's save path as well as the port's own.
---model-shard is not ported yet and raises. At the configuration's default precision, fp32, the
+--model-shard trains as train_net(model_parallel=True): bf16, ZeRO-sharded
+Adam state and a mesh of the launched world, one process per device, under
+`torchrun --standalone --nproc_per_node N -m hyperpri_tpu_torch.cli
+kfold_train --model-shard` (or as a single process, world 1); the sweep
+after it runs on the same mesh. At the configuration's default precision, fp32, the
 gated 3x3 convs and pool backwards of UNET and CubeNET run the CUDA kernels
 in float32 (3xTF32 products); --precision bf16 runs them in bf16 (see
 config.py).
@@ -122,7 +126,9 @@ def kfold_train(argv: Optional[List[str]] = None) -> None:
                                 description="5-split cross-validation training")
     p.add_argument("--calling-path", default=os.getcwd())
     p.add_argument("--dataset", default="HSI", choices=["RGB", "HSI"])
-    p.add_argument("--model-shard", action="store_true", help="not ported yet")
+    p.add_argument("--model-shard", action="store_true",
+                   help="multi-device training (MODEL_SHARD=True): bf16 + ZeRO-sharded Adam "
+                        "state + a data x spatial mesh of the torchrun world")
     p.add_argument("--load-ckpt", action="store_true",
                    help="resume the start split from its newest last.ckpt")
     p.add_argument("--augment", action="store_true", help="random-crop augmentation")
@@ -136,9 +142,8 @@ def kfold_train(argv: Optional[List[str]] = None) -> None:
                    help="timestamp-rename an existing run dir instead of resuming into it")
     _add_common(p)
     args = p.parse_args(argv)
-    if args.model_shard:
-        raise SystemExit("--model-shard (meshes, ZeRO) is not ported yet")
 
+    from hyperpri_tpu_torch.parallel.mesh import launched_world
     from hyperpri_tpu_torch.train.evaluate import validate_net
     from hyperpri_tpu_torch.train.trainer import train_net
 
@@ -151,11 +156,12 @@ def kfold_train(argv: Optional[List[str]] = None) -> None:
             cfg = _make_config(args.dataset, args.calling_path, run + 1, seed_idx, args.augment,
                                args.device, args.precision)
             _apply_overrides(cfg, args)
-            if args.archive_existing:
+            if args.archive_existing and launched_world()[0] == 0:   # one rank renames
                 archived = rename_folder(cfg.save_path)
                 if archived:
                     print(f"archived previous run to {archived}")
-            train_net(cfg, checkpoint=load_ckpt, max_epochs=args.max_epochs)
+            train_net(cfg, checkpoint=load_ckpt, model_parallel=args.model_shard,
+                      max_epochs=args.max_epochs)
             if args.n_seeds > 1 or args.validate:
                 print(f"   Model: {cfg.model_param_str}")
                 print(f"   Validation JSON: {cfg.json_dir['val']}")

@@ -11,9 +11,12 @@ CUDA kernels in that dtype (float32 by 3xTF32 products). At fp32 the host
 pre-padded ingest buffer of CubeNET is float32 too (2x610x970x256 floats,
 about 1.2 GB of pinned host memory at full resolution). The JAX package's
 mesh, ZeRO, offload, chunked-accumulation, orbax and profiling options are
-kept as fields so configurations read the same, and the Trainer refuses the
-ones this port does not have yet (meshes, ZeRO, optimizer offload, feature
-extraction).
+kept as fields so configurations read the same: `mesh_shape`,
+`zero_shard_opt` and `offload_opt_state` run multi-device training
+(train/trainer.py, parallel/), `orbax_under_mesh` changes no format (the
+port's checkpoints are torch.save files under a mesh too), and the Trainer
+refuses the options this port does not have yet (feature extraction,
+comet_logging).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class ExperimentConfig:
     split_no: int = 1
     seed_num: int = 0
     augment: bool = False
-    comet_logging: bool = False  # accepted for parity; no external logger
+    comet_logging: bool = False  # the offline Comet archive: not ported, the Trainer refuses it
 
     # Basic definitions
     dataset: str = "RGB"
@@ -91,11 +94,11 @@ class ExperimentConfig:
     offload: bool = False
     grad_accum_chunks: int = 0
     pallas_train: bool = True  # the kernel route for the full-resolution convs
-    mesh_shape: Optional[Dict[str, int]] = None
-    zero_shard_opt: bool = False
-    offload_opt_state: bool = False
+    mesh_shape: Optional[Dict[str, int]] = None  # {"data": d, "spatial": s} over the world
+    zero_shard_opt: bool = False  # Adam moments sharded over 'data'
+    offload_opt_state: bool = False  # Adam moments in pinned host memory between steps
     profile_dir: Optional[str] = None  # torch.profiler trace of one post-warm-up epoch
-    orbax_under_mesh: bool = True
+    orbax_under_mesh: bool = True  # no effect: one checkpoint format with or without a mesh
 
     def __post_init__(self):
         self.run_num = 10 * self.seed_num + self.split_no

@@ -17,6 +17,12 @@ device (port of hyperpri_tpu/data/pipeline.py).
     reuses that buffer for every batch: the frame is never written, so it is
     never zeroed again. The spec is an argument of the iterator, not state of
     the loader, so a loader reused for evaluation yields logical cubes.
+  - Under a mesh (parallel/mesh.Mesh) the batch size is the global one,
+    rounded up to a multiple of the data axis (Trainer.effective_batch), and
+    every rank draws the same order and crops from the same seed: a data
+    rank reads only its samples of each global batch (fill samples carry
+    valid = 0, as on one device), and a spatial rank keeps its rows of them
+    (pipeline.py's batch_sharding / sample_sharding).
   - `timings` records, per batch, the host seconds spent reading (ENVI
     band-window gather or PNG decode, summed over samples), casting to the
     image dtype (summed over samples), collating or pre-padding into the
@@ -46,11 +52,25 @@ def collate(samples: Sequence[Dict], batch_size: int, out: Optional[torch.Tensor
     n = len(samples)
     if not 0 < n <= batch_size:
         raise ValueError(f"{n} samples for a batch of {batch_size}")
-    reps = [samples[i % n] for i in range(batch_size)]
-    image = torch.stack([s["image"] for s in reps], out=out) if images else None
-    mask = torch.stack([s["mask"] for s in reps])
-    valid = (torch.arange(batch_size) < n).to(torch.float32)
-    names = [s["index"] for s in samples] + [""] * (batch_size - n)
+    return _stack(*_positions(samples, range(batch_size)), out=out, images=images)
+
+
+def _positions(samples, positions):
+    """(the sample at each of `positions` of a batch of the n `samples`
+    filled cyclically, their valid flags, their names): positions past n
+    hold copies, which are not valid and have no name. `samples` may hold
+    None where no position reads the sample."""
+    n = len(samples)
+    reps = [samples[p % n] for p in positions]
+    valid = torch.tensor([float(p < n) for p in positions], dtype=torch.float32)
+    names = [samples[p]["index"] if p < n else "" for p in positions]
+    return reps, valid, names
+
+
+def _stack(reps, valid, names, out: Optional[torch.Tensor] = None, images: bool = True,
+           rows=slice(None)) -> Dict[str, object]:
+    image = torch.stack([s["image"][rows] for s in reps], out=out) if images else None
+    mask = torch.stack([s["mask"][rows] for s in reps])
     return {"image": image, "mask": mask, "valid": valid, "names": names}
 
 
@@ -87,12 +107,16 @@ class DataLoader:
 
     `device`: where batches go (None keeps them on the host). `image_dtype`
     is pushed into the dataset, so images are cast once per sample at load.
+    `mesh`: this rank's samples and rows of each global batch (module
+    docstring).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  prefetch: int = 2, device=None, weighted: bool = False,
-                 image_dtype: Optional[torch.dtype] = None, fetch_workers: int = 4):
+                 image_dtype: Optional[torch.dtype] = None, fetch_workers: int = 4,
+                 mesh=None):
         self.dataset = dataset
+        self.mesh = mesh
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -131,21 +155,26 @@ class DataLoader:
             return np.random.default_rng((self.seed, self.epoch)).permutation(n)
         return np.arange(n)
 
-    def _samples(self) -> Iterator[list]:
+    def _samples(self) -> Iterator[tuple]:
+        """-> per batch, _positions' (the samples at this rank's positions,
+        valid, names), reading only the samples those positions hold."""
         order = self.order()
         crop_rng = np.random.default_rng((self.seed + 1, self.epoch))
         workers = min(self.fetch_workers, self.batch_size)
         pool = ThreadPoolExecutor(workers) if workers > 1 else None
+        first, stop = (0, self.batch_size) if self.mesh is None else \
+            self.mesh.sample_range(self.batch_size)
         try:
             for start in range(0, len(order), self.batch_size):
                 idx = order[start:start + self.batch_size]
-                rngs = crop_rng.spawn(len(idx))
+                rngs = crop_rng.spawn(len(idx))   # every sample's, on every rank
+                wanted = sorted({p % len(idx) for p in range(first, stop)})
 
-                def fetch(pair):
-                    return self.dataset.__getitem__(int(pair[0]), rng=pair[1])
+                def fetch(k):
+                    return self.dataset.__getitem__(int(idx[k]), rng=rngs[k])
 
-                pairs = list(zip(idx, rngs))
-                yield list(pool.map(fetch, pairs)) if pool else [fetch(p) for p in pairs]
+                got = dict(zip(wanted, pool.map(fetch, wanted) if pool else map(fetch, wanted)))
+                yield _positions([got.get(k) for k in range(len(idx))], range(first, stop))
         finally:
             if pool is not None:
                 pool.shutdown(wait=False, cancel_futures=True)
@@ -165,23 +194,26 @@ class DataLoader:
             self._staging[key] = buf
         return buf
 
-    def _assemble(self, samples, pad_spec) -> Dict[str, object]:
-        reps = [samples[i % len(samples)] for i in range(self.batch_size)]
+    def _assemble(self, positions, pad_spec) -> Dict[str, object]:
+        reps, valid, names = positions
         first = reps[0]["image"]
+        rows = slice(None)
+        if self.mesh is not None and self.mesh.spatial > 1:
+            rows = slice(*self.mesh.row_range(first.shape[0]))
         if pad_spec is None:
-            out = (self._buffer("image", (self.batch_size,) + tuple(first.shape), first.dtype,
-                                False) if self._staged() else None)
-            return collate(samples, self.batch_size, out=out)
+            shape = (len(reps),) + tuple(first[rows].shape)
+            out = self._buffer("image", shape, first.dtype, False) if self._staged() else None
+            return _stack(reps, valid, names, out=out, rows=rows)
         (hp, wp, cp), (r0, c0) = pad_spec[0], pad_spec[1]
         h, w, c = first.shape
         _check_spec(pad_spec, h, w, c)
-        shape = (self.batch_size, hp, wp, cp)
+        shape = (len(reps), hp, wp, cp)
         buf = (self._buffer("ingest", shape, first.dtype, True) if self._staged()
                else torch.zeros(shape, dtype=first.dtype))
         # only the logical region is written: the frame stays as zeroed once
         for i, sample in enumerate(reps):
             buf[i, r0:r0 + h, c0:c0 + w, :c] = sample["image"]
-        batch = collate(samples, self.batch_size, images=False)
+        batch = _stack(reps, valid, names, images=False)
         batch["image"] = buf
         return batch
 
@@ -203,10 +235,11 @@ class DataLoader:
         return dict(host, **moved), event
 
     def _batches(self, pad_spec) -> Iterator[tuple]:
-        for samples in self._samples():
+        for positions in self._samples():
             t0 = time.perf_counter()
-            host = self._assemble(samples, pad_spec)
+            host = self._assemble(positions, pad_spec)
             t1 = time.perf_counter()
+            samples = list({id(s): s for s in positions[0]}.values())
             batch, event = self._to_device(host)
             t2 = time.perf_counter()
             self.timings["read"].append(sum(s["timing"]["read"] for s in samples))

@@ -5,7 +5,8 @@ over the whole spectral depth is one 3x3 2D conv with `hsi_depth` input
 channels, followed by inc2 (conv + BN + ReLU) and a U-Net at C=128:
 31,178,881 parameters at hsi_depth=238, first_depth=64, bilinear=False.
 
-Input (N, H, W, hsi_depth) NHWC; output (N, H, W, n_classes) float32 logits.
+Input (N, H, W, hsi_depth) NHWC; output (N, H, W, n_classes) float32
+logits (float64 for a float64 model).
 With `fused_bn` the model takes the state dict of ops/fold_bn.py and every 3x3
 conv is a ServingConv3x3; `use_kernels` (JAX's `use_pallas`) lets those convs
 take the conv3x3_packed kernel where `packed_serving_route` allows. Unfolded,
@@ -17,6 +18,11 @@ cubenet.py:50-60 and :97-118; geometry from `ingest_spec`).
 `use_attention` merges up1-up4 by skip * x (the first_depth != 64 head keeps
 its concat, as in the JAX model); `analyze` returns (logits, logits,
 sigmoid(logits)) (cubenet.py:177-179).
+
+`spatial_mesh` (cubenet.py:49; the Trainer sets it under a mesh): the forward
+takes this rank's samples and rows of the batch and runs every module on its
+shard with the mesh's collectives (models/parts.py); the logits are this
+rank's rows.
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from hyperpri_tpu_torch.models.parts import (
     Conv3x3,
@@ -37,19 +42,24 @@ from hyperpri_tpu_torch.models.parts import (
     TorchBatchNorm,
     Up,
     _Conv,
+    conv_bn_relu_eval,
     conv_bn_relu_pair,
     first_conv_ingest_spec,
-    pad_to_match,
+    stat_float,
     upsample2x_align_corners,
+    upsample_to,
 )
+from hyperpri_tpu_torch.parallel.mesh import Rows
 
 
 class CubeNET(nn.Module):
     def __init__(self, hsi_depth: int = 238, n_classes: int = 1, first_depth: int = 64,
                  bilinear: bool = False, use_attention: bool = False, analyze: bool = False,
                  fused_bn: bool = False, use_kernels: bool = False, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None, **conv_kwargs):
+                 generator: Optional[torch.Generator] = None, spatial_mesh=None,
+                 **conv_kwargs):
         super().__init__()
+        self.spatial_mesh = spatial_mesh
         self.hsi_depth = hsi_depth
         self.bilinear = bilinear
         self.fused_bn = fused_bn
@@ -110,26 +120,32 @@ class CubeNET(nn.Module):
             raise ValueError(f"CubeNET expects {self.hsi_depth} bands (NHWC), "
                              f"got shape {tuple(x.shape)}")
         x = x.to(self.dtype)
+        r = [None] * 5   # the mesh.Rows of each level, under a mesh
+        if self.spatial_mesh is not None:
+            h = x.shape[1] if ingest_hw is None else ingest_hw[0]
+            r[0] = Rows(self.spatial_mesh, h * self.spatial_mesh.spatial)
+            for k in range(1, 5):
+                r[k] = r[k - 1].halved()
         if self.fused_bn:
             x1 = self.inc2_conv(self.first_conv(x))
         elif train:
             x1 = conv_bn_relu_pair(self.first_conv, self.first_bn, self.inc2_conv,
-                                   self.inc2_bn, x, self.dtype, ingest_hw)
+                                   self.inc2_bn, x, self.dtype, ingest_hw, rows=r[0])
         else:
-            x1 = F.relu(self.first_bn(self.first_conv(x))).to(self.dtype)
-            x1 = F.relu(self.inc2_bn(self.inc2_conv(x1))).to(self.dtype)
-        x2 = self.down1(x1, train)
-        x3 = self.down2(x2, train)
-        x4 = self.down3(x3, train)
-        x5 = self.down4(x4, train)
-        y = self.up1(x5, x4, train)
-        y = self.up2(y, x3, train)
-        y = self.up3(y, x2, train)
+            x1 = conv_bn_relu_eval(self.first_conv, self.first_bn, self.inc2_conv,
+                                   self.inc2_bn, x, self.dtype, rows=r[0])
+        x2 = self.down1(x1, train, r[0])
+        x3 = self.down2(x2, train, r[1])
+        x4 = self.down3(x3, train, r[2])
+        x5 = self.down4(x4, train, r[3])
+        y = self.up1(x5, x4, train, r[4], r[3])
+        y = self.up2(y, x3, train, r[3], r[2])
+        y = self.up3(y, x2, train, r[2], r[1])
         if self.up4 is not None:
-            y = self.up4(y, x1, train)
+            y = self.up4(y, x1, train, r[1], r[0])
         else:
-            y = upsample2x_align_corners(y) if self.bilinear else self.upsample4(y)
-            y = pad_to_match(y, x1.shape[1], x1.shape[2])
-            y = self.upconv4(torch.cat([x1, y], dim=-1), train)
-        logits = self.outc(y).float()
+            upsample = upsample2x_align_corners if self.bilinear else self.upsample4
+            y = upsample_to(upsample, y, x1, r[1], r[0], local=not self.bilinear)
+            y = self.upconv4(torch.cat([x1, y], dim=-1), train, r[0])
+        logits = stat_float(self.outc(y))
         return (logits, logits, torch.sigmoid(logits)) if self.analyze else logits

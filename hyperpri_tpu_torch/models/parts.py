@@ -14,10 +14,27 @@ the kernel route), the first BatchNorm of a pair returns only its folded
 affine (pa, pb), and the second conv applies relu(pa*x + pb) to its input
 itself, in its kernel's prologue or, off the kernel route, in float32 tensor
 ops rounded to the compute dtype.
+
+Under a mesh (parallel/mesh.py) the modules take `rows`, the mesh.Rows of
+their input's H axis (the models pass them down, level by level):
+  - with more than one spatial rank every 3x3 conv, gated or not, runs
+    parallel/spatial_conv.conv3x3_spatial, the JAX mesh route's unfused conv
+    (no statistics epilogue, no prologue: parts.py:386-405), on the kernels
+    when the gates pass at the map's GLOBAL H x W (parts.py:322-326), so a
+    layer's route does not change with the mesh;
+  - on a data-only mesh each rank's geometry is the single device's, and
+    the single-device route stays: statistics epilogue, fused prologue;
+  - TorchBatchNorm all-reduces its sums (the kernel epilogue's too) over the
+    ranks that hold the map's pixels, with the global pixel count;
+  - ops that are not local in H (the bilinear upsample, a center pad in H,
+    a pool of a shard with an odd row count) gather the rows, compute on the
+    whole map and keep this rank's rows; a level whose rows do not split
+    evenly is held whole by every spatial peer (mesh.Rows).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -34,6 +51,8 @@ from hyperpri_tpu_torch.ops.kernels.conv_train import (
     conv3x3_bnact_stats_train,
 )
 from hyperpri_tpu_torch.ops.pool import max_pool_2x2
+from hyperpri_tpu_torch.parallel.mesh import Rows
+from hyperpri_tpu_torch.parallel.spatial_conv import conv3x3_spatial
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # decay of the running average: new = 0.9*old + 0.1*batch
@@ -131,9 +150,15 @@ class Conv3x3(_Conv):
         self.max_channels = max_channels
         self.bnact_packed_max_bc = bnact_packed_max_bc
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
+        if rows is not None and rows.mesh.spatial > 1:
+            return conv3x3_spatial(x.to(self.dtype), self._hwio(), self.bias, rows.mesh,
+                                   split=rows.split)
         y = _conv2d(x.to(self.dtype), self.weight.to(self.dtype), padding=1)
         return y + self.bias.to(self.dtype)
+
+    def _hwio(self) -> torch.Tensor:
+        return self.weight.permute(2, 3, 1, 0).to(self.dtype)  # OIHW -> HWIO
 
     def kernel_route(self, h: int, w: int) -> bool:
         """True iff `train_forward` sends an (N, h, w, C) input through the
@@ -147,7 +172,7 @@ class Conv3x3(_Conv):
                     min_channels=self.min_channels, max_channels=self.max_channels)
 
     def train_forward(self, x: torch.Tensor, collect_stats: bool = False, prologue=None,
-                      pre_padded=None):
+                      pre_padded=None, rows: Optional[Rows] = None):
         """-> (y, stats). stats is the (sum, sumsq) float32 pair of y's batch
         statistics when `collect_stats` and the kernel route is taken, else
         None (the BatchNorm then reduces them itself). prologue: optional
@@ -156,7 +181,8 @@ class Conv3x3(_Conv):
         `collect_stats`, else applied here first in float32 and rounded to
         the compute dtype (parts.py:377-443). `pre_padded` = logical
         (h, w, c) declares x the host pre-padded ingest buffer, for the bare
-        statistics conv on the conv3x3_packed route only, else this raises."""
+        statistics conv on the conv3x3_packed route only, else this raises.
+        `rows`: the input's mesh.Rows under a mesh (module docstring)."""
         o, c = self.weight.shape[:2]
         if pre_padded is None:
             _, h, w, _ = x.shape
@@ -165,18 +191,22 @@ class Conv3x3(_Conv):
             if pc != c:
                 raise ValueError(f"pre-padded ingest of {pc} channels into a {c}-channel conv")
         x = x.to(self.dtype)
-        use_kernels = self.kernel_route(h, w)
+        spatial = rows is not None and rows.mesh.spatial > 1
+        use_kernels = self.kernel_route(h if rows is None else rows.h, w)
         if pre_padded is not None and not (use_kernels and o <= PACKED_MAX_O and collect_stats
-                                           and prologue is None):
+                                           and prologue is None and not spatial):
             raise ValueError(f"pre-padded ingest off the packed statistics route: kernel route "
                              f"{use_kernels}, features {o}, collect_stats {collect_stats}, "
-                             f"prologue {prologue is not None}")
-        fuse_prologue = prologue is not None and use_kernels and collect_stats
+                             f"prologue {prologue is not None}, spatial mesh {spatial}")
+        fuse_prologue = prologue is not None and use_kernels and collect_stats and not spatial
         if prologue is not None and not fuse_prologue:
             pa, pb = prologue
             x = F.relu(stat_float(x) * pa + pb).to(self.dtype)
+        if spatial:
+            return conv3x3_spatial(x, self._hwio(), self.bias, rows.mesh, kernels=use_kernels,
+                                   split=rows.split), None
         if use_kernels:
-            kernel = self.weight.permute(2, 3, 1, 0).to(self.dtype)  # OIHW -> HWIO
+            kernel = self._hwio()
             bias = self.bias.float()
             x = x.contiguous()
             if fuse_prologue:
@@ -266,15 +296,28 @@ class TorchBatchNorm(nn.Module):
         self.momentum = momentum
 
     def forward(self, x: torch.Tensor, train: bool = False, precomputed=None,
-                affine_only: bool = False):
+                affine_only: bool = False, rows: Optional[Rows] = None):
         """precomputed: optional (sum, sumsq) float32 pair over N, H, W from
         the producing conv's epilogue, instead of reducing x here.
         affine_only: update the running statistics but return the folded
         per-channel float32 pair (pa, pb) with y = pa*x + pb instead of
-        applying it; the consumer fuses the apply (+ ReLU) into its load."""
+        applying it; the consumer fuses the apply (+ ReLU) into its load.
+        rows: under a mesh, the mesh.Rows of x's H axis: the sums are
+        all-reduced over the ranks that hold x's pixels before use, and the
+        count is the global one."""
         x32 = stat_float(x)
         if not train:
             mean, var = self.running_mean, self.running_var
+        elif rows is not None:
+            count = float(x.numel() // x.shape[-1])
+            if precomputed is None:
+                axes = tuple(range(x.dim() - 1))
+                precomputed = (x32.sum(dim=axes), (x32 * x32).sum(dim=axes))
+            sums = rows.mesh.all_reduce(torch.stack(precomputed), rows.reduce_axes)
+            count *= math.prod(rows.mesh.shape[a] for a in rows.reduce_axes)
+            mean = sums[0] / count
+            var = sums[1] / count - mean * mean
+            self._update_running(mean, var, count)
         else:
             axes = tuple(range(x.dim() - 1))
             count = float(x.numel() // x.shape[-1])
@@ -285,14 +328,17 @@ class TorchBatchNorm(nn.Module):
             else:
                 mean = x32.mean(dim=axes)
                 var = (x32 * x32).mean(dim=axes) - mean * mean
-            with torch.no_grad():
-                unbiased = var * (count / max(count - 1.0, 1.0))
-                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * unbiased)
+            self._update_running(mean, var, count)
         if affine_only:
             a = self.weight * torch.rsqrt(var + self.eps)
             return a, self.bias - mean * a
         return (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, count: float):
+        unbiased = var * (count / max(count - 1.0, 1.0))
+        self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+        self.running_var.mul_(self.momentum).add_((1 - self.momentum) * unbiased)
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
@@ -312,19 +358,42 @@ def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     return F.pad(x, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
 
 
+def upsample_to(upsample, x1: torch.Tensor, x2: torch.Tensor,
+                rows1: Optional[Rows] = None, rows2: Optional[Rows] = None,
+                local: bool = True) -> torch.Tensor:
+    """upsample(x1), center-padded to the skip x2's H and W. Under a mesh: a
+    `local` upsample (the 2x2 transposed conv maps each row to two) of split
+    rows that double to x2's height runs on this rank's rows; otherwise the
+    rows are gathered, upsampled and padded whole, and x2's rows kept."""
+    if rows1 is None:
+        return pad_to_match(upsample(x1), x2.shape[1], x2.shape[2])
+    if local and rows1.split and rows1.doubled().h == rows2.h:
+        y = upsample(x1)
+        return pad_to_match(y, y.shape[1], x2.shape[2])
+    y = pad_to_match(upsample(rows1.whole(x1)), rows2.h, x2.shape[2])
+    return rows2.keep(y)
+
+
 def conv_bn_relu_pair(conv1, bn1, conv2, bn2, x: torch.Tensor, dtype,
-                      ingest_hw=None) -> torch.Tensor:
+                      ingest_hw=None, rows: Optional[Rows] = None) -> torch.Tensor:
     """Training form of conv1 -> bn1 -> ReLU -> conv2 -> bn2 -> ReLU
     (parts.py:720-759, and cubenet.py:115-141 across first_conv and inc2):
     bn1 only folds its affine, conv2 applies it with the ReLU on its input,
     and each BatchNorm takes its statistics from its conv where the conv has
     them. `ingest_hw` = logical (h, w) when x is the host pre-padded ingest
-    buffer of conv1."""
+    buffer of conv1. `rows`: x's mesh.Rows under a mesh."""
     pre_padded = None if ingest_hw is None else (*ingest_hw, conv1.weight.shape[1])
-    x, st = conv1.train_forward(x, collect_stats=True, pre_padded=pre_padded)
-    prologue = bn1(x, train=True, precomputed=st, affine_only=True)
-    x, st = conv2.train_forward(x, collect_stats=True, prologue=prologue)
-    return F.relu(bn2(x, train=True, precomputed=st)).to(dtype)
+    x, st = conv1.train_forward(x, collect_stats=True, pre_padded=pre_padded, rows=rows)
+    prologue = bn1(x, train=True, precomputed=st, affine_only=True, rows=rows)
+    x, st = conv2.train_forward(x, collect_stats=True, prologue=prologue, rows=rows)
+    return F.relu(bn2(x, train=True, precomputed=st, rows=rows)).to(dtype)
+
+
+def conv_bn_relu_eval(conv1, bn1, conv2, bn2, x: torch.Tensor, dtype,
+                      rows: Optional[Rows] = None) -> torch.Tensor:
+    """Eval form of the same pair, with the running statistics."""
+    x = F.relu(bn1(conv1(x, rows))).to(dtype)
+    return F.relu(bn2(conv2(x, rows))).to(dtype)
 
 
 class DoubleConv(nn.Module):
@@ -349,15 +418,16 @@ class DoubleConv(nn.Module):
             self.conv2 = Conv3x3(mid, out_channels, dtype, use_kernels, **conv_kwargs)
             self.bn2 = TorchBatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rows: Optional[Rows] = None) -> torch.Tensor:
         if self.fused_bn:
             if train:
                 raise ValueError("a BatchNorm-folded model serves; it does not train")
+            if rows is not None:
+                raise ValueError("a BatchNorm-folded model serves on one device")
             return self.conv2(self.conv1(x))
-        if train:
-            return conv_bn_relu_pair(self.conv1, self.bn1, self.conv2, self.bn2, x, self.dtype)
-        x = F.relu(self.bn1(self.conv1(x))).to(self.dtype)
-        return F.relu(self.bn2(self.conv2(x))).to(self.dtype)
+        pair = conv_bn_relu_pair if train else conv_bn_relu_eval
+        return pair(self.conv1, self.bn1, self.conv2, self.bn2, x, self.dtype, rows=rows)
 
 
 class Down(nn.Module):
@@ -370,9 +440,18 @@ class Down(nn.Module):
         self.conv = DoubleConv(in_channels, out_channels, fused_bn=fused_bn,
                                use_kernels=use_kernels, dtype=dtype, **conv_kwargs)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rows: Optional[Rows] = None) -> torch.Tensor:
+        """rows: x's mesh.Rows under a mesh; the output's are rows.halved()."""
         # with kernels off the pool is stock too: autograd's own backward
-        return self.conv(max_pool_2x2(x, first_max_backward=self.use_kernels), train)
+        if rows is None:
+            return self.conv(max_pool_2x2(x, first_max_backward=self.use_kernels), train)
+        out = rows.halved()
+        if rows.split and x.shape[1] % 2 == 0:   # each shard pools its own rows
+            y = max_pool_2x2(x, first_max_backward=self.use_kernels)
+        else:
+            y = out.keep(max_pool_2x2(rows.whole(x), first_max_backward=self.use_kernels))
+        return self.conv(y, train, out)
 
 
 class Up(nn.Module):
@@ -399,11 +478,13 @@ class Up(nn.Module):
             self.conv = DoubleConv(merged, out_channels, None, fused_bn,
                                    use_kernels, dtype, **conv_kwargs)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x1 = upsample2x_align_corners(x1) if self.bilinear else self.up(x1)
-        x1 = pad_to_match(x1, x2.shape[1], x2.shape[2])
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = False,
+                rows1: Optional[Rows] = None, rows2: Optional[Rows] = None) -> torch.Tensor:
+        """rows1, rows2: the mesh.Rows of x1 and of the skip x2 under a mesh."""
+        upsample = upsample2x_align_corners if self.bilinear else self.up
+        x1 = upsample_to(upsample, x1, x2, rows1, rows2, local=not self.bilinear)
         x = x2 * x1 if self.use_attention else torch.cat([x2, x1], dim=-1)
-        return self.conv(x, train)
+        return self.conv(x, train, rows2)
 
 
 class OutConv(nn.Module):

@@ -7,9 +7,9 @@ head `outc`, a Linear over cat([x0, u]): 30,388,051 parameters at
 hsi_depth=238, bn_feats=1650.
 
 Input (N, H, W, hsi_depth) NHWC, rasterised to (N*H*W, hsi_depth) rows; output
-(N, H, W, n_classes) float32 logits. BatchNorm statistics are taken over all
-the rows of a call, as in the JAX package (train/chunked.py takes them per
-chunk). The Dense layers are plain matrix products (F.linear), as the JAX
+(N, H, W, n_classes) float32 logits (float64 for a float64 model). BatchNorm
+statistics are taken over all the rows of a call, as in the JAX package
+(train/chunked.py takes them per chunk). The Dense layers are plain matrix products (F.linear), as the JAX
 package leaves them to XLA: no kernel of ops/kernels runs here.
 
 `fused_bn` takes the state dict of ops/fold_bn.py (linear -> bn folded).
@@ -19,6 +19,11 @@ forward left them, as flax discards a recompute's updates. `offload` is read
 by the train steps (train/step.py, train/chunked.py), which keep the saved
 residuals in pinned host memory across the forward-to-backward gap; with it
 the blocks are not rematerialized, as in the JAX package.
+
+`spatial_mesh` (the Trainer sets it under a mesh): each rank runs the pixels
+of its samples' rows, and the BatchNorm statistics are all-reduced over the
+mesh (models/parts.py TorchBatchNorm). The JAX model has no such attribute:
+GSPMD partitions it.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from hyperpri_tpu_torch.models.parts import TorchBatchNorm, lecun_normal_
+from hyperpri_tpu_torch.models.parts import TorchBatchNorm, lecun_normal_, stat_float
+from hyperpri_tpu_torch.parallel.mesh import Rows
 
 
 def _dense(in_features: int, out_features: int) -> nn.Linear:
@@ -64,12 +70,12 @@ class SpectralBlock(nn.Module):
         self.bn = TorchBatchNorm(feats) if bnorm and not fused_bn else None
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, rows: Optional[Rows] = None) -> torch.Tensor:
         if skip is not None:
             x = torch.cat([skip, x], dim=-1)
         x = _linear(self.linear, x, self.dtype)
         if self.bn is not None:
-            x = self.bn(x, train=train)
+            x = self.bn(x, train=train, rows=rows)
         return F.relu(x).to(self.dtype)
 
     @contextlib.contextmanager
@@ -92,8 +98,9 @@ class SpectralUNET(nn.Module):
     def __init__(self, hsi_depth: int = 238, n_classes: int = 1, bn_feats: int = 16,
                  bnorm: bool = True, remat: bool = False, fused_bn: bool = False,
                  offload: bool = False, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, spatial_mesh=None):
         super().__init__()
+        self.spatial_mesh = spatial_mesh
         self.hsi_depth = hsi_depth
         self.n_classes = n_classes
         self.bn_feats = bn_feats
@@ -120,10 +127,10 @@ class SpectralUNET(nn.Module):
     def _rematerialize(self, train: bool) -> bool:
         return train and self.remat and not self.offload and torch.is_grad_enabled()
 
-    def _block(self, block: SpectralBlock, x, skip, train: bool):
+    def _block(self, block: SpectralBlock, x, skip, train: bool, rows=None):
         if not self._rematerialize(train):
-            return block(x, skip, train)
-        return checkpoint(block, x, skip, train, use_reentrant=False,
+            return block(x, skip, train, rows)
+        return checkpoint(block, x, skip, train, rows, use_reentrant=False,
                           context_fn=lambda: (contextlib.nullcontext(),
                                               block.keep_running_stats()))
 
@@ -137,18 +144,19 @@ class SpectralUNET(nn.Module):
             raise ValueError(f"SpectralUNET expects {self.hsi_depth} bands (NHWC), got shape "
                              f"{tuple(x.shape)}")
         n, h, w, d = x.shape
+        r = None if self.spatial_mesh is None else Rows.of_input(self.spatial_mesh, x)
         p = x.to(self.dtype).reshape(n * h * w, d)
-        x0 = self._block(self.tail, p, None, train)
-        x1 = self._block(self.down1, x0, None, train)
-        x2 = self._block(self.down2, x1, None, train)
-        x3 = self._block(self.down3, x2, None, train)
-        x4 = self._block(self.down4, x3, None, train)
-        u = self._block(self.up1, x4, None, train)
-        u = self._block(self.up2, u, x3, train)
-        u = self._block(self.up3, u, x2, train)
-        u = self._block(self.up4, u, x1, train)
+        x0 = self._block(self.tail, p, None, train, r)
+        x1 = self._block(self.down1, x0, None, train, r)
+        x2 = self._block(self.down2, x1, None, train, r)
+        x3 = self._block(self.down3, x2, None, train, r)
+        x4 = self._block(self.down4, x3, None, train, r)
+        u = self._block(self.up1, x4, None, train, r)
+        u = self._block(self.up2, u, x3, train, r)
+        u = self._block(self.up3, u, x2, train, r)
+        u = self._block(self.up4, u, x1, train, r)
         if self._rematerialize(train):
             out = checkpoint(self._head, u, x0, use_reentrant=False)
         else:
             out = self._head(u, x0)
-        return out.float().reshape(n, h, w, self.n_classes)
+        return stat_float(out).reshape(n, h, w, self.n_classes)

@@ -7,10 +7,11 @@ import torch
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                     reduction: str = "mean") -> torch.Tensor:
-    """Numerically stable binary cross-entropy on logits, in float32:
+    """Numerically stable binary cross-entropy on logits, in float32 (float64
+    for float64 logits, a reference run at higher precision):
     max(x, 0) - x*z + log(1 + exp(-|x|)), as torch.nn.BCEWithLogitsLoss."""
-    x = logits.float()
-    z = targets.float()
+    x = logits if logits.dtype == torch.float64 else logits.float()
+    z = targets.to(x.dtype)
     loss = torch.clamp_min(x, 0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
     if reduction == "mean":
         return loss.mean()

@@ -25,6 +25,7 @@ from hyperpri_tpu_torch.models.unet import UNet
 from hyperpri_tpu_torch.ops.fold_bn import fold_batch_norm
 from hyperpri_tpu_torch.ops.losses import bce_with_logits
 from hyperpri_tpu_torch.ops.metrics import StatScores
+from hyperpri_tpu_torch.parallel.mesh import DATA_AXIS
 
 HSI_DEPTH = 238
 FIRST_DEPTH = 64
@@ -38,13 +39,40 @@ def _squeeze_last(*tensors):
 
 
 def masked_bce(logits: torch.Tensor, targets: torch.Tensor,
-               valid: torch.Tensor) -> torch.Tensor:
-    """Mean BCE over the valid samples only (trainer.py:131-139)."""
+               valid: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Mean BCE over the valid samples only (trainer.py:131-139). Under a
+    mesh (parallel/mesh.Mesh) the arguments are this rank's samples and rows
+    and the result is this rank's share of the global mean: its sum over the
+    global count of valid samples times pixels, so that the shares (and
+    their gradients) sum to the single device's."""
     logits, targets = _squeeze_last(logits, targets)
     per = bce_with_logits(logits, targets, reduction="none")
     w = valid.reshape((-1,) + (1,) * (per.dim() - 1)).float()
-    denom = torch.clamp_min(w.sum() * math.prod(per.shape[1:]), 1.0)
+    n_valid, pixels = w.sum(), math.prod(per.shape[1:])
+    if mesh is not None:
+        n_valid = mesh.all_reduce_(n_valid.detach().clone(), (DATA_AXIS,))
+        pixels *= mesh.spatial
+    denom = torch.clamp_min(n_valid * pixels, 1.0)
     return (per * w).sum() / denom
+
+
+def step_logs(loss: torch.Tensor, logits: torch.Tensor, batch: Dict[str, torch.Tensor],
+              threshold: float, mesh=None) -> Dict[str, object]:
+    """{"loss_sum": loss * n_valid, "n": n_valid, "stats": StatScores at
+    `threshold`} of a step (trainer.py:219-225). Under a mesh `loss` is
+    this rank's share (masked_bce), the counts are this rank's, and all of
+    it is reduced in one collective over the mesh: n counts each sample
+    once (spatial peers hold the same samples' rows)."""
+    stats = batch_stats_metrics(logits, batch["mask"], batch["valid"], threshold)
+    n_valid = batch["valid"].sum()
+    loss = loss.detach()
+    if mesh is not None:
+        own = n_valid if mesh.coordinate[1] == 0 else torch.zeros_like(n_valid)
+        packed = torch.stack([loss.double(), own.double(), *(c.double() for c in stats)])
+        mesh.all_reduce_(packed)
+        loss, n_valid = packed[0].to(loss.dtype), packed[1].to(n_valid.dtype)
+        stats = StatScores(*(v.to(c.dtype) for v, c in zip(packed[2:], stats)))
+    return {"loss_sum": loss * n_valid, "n": n_valid, "stats": stats}
 
 
 def batch_stats_metrics(logits: torch.Tensor, mask: torch.Tensor, valid: torch.Tensor,

@@ -17,6 +17,11 @@ the batches' logits kept on the host and the images read again from the
 split, through its decoded-image cache while the split fits
 SEGMAP_CACHE_ITEMS_CAP (evaluate.py:107-120, :177-183, :226-249).
 
+Under a mesh (cfg.mesh_shape, or a mesh trainer) each rank predicts its
+samples' rows, Trainer.predict gathers the whole batch on every rank, and the
+sweep runs on the same logits as on one device; the mesh's first rank alone
+prints and writes.
+
 The metrics run on the predictions' device over the concatenated logits. The
 PR curve is written as {save_path}/pr_curve.csv (columns threshold, precision,
 recall) where the JAX package draws pr_curve.png with matplotlib.
@@ -124,7 +129,8 @@ def _load_eval_state(trainer: Trainer, cfg: ExperimentConfig, state=None):
     if ckpt_path is None:
         raise FileNotFoundError(f"no checkpoint under {cfg.save_path} "
                                 "(Checkpoints/ or best_wts.pt)")
-    print(f"   LOADING FROM CKPT FILE: {ckpt_path}")
+    if trainer.is_main:
+        print(f"   LOADING FROM CKPT FILE: {ckpt_path}")
     fmt, payload = read_checkpoint(ckpt_path)
     if fmt == "zero_dir":
         return load_zero2_checkpoint_state(trainer, cfg, ckpt_path)
@@ -135,8 +141,8 @@ def _load_eval_state(trainer: Trainer, cfg: ExperimentConfig, state=None):
 
 def _eval_loader(data, cfg: ExperimentConfig, trainer: Trainer) -> DataLoader:
     image_dtype = torch.bfloat16 if cfg.precision == "bf16" else None
-    return DataLoader(data, cfg.b_size["test"], shuffle=False, device=trainer.device,
-                      image_dtype=image_dtype)
+    return DataLoader(data, trainer.effective_batch(cfg.b_size["test"]), shuffle=False,
+                      device=trainer.device, image_dtype=image_dtype, mesh=trainer.mesh)
 
 
 def write_pr_csv(path: str, precision, recall, thresholds) -> None:
@@ -157,6 +163,7 @@ def validate_net(val_data, params: ExperimentConfig, trainer: Optional[Trainer] 
     cfg = params
     trainer = trainer or Trainer(cfg)
     _load_eval_state(trainer, cfg, state)
+    verbose, save_segmaps = verbose and trainer.is_main, save_segmaps and trainer.is_main
     with _segmap_image_cache(val_data, save_segmaps):
         logits, masks, batches = _gather_predictions(
             trainer, _eval_loader(val_data, cfg, trainer), keep_batches=save_segmaps)
@@ -185,7 +192,9 @@ def validate_net(val_data, params: ExperimentConfig, trainer: Optional[Trainer] 
             print(f"      Avg Prec : {float(ap):.3f}\n")
             print(f"      Conf Mat : {conf[0].tolist()}")
             print(f"                 {conf[1].tolist()}")
-        write_pr_csv(os.path.join(cfg.save_path, "pr_curve.csv"), precision, recall, thresholds)
+        if trainer.is_main:
+            write_pr_csv(os.path.join(cfg.save_path, "pr_curve.csv"), precision, recall,
+                         thresholds)
         precision = patch_pr_tail(precision)
         if save_segmaps:
             _render_segmaps(val_data, cfg, batches, best_thr_f)
@@ -198,6 +207,7 @@ def test_net(test_data, params: ExperimentConfig, best_threshold: float,
     cfg = params
     trainer = trainer or Trainer(cfg)
     _load_eval_state(trainer, cfg, state)
+    verbose, save_segmaps = verbose and trainer.is_main, save_segmaps and trainer.is_main
     with _segmap_image_cache(test_data, save_segmaps):
         logits, masks, batches = _gather_predictions(
             trainer, _eval_loader(test_data, cfg, trainer), keep_batches=save_segmaps)

@@ -26,19 +26,22 @@ from hyperpri_tpu_torch._device import resolve_device
 from hyperpri_tpu_torch.models.cubenet import CubeNET
 from hyperpri_tpu_torch.models.spectral_unet import SpectralUNET
 from hyperpri_tpu_torch.models.unet import UNet
-from hyperpri_tpu_torch.serve import FIRST_DEPTH, HSI_DEPTH, batch_stats_metrics, masked_bce
+from hyperpri_tpu_torch.parallel.sharding import sum_gradients
+from hyperpri_tpu_torch.serve import FIRST_DEPTH, HSI_DEPTH, masked_bce, step_logs
 
 
-def make_optimizer(model: nn.Module, optimizer: str = "ADAM", learn_rate: float = 1e-3,
+def make_optimizer(model, optimizer: str = "ADAM", learn_rate: float = 1e-3,
                    momentum: float = 0.9, weight_decay: float = 0.0) -> torch.optim.Optimizer:
-    """Adam or SGD as the reference selects them. torch.optim.Adam's defaults
-    are optax.adam's (b1 0.9, b2 0.999, eps 1e-8 outside the root), and
-    `weight_decay` is the coupled L2 term added to the gradient, for both."""
+    """Adam or SGD as the reference selects them, over a model's parameters
+    (or a list of tensors: ZeroOptimizer's slices). torch.optim.Adam's
+    defaults are optax.adam's (b1 0.9, b2 0.999, eps 1e-8 outside the root),
+    and `weight_decay` is the coupled L2 term added to the gradient, for both."""
+    params = model.parameters() if isinstance(model, nn.Module) else model
     name = optimizer.upper()
     if name == "ADAM":
-        return torch.optim.Adam(model.parameters(), lr=learn_rate, weight_decay=weight_decay)
+        return torch.optim.Adam(params, lr=learn_rate, weight_decay=weight_decay)
     if name == "SGD":
-        return torch.optim.SGD(model.parameters(), lr=learn_rate, momentum=momentum,
+        return torch.optim.SGD(params, lr=learn_rate, momentum=momentum,
                                weight_decay=weight_decay)
     raise ValueError(f"Unknown Optimizer name: {name}")
 
@@ -103,30 +106,34 @@ def wait_for_offloaded(model: nn.Module, offload: bool):
         torch.cuda.synchronize(device)
 
 
-def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    threshold: float = 0.5, return_logits: bool = False, ingest_hw=None,
-                    offload: bool = False
-                    ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, object]]:
+def make_train_step(model: nn.Module, optimizer, threshold: float = 0.5,
+                    return_logits: bool = False, ingest_hw=None, offload: bool = False,
+                    mesh=None) -> Callable[[Dict[str, torch.Tensor]], Dict[str, object]]:
     """-> step(batch) -> {"loss_sum": loss * n_valid, "n": n_valid, "stats":
     StatScores of sigmoid(logits) > threshold} (and "logits" on request). One
     call runs the model's training form, the backward and the optimizer
     update; the BatchNorm running statistics move in place. `ingest_hw`:
     logical (h, w) when the batch's image is the host pre-padded ingest
-    buffer (CubeNET.ingest_spec). `offload`: offload_context."""
+    buffer (CubeNET.ingest_spec). `offload`: offload_context. `mesh`
+    (parallel/mesh.Mesh; the model's spatial_mesh): the batch is this rank's
+    samples and rows, the loss this rank's share of the global mean, the
+    gradients are summed over the mesh before the update (a torch optimizer,
+    or parallel/sharding.ZeroOptimizer), and the logs are the mesh's; the
+    logits, on request, this rank's."""
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         optimizer.zero_grad(set_to_none=True)
         with offload_context(offload):
             logits = model(batch["image"], train=True, ingest_hw=ingest_hw)
-            loss = masked_bce(logits, batch["mask"], batch["valid"])
+            loss = masked_bce(logits, batch["mask"], batch["valid"], mesh)
         loss.backward()
         wait_for_offloaded(model, offload)
+        if mesh is not None:
+            sum_gradients(model, mesh)
         optimizer.step()
         with torch.no_grad():
             logits = logits.detach()
-            stats = batch_stats_metrics(logits, batch["mask"], batch["valid"], threshold)
-            n_valid = batch["valid"].sum()
-            logs = {"loss_sum": loss.detach() * n_valid, "n": n_valid, "stats": stats}
+            logs = step_logs(loss, logits, batch, threshold, mesh)
         if return_logits:
             logs["logits"] = logits
         return logs

@@ -19,19 +19,37 @@ the card, train/step.py save_on_host), the counterpart of
 ops/chunked.apply_pixelwise_chunked, whose logits equal the unchunked
 eval's (ROADMAP caveat R4).
 
-Not ported (they raise): meshes and ZeRO sharding, optimizer offload, orbax,
-feature extraction.
+Meshes (trainer.py:275-305, :309-360, :379-388, :413-470): with
+`cfg.mesh_shape` (or a `mesh=`) one process per device trains on a
+('data', 'spatial') mesh of parallel/mesh.py, NCCL on the card and gloo on
+the CPU. The model takes the mesh as its `spatial_mesh`, every rank starts
+from rank 0's parameters, the loaders give each rank its samples and rows,
+the step sums the gradients of the globally normalized loss over the mesh,
+and the logs are reduced over it. `zero_shard_opt` keeps each data rank's
+slice of the Adam moments (parallel/sharding.ZeroOptimizer) and
+`offload_opt_state` keeps them in pinned host memory between steps. Only
+the mesh's first rank writes checkpoints and logs, after a barrier-closed
+gather of the whole state: a checkpoint is the single-device format, so a
+run resumes at another mesh shape or on one device. The host pre-padded
+ingest stays on data-only meshes, where each rank's geometry is the single
+device's. `grad_accum_chunks` under a mesh raises, as in the JAX package.
+
+Not ported (they raise): feature extraction, the offline Comet archive
+(comet_logging). `orbax_under_mesh` changes no format: checkpoints under a
+mesh are the port's torch.save files, as on one device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from hyperpri_tpu_torch._device import resolve_device
@@ -47,7 +65,20 @@ from hyperpri_tpu_torch.ops.metrics import (
     dice_from_stats,
     jaccard_from_stats,
 )
-from hyperpri_tpu_torch.serve import batch_stats_metrics, masked_bce
+from hyperpri_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    Mesh,
+    init_distributed,
+    launched_world,
+    make_mesh,
+)
+from hyperpri_tpu_torch.parallel.sharding import (
+    ZeroOptimizer,
+    estimate_zero_savings,
+    moments_tree_shapes,
+)
+from hyperpri_tpu_torch.serve import masked_bce, step_logs
 from hyperpri_tpu_torch.train.checkpoint import (
     DualCheckpointManager,
     find_resume_checkpoint,
@@ -59,10 +90,8 @@ from hyperpri_tpu_torch.utils.logging import ExperimentLogger
 from hyperpri_tpu_torch.weights import export_state, load_adam_moments, load_jax_variables
 
 _NOT_PORTED = {
-    "mesh_shape": "meshes",
-    "zero_shard_opt": "ZeRO-sharded optimizer state",
-    "offload_opt_state": "host-offloaded optimizer state",
     "feature_extraction": "feature extraction (frozen backbone)",
+    "comet_logging": "the offline Comet archive",
 }
 
 
@@ -107,14 +136,26 @@ def _array_batch(batch):
 class Trainer:
     """Epoch-driven fit / validate / predict engine (trainer.py:272-678)."""
 
-    def __init__(self, cfg: ExperimentConfig, model: Optional[nn.Module] = None):
+    def __init__(self, cfg: ExperimentConfig, model: Optional[nn.Module] = None,
+                 mesh: Optional[Mesh] = None):
         for attr, what in _NOT_PORTED.items():
             if getattr(cfg, attr, None):
                 raise NotImplementedError(f"{what} ({attr}) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        if mesh is not None or cfg.mesh_shape:
+            self.device = init_distributed(self.device)
+            mesh = mesh if mesh is not None else make_mesh(cfg.mesh_shape, self.device.type)
+        self.mesh = mesh
         self.model = (model if model is not None else cfg.get_network()).to(self.device)
         per_pixel = isinstance(self.model, SpectralUNET)
+        if mesh is not None:
+            if cfg.grad_accum_chunks > 0:
+                raise ValueError("grad_accum_chunks is a single-device memory-control path; "
+                                 "under a mesh use spatial sharding (--model-shard) instead")
+            self.model.spatial_mesh = mesh
+            with torch.no_grad():   # every rank starts from the first rank's state
+                mesh.broadcast_(list(self.model.parameters()) + list(self.model.buffers()))
         if cfg.grad_accum_chunks > 0 and not per_pixel:
             # the chunked step rasterizes (N, H, W, C) into (1, chunk, 1, C)
             # pixel rows: only valid for per-pixel models
@@ -123,18 +164,45 @@ class Trainer:
         if cfg.offload and not per_pixel:
             raise ValueError("offload is SpectralUNET's host-offloaded remat; got "
                              f"{type(self.model).__name__}")
-        self.optimizer = make_optimizer(self.model, cfg.optimizer, cfg.learn_rate, cfg.momentum,
-                                        cfg.weight_decay)
+        def inner(params):
+            return make_optimizer(params, cfg.optimizer, cfg.learn_rate, cfg.momentum,
+                                  cfg.weight_decay)
+
+        if cfg.zero_shard_opt or cfg.offload_opt_state:
+            self.optimizer = ZeroOptimizer(self.model, inner,
+                                           mesh if cfg.zero_shard_opt else None,
+                                           offload=cfg.offload_opt_state)
+        else:
+            self.optimizer = inner(self.model)
         self.state = TrainState(self.model, self.optimizer)
         self.profile: Optional[Dict[str, object]] = None
         self.fit_result: Optional[FitResult] = None
         self.loaders: Dict[str, DataLoader] = {}
 
+    @property
+    def is_main(self) -> bool:
+        """True on the rank that writes checkpoints and logs (the mesh's
+        first, or the only one)."""
+        return self.mesh is None or dist.get_rank() == self.mesh.rank_at(0, 0)
+
+    def effective_batch(self, b: int) -> int:
+        """b rounded up to a multiple of the mesh's data axis, so that the
+        global batch splits evenly (trainer.py:309-315); the fill samples
+        carry valid = 0."""
+        if self.mesh is None:
+            return b
+        return math.ceil(b / self.mesh.data) * self.mesh.data
+
+    def _barrier(self):
+        if self.mesh is not None:
+            self.mesh.all_reduce_(torch.zeros(1, device=self.device))
+
     def _ingest_setup(self, sample):
         """(pad spec, ingest_hw) when the first conv takes the packed kernel
-        for these cubes, else (None, None)."""
+        for these cubes, else (None, None). Under a mesh only a data-only
+        one keeps it: an H-sharded buffer would break the framing."""
         spec_of = getattr(self.model, "ingest_spec", None)
-        if spec_of is None:
+        if spec_of is None or (self.mesh is not None and self.mesh.spatial > 1):
             return None, None
         _, h, w, _ = sample["image"].shape
         spec = spec_of(h, w)
@@ -152,10 +220,8 @@ class Trainer:
             logits = apply_pixelwise_chunked(self.model, batch["image"])
         else:
             logits = self.model(batch["image"], train=False)
-        loss = masked_bce(logits, batch["mask"], batch["valid"])
-        n = batch["valid"].sum()
-        logs = {"loss_sum": loss * n, "n": n,
-                "stats": batch_stats_metrics(logits, batch["mask"], batch["valid"], 0.5)}
+        loss = masked_bce(logits, batch["mask"], batch["valid"], self.mesh)
+        logs = step_logs(loss, logits, batch, 0.5, self.mesh)
         if return_logits:
             logs["logits"] = logits
         return logs
@@ -166,6 +232,7 @@ class Trainer:
             resume_from: Optional[str] = None, max_epochs: Optional[int] = None,
             progress: bool = True) -> FitResult:
         cfg = self.cfg
+        progress = progress and self.is_main
         pad_spec, ingest_hw = self._ingest_setup(train_loader.probe())
         offload = bool(cfg.offload or getattr(self.model, "offload", False))
         if cfg.grad_accum_chunks > 0:
@@ -173,15 +240,16 @@ class Trainer:
                                            cfg.grad_accum_chunks, offload=offload)
         else:
             step = make_train_step(self.model, self.optimizer, cfg.threshold,
-                                   ingest_hw=ingest_hw, offload=offload)
+                                   ingest_hw=ingest_hw, offload=offload, mesh=self.mesh)
         if progress:
             print(f"route: {describe_route(self.model, cfg.pallas_train)}"
                   + ("; the first conv reads the host pre-padded buffer" if ingest_hw else "")
                   + (f"; {cfg.grad_accum_chunks} pixel chunks a step"
                      if cfg.grad_accum_chunks > 0 else "")
-                  + ("; saved residuals offloaded to host memory" if offload else ""))
-        ckpt = DualCheckpointManager(cfg.save_path)
-        logger = ExperimentLogger(cfg.save_path, hparams=cfg)
+                  + ("; saved residuals offloaded to host memory" if offload else "")
+                  + self._describe_mesh())
+        ckpt = DualCheckpointManager(cfg.save_path) if self.is_main else None
+        logger = ExperimentLogger(cfg.save_path, hparams=cfg) if self.is_main else None
         start_epoch, wait = 0, 0
         best_val_loss, best_val_dice = float("inf"), float("-inf")
         if resume_from:
@@ -191,7 +259,8 @@ class Trainer:
             wait = int(payload["wait"])
             best_val_loss = float(payload["best_val_loss"])
             best_val_dice = float(payload["best_val_dice"])
-            ckpt.best_val_loss, ckpt.best_val_dice = best_val_loss, best_val_dice
+            if ckpt is not None:
+                ckpt.best_val_loss, ckpt.best_val_dice = best_val_loss, best_val_dice
             if progress:
                 print(f"Resumed from {resume_from} at epoch {start_epoch}")
         epochs = max_epochs if max_epochs is not None else cfg.epochs
@@ -221,7 +290,8 @@ class Trainer:
                            "val_dice": vl["dice"], "val_pos_iou": vl["pos_iou"],
                            "lr": cfg.learn_rate, "epoch_time": epoch_time,
                            "train_time": train_time, "steps": len(train_hist)}
-                logger.log_metrics(metrics, step=epoch)
+                if logger is not None:
+                    logger.log_metrics(metrics, step=epoch)
                 history.append(metrics)
                 if progress:
                     print(f"epoch {epoch:4d}  tr_loss {tr['loss']:.4f}  val_loss "
@@ -231,18 +301,23 @@ class Trainer:
                 else:
                     wait += 1
                 best_val_dice = max(best_val_dice, vl["dice"])
-                state = export_state(self.model, self.optimizer)
-                payload = {"state": state, "epoch": epoch, "wait": wait,
-                           "best_val_loss": best_val_loss, "best_val_dice": best_val_dice}
-                weights = {"params": state["params"], "batch_stats": state["batch_stats"]}
-                ckpt.step(epoch, vl["loss"], vl["dice"], payload, weights)
+                # every rank takes part in gathering the ZeRO slices
+                if ckpt is not None or isinstance(self.optimizer, ZeroOptimizer):
+                    state = export_state(self.model, self.optimizer)
+                if ckpt is not None:
+                    payload = {"state": state, "epoch": epoch, "wait": wait,
+                               "best_val_loss": best_val_loss, "best_val_dice": best_val_dice}
+                    weights = {"params": state["params"], "batch_stats": state["batch_stats"]}
+                    ckpt.step(epoch, vl["loss"], vl["dice"], payload, weights)
+                self._barrier()
                 if wait >= cfg.overall:
                     stopped = True
                     if progress:
                         print(f"Early stopping at epoch {epoch} (patience {cfg.overall})")
                     break
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
         if progress:
             now = launches_by_dtype()
             counts = [f"{name} {dtype} {n - launched.get((name, dtype), 0)}"
@@ -251,6 +326,19 @@ class Trainer:
         return FitResult(epochs_run=epoch - start_epoch + 1, best_val_loss=best_val_loss,
                          best_val_dice=best_val_dice, stopped_early=stopped,
                          state=self.state, history=history)
+
+    def _describe_mesh(self) -> str:
+        text = ""
+        if self.mesh is not None:
+            text = (f"; mesh data {self.mesh.data} x spatial {self.mesh.spatial} "
+                    f"({dist.get_backend()})")
+        if isinstance(self.optimizer, ZeroOptimizer):
+            d = self.mesh.data if self.optimizer.mesh is not None else 1
+            share = estimate_zero_savings(moments_tree_shapes(self.model), d)
+            text += (f"; optimizer state {share:.1%} sharded over {d} data ranks"
+                     + (", in pinned host memory between steps" if self.cfg.offload_opt_state
+                        else ""))
+        return text
 
     # -- profiling ------------------------------------------------------------
 
@@ -288,10 +376,20 @@ class Trainer:
 
     def predict(self, loader: DataLoader):
         """Yield (logits, masks, valid, names) per batch, tensors on the
-        device (trainer.py:652-664)."""
+        device (trainer.py:652-664). Under a mesh each rank computes its
+        shard, and every rank yields the whole global batch."""
         for batch in loader:
             logs = self._eval_step(_array_batch(batch), return_logits=True)
-            yield logs["logits"], batch["mask"], batch["valid"], batch.get("names")
+            logits, masks, valid = logs["logits"], batch["mask"], batch["valid"]
+            names = batch.get("names")
+            if self.mesh is not None:
+                logits, masks = (self.mesh.all_gather(self.mesh.all_gather(t, SPATIAL_AXIS, 1),
+                                                      DATA_AXIS, 0) for t in (logits, masks))
+                valid = self.mesh.all_gather(valid, DATA_AXIS, 0)
+                parts = [None] * self.mesh.data
+                dist.all_gather_object(parts, names, group=self.mesh.group(DATA_AXIS))
+                names = [name for part in parts for name in part]
+            yield logits, masks, valid, names
 
     def restore_state(self, path: str, payload=None) -> TrainState:
         """Load a checkpoint (or its already loaded `payload`) into this
@@ -315,16 +413,29 @@ def train_net(params: ExperimentConfig, checkpoint: Optional[bool] = None,
               progress: bool = True, model: Optional[nn.Module] = None) -> Trainer:
     """Entry point mirroring the reference's train_net(params, checkpoint,
     model_parallel) (trainer.py:703-756). Returns the Trainer, with the fit's
-    result in `fit_result`. `model` replaces cfg.get_network()."""
-    if model_parallel:
-        raise NotImplementedError("model_parallel (meshes, ZeRO) is not ported yet")
+    result in `fit_result`. `model` replaces cfg.get_network(). Under torchrun
+    every rank calls it."""
     cfg = params
+    if model_parallel:
+        # MODEL_SHARD=True (trainer.py:716-728): bf16, ZeRO-sharded Adam state
+        # (offloaded with test_deepspeed) and, unless given, a mesh of the
+        # launched world that gives the data axis what the batch divides
+        cfg.precision = "bf16"
+        cfg.zero_shard_opt = True
+        if cfg.test_deepspeed:
+            cfg.offload_opt_state = True
+        if cfg.mesh_shape is None:
+            world = launched_world()[1]
+            data = math.gcd(cfg.b_size["train"], world)
+            cfg.mesh_shape = {"data": data, "spatial": world // data}
     trainer = Trainer(cfg, model)
     image_dtype = torch.bfloat16 if cfg.precision == "bf16" else None
-    train_loader = DataLoader(cfg.get_train_data(), cfg.b_size["train"], shuffle=True,
-                              seed=cfg.run_num, device=trainer.device, image_dtype=image_dtype)
-    val_loader = DataLoader(cfg.get_val_data(), cfg.b_size["val"], shuffle=False,
-                            device=trainer.device, image_dtype=image_dtype)
+    train_loader = DataLoader(cfg.get_train_data(), trainer.effective_batch(cfg.b_size["train"]),
+                              shuffle=True, seed=cfg.run_num, device=trainer.device,
+                              image_dtype=image_dtype, mesh=trainer.mesh)
+    val_loader = DataLoader(cfg.get_val_data(), trainer.effective_batch(cfg.b_size["val"]),
+                            shuffle=False, device=trainer.device, image_dtype=image_dtype,
+                            mesh=trainer.mesh)
     resume = find_resume_checkpoint(cfg.save_path) if checkpoint else None
     trainer.loaders = {"train": train_loader, "val": val_loader}
     trainer.fit_result = trainer.fit(train_loader, val_loader, resume_from=resume,

@@ -87,16 +87,25 @@ def load_jax_variables(model: nn.Module, params: dict,
     return model
 
 
+def flax_axes(module: nn.Module, ndim: int) -> tuple:
+    """For a leaf of `module` with `ndim` dimensions in torch's layout: the
+    torch dimension that each of its flax dimensions is, in flax's order."""
+    if isinstance(module, nn.Linear) and ndim == 2:
+        return (1, 0)  # (out, in) -> (in, out)
+    if ndim != 4:
+        return tuple(range(ndim))
+    if isinstance(module, ConvTransposeUp):
+        return (2, 3, 0, 1)  # (C, O, 2, 2) -> (2, 2, C, O), flipped below
+    return (2, 3, 1, 0)  # OIHW -> HWIO
+
+
 def _to_flax(module: nn.Module, value: np.ndarray) -> np.ndarray:
     """A conv or Dense weight (or anything of its layout: gradient, Adam
     moment) from torch's layout back to flax's; other leaves are unchanged."""
-    if isinstance(module, nn.Linear) and value.ndim == 2:
-        return np.transpose(value)  # (out, in) -> (in, out)
-    if value.ndim != 4:
-        return value
-    if isinstance(module, ConvTransposeUp):
-        return np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]  # (C,O,2,2) -> unflipped HWIO
-    return np.transpose(value, (2, 3, 1, 0))  # OIHW -> HWIO
+    value = np.transpose(value, flax_axes(module, value.ndim))
+    if isinstance(module, ConvTransposeUp) and value.ndim == 4:
+        return value[::-1, ::-1]  # the unflipped kernel of lax.conv_transpose
+    return value
 
 
 def _nest(flat: Dict[str, np.ndarray]) -> dict:
@@ -117,6 +126,10 @@ def export_flax_trees(model: nn.Module,
     conv-transpose flip). Keys: "params", "batch_stats", "grads" (parameters
     that hold a gradient) and, given a torch.optim.Adam, "mu" and "nu" (its
     first and second moments, optax's names)."""
+    return _flax_trees(model, _optimizer_states(optimizer))
+
+
+def _flax_trees(model: nn.Module, states: dict) -> Dict[str, dict]:
     flat: Dict[str, Dict[str, np.ndarray]] = {
         k: {} for k in ("params", "batch_stats", "grads", "mu", "nu")}
 
@@ -134,11 +147,22 @@ def export_flax_trees(model: nn.Module,
                 continue
             if tensor.grad is not None:
                 put("grads", path, module, tensor.grad)
-            state = optimizer.state.get(tensor, {}) if optimizer is not None else {}
+            state = states.get(tensor, {})
             if "exp_avg" in state:
                 put("mu", path, module, state["exp_avg"])
                 put("nu", path, module, state["exp_avg_sq"])
     return {kind: _nest(leaves) for kind, leaves in flat.items()}
+
+
+def _optimizer_states(optimizer) -> dict:
+    """{parameter: its optimizer state, whole}: a torch optimizer's `state`,
+    or a ZeroOptimizer's slices gathered over the mesh (a collective: every
+    rank of the mesh calls it)."""
+    if optimizer is None:
+        return {}
+    if hasattr(optimizer, "full_state"):
+        return optimizer.full_state()
+    return optimizer.state
 
 
 def _tensors(tree):
@@ -152,10 +176,11 @@ def export_state(model: nn.Module, optimizer: Optional[torch.optim.Optimizer] = 
     """A checkpoint's state: "params" and "batch_stats" under flax paths and
     layouts, and with an Adam optimizer its moments "mu", "nu" and step
     count "count" (optax's names), all as CPU tensors."""
-    trees = export_flax_trees(model, optimizer)
+    states = _optimizer_states(optimizer)
+    trees = _flax_trees(model, states)
     state = {k: _tensors(trees[k]) for k in ("params", "batch_stats")}
     if optimizer is not None and trees["mu"]:
-        steps = {float(st["step"]) for st in optimizer.state.values() if "step" in st}
+        steps = {float(st["step"]) for st in states.values() if "step" in st}
         if len(steps) != 1:
             raise ValueError(f"Adam parameters at different step counts: {sorted(steps)}")
         state.update(mu=_tensors(trees["mu"]), nu=_tensors(trees["nu"]),
@@ -179,6 +204,9 @@ def load_adam_moments(model: nn.Module, optimizer: torch.optim.Optimizer, mu: di
                 value = flat[path] if transform is None else transform(flat[path])
                 return torch.tensor(np.ascontiguousarray(value, dtype=np.float32)).to(param)
 
-            optimizer.state[param] = {"step": torch.tensor(float(count)),
-                                      "exp_avg": moment(flat_mu),
-                                      "exp_avg_sq": moment(flat_nu)}
+            state = {"step": torch.tensor(float(count)), "exp_avg": moment(flat_mu),
+                     "exp_avg_sq": moment(flat_nu)}
+            if hasattr(optimizer, "load_full_state"):
+                optimizer.load_full_state(param, state)   # ZeroOptimizer keeps its slices
+            else:
+                optimizer.state[param] = state

@@ -94,7 +94,9 @@ def test_kfold_train_then_validate(tree, saved, capsys):
 
 
 @pytest.mark.parametrize("argv, why", [
-    (["kfold_train", "--model-shard"], "not ported"),
+    (["kfold_train", "--model-shard", "--offload"],
+     "--offload is a SpectralUNET training mode \\(per-pixel model\\); current model is "
+     "CubeNET"),
     (["kfold_train", "--chunks", "2"],
      "--chunks is a SpectralUNET training mode \\(per-pixel model\\); current model is "
      "CubeNET"),

@@ -64,6 +64,9 @@ import hyperpri_tpu_torch.data.native_io
 import hyperpri_tpu_torch.data.disk_cache
 import hyperpri_tpu_torch.train.torch_import
 import hyperpri_tpu_torch.train.torch_export
+import hyperpri_tpu_torch.parallel.mesh
+import hyperpri_tpu_torch.parallel.sharding
+import hyperpri_tpu_torch.parallel.spatial_conv
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
                                     "hyperpri_tpu", "PIL", "matplotlib", "ml_dtypes"))

@@ -126,7 +126,7 @@ def test_bf16_config_takes_the_kernel_route(tree, tmp_path_factory):
     assert fp32.ingest_spec(608, 968) == ((610, 970, 256), (1, 1), (608, 968, 238))
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(ExpHyperspectralPRI(calling_path=cfg.calling_path, device="cpu",
-                                    mesh_shape={"data": 2}))
+                                    comet_logging=True))
     # SpectralUNET builds (no kernel route); UNET+ builds UNet with the skip*x merge
     spectral = ExpHyperspectralPRI(calling_path=cfg.calling_path, precision="bf16",
                                    model_name="SpectralUNET", spectral_bn_size=16).get_network()
